@@ -1,0 +1,26 @@
+"""Mel-frame encoder (``convofusion_tpu/models/audioenc.py:20-36``): an MLP
+Linear 80->256 -> LeakyReLU(0.1) -> Linear 256->512 -> LeakyReLU(0.1) ->
+Linear out.  Names follow the reference ``main`` Sequential (dropouts at
+1 and 4 are the identity at inference)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from convofusion_tpu_torch.ops.layers import Linear
+
+
+class AudioConvEncoder(nn.Module):
+    def __init__(self, input_size: int = 80, hidden_size: int = 256,
+                 latent_dim: int = 512, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.main = nn.Sequential(
+            Linear(input_size, hidden_size, dtype=dtype), nn.Identity(),
+            nn.LeakyReLU(0.1),
+            Linear(hidden_size, latent_dim, dtype=dtype), nn.Identity(),
+            nn.LeakyReLU(0.1))
+        self.out_net = Linear(latent_dim, latent_dim, dtype=dtype)
+
+    def forward(self, x):
+        """x (B, T_mel, n_mels) -> (B, T_mel, latent_dim)."""
+        return self.out_net(self.main(x))
