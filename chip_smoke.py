@@ -9,18 +9,23 @@ Phases, each raising on failure (non-zero exit, no result line):
   3. kernel  - at the main path's B=96 shapes, every kernel against its
                plain PyTorch version on the card (DDPM mid, DDPM final,
                DDIM; fp32 and bf16 branch planes), max |diff| <= 1e-5;
-               CUDA-event medians of kernel and plain version
+               CUDA-event times of kernel (L2 flushed, and back to back)
+               and plain version; then the step kernel's tile and block
+               size sweep at the main path's case (bf16 planes, DDIM)
   4. parity  - production geometry, fp32, batch 2, DDIM-50, seeded weights,
                numpy-made inputs and noise: sample() on the card (through
                the kernel) against sample() on the CPU (plain version)
   5. main    - production geometry, bf16, batch 96, DDIM-50, 7-way
                guidance through Convofusion.sample: one warm-up and three
                timed calls; (96, 128, 189) finite motion and exactly 50
-               kernel launches per call; clips/s, ms/call, peak memory, and
-               one call split into encode / reverse / decode
+               kernel launches per call; clips/s, ms/call, peak memory,
+               one call split into encode / reverse / decode, and a
+               profile of a few reverse steps, which gives the step
+               kernel's device time inside the loop (in_path_us)
 Then a JSON line of per-kernel numbers and, last, the result line
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -44,7 +49,11 @@ from convofusion_tpu_torch.ops import guided_step as gs_mod
 BATCH, STEPS, TIMED_CALLS = 96, 50, 3   # bench.py:26-29 (batch, steps)
 KERNEL_TOL = 1e-5
 TIMING_RUNS = 200
-PROFILE_STEPS = 2
+PROFILE_STEPS = 5
+# the step kernel's (elements a block, threads a block) at the main path's
+# case: 192, 128 and 96 blocks at B = 96 on the card's 132 SMs
+SWEEP = [(tile, threads) for tile in (1024, 1536, 2048)
+         for threads in (128, 256)]
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # fp32 (non-tensor-core) flop/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -135,42 +144,66 @@ def step_bound_ms(np7, latents, reads_noise):
                                  "operations")
 
 
-def phase_kernel():
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    shape = (BATCH, 16, PRODUCTION["latent_dim"][1])
-    np7_f32 = torch.randn((7,) + shape, generator=gen, device=dev)
-    lat = torch.randn(shape, generator=gen, device=dev)
-    noise = torch.randn(shape, generator=gen, device=dev)
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+@contextlib.contextmanager
+def step_geometry(tile, threads):
+    """guided_step launches with bf16 branch planes at this tile and block
+    size while the context is open."""
+    saved = gs_mod.TILE, gs_mod.THREADS
+    gs_mod.TILE, gs_mod.THREADS = {**saved[0], 2: tile}, threads
+    try:
+        yield
+    finally:
+        gs_mod.TILE, gs_mod.THREADS = saved
+
+
+def kernel_error(args) -> float:
+    """max |kernel - plain version| on the card; raises above KERNEL_TOL."""
+    got = gs_mod.guided_step(*args)
+    torch.cuda.synchronize()
+    want = gs_mod.guided_step_reference(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= KERNEL_TOL:
+        raise RuntimeError(f"guided_step {args[0].dtype} {args[3:]}: max "
+                           f"|diff| {err} > {KERNEL_TOL}")
+    return err
+
+
+def step_inputs(dtype=torch.bfloat16, batch=BATCH):
+    """Seeded (7, B, 16, 128) branch planes, latents and noise on the card,
+    and the three step cases (alpha_t, alpha_prev, is_ddpm, add_noise)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (batch, 16, PRODUCTION["latent_dim"][1])
+    np7 = torch.randn((7,) + shape, generator=gen, device="cuda").to(dtype)
+    lat = torch.randn(shape, generator=gen, device="cuda")
+    noise = torch.randn(shape, generator=gen, device="cuda")
     table = DiffusionScheduler().alphas_cumprod
     cases = {
-        # name: (alpha_t, alpha_prev, is_ddpm, add_noise)
         "ddpm_mid": (table[500], table[480], 1.0, 1.0),
         "ddpm_final": (table[0], 1.0, 1.0, 0.0),
         "ddim": (table[980], table[960], 0.0, 1.0),
     }
+    return np7, lat, noise, {
+        name: (float(a_t), float(a_prev), PRODUCTION["guidance_scale"],
+               is_ddpm, add_noise, 1.0)
+        for name, (a_t, a_prev, is_ddpm, add_noise) in cases.items()}
+
+
+def phase_kernel():
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     rows, max_err = {}, 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        np7 = np7_f32.to(dtype)
-        for name, (a_t, a_prev, is_ddpm, add_noise) in cases.items():
-            args = (np7, lat, noise, float(a_t), float(a_prev),
-                    PRODUCTION["guidance_scale"], is_ddpm, add_noise, 1.0)
-            got = gs_mod.guided_step(*args)
-            torch.cuda.synchronize()
-            want = gs_mod.guided_step_reference(*args)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if not err <= KERNEL_TOL:
-                raise RuntimeError(f"guided_step {name} {dtype}: max |diff| "
-                                   f"{err} > {KERNEL_TOL}")
+        np7, lat, noise, cases = step_inputs(dtype)
+        for name, scalars in cases.items():
+            args = (np7, lat, noise) + scalars
+            err = kernel_error(args)
             max_err = max(max_err, err)
             ms = _event_median_ms(lambda: gs_mod.guided_step(*args), flush)
             warm_ms = _back_to_back_ms(lambda: gs_mod.guided_step(*args))
             plain_ms = _event_median_ms(
                 lambda: gs_mod.guided_step_reference(*args), flush)
             bound, bound_by = step_bound_ms(
-                np7, lat, is_ddpm > 0 and add_noise > 0)
+                np7, lat, scalars[3] > 0 and scalars[4] > 0)
             key = f"{name}/{str(dtype).split('.')[-1]}"
             rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=bound_by)
@@ -179,6 +212,18 @@ def phase_kernel():
                 f"us)  plain "
                 f"{plain_ms * 1e3:.2f} us  bound {bound * 1e3:.2f} us "
                 f"({bound_by})")
+
+    # the sweep, at the main path's case: bf16 planes, DDIM
+    args = (np7, lat, noise) + cases["ddim"]
+    for tile, threads in SWEEP:
+        with step_geometry(tile, threads):
+            err = kernel_error(args)
+            ms = _event_median_ms(lambda: gs_mod.guided_step(*args), flush)
+            warm_ms = _back_to_back_ms(lambda: gs_mod.guided_step(*args))
+        log(f"# sweep guided_step ddim/bfloat16 tile {tile} threads "
+            f"{threads} ({-(-lat.numel() // tile)} blocks): max|diff| "
+            f"{err:.3g}  kernel {ms * 1e3:.2f} us  back to back "
+            f"{warm_ms * 1e3:.2f} us")
     return rows, max_err
 
 
@@ -308,7 +353,10 @@ def phase_main(smi):
         f"{sum(e.count for e in kernels) // PROFILE_STEPS} kernels a step")
     for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
         log(f"#   {_device_us(e) / 1e3:8.3f} ms {e.count:6d}x  {e.key[:100]}")
-    return launches
+    in_path_us = kernel_in_path_us(kernels, PROFILE_STEPS)
+    log(f"# profile: guided_step in the loop: {in_path_us:.2f} us a launch "
+        f"(device time over the {PROFILE_STEPS} launches)")
+    return launches, in_path_us
 
 
 def _device_us(event):
@@ -316,12 +364,23 @@ def _device_us(event):
     return event.self_device_time_total
 
 
+def kernel_in_path_us(kernels, expected) -> float:
+    """The step kernel's device time a launch, from the profiler's kernel
+    rows of a reverse loop that launched it ``expected`` times."""
+    rows = [e for e in kernels if "guided_step_kernel" in e.key]
+    count = sum(e.count for e in rows)
+    if count != expected:
+        raise RuntimeError(f"profile shows {count} guided_step launches, "
+                           f"want {expected}")
+    return sum(_device_us(e) for e in rows) / count
+
+
 def main():
     smi = phase_device()
     phase_build()
     rows, max_err = phase_kernel()
     phase_parity()
-    launches = phase_main(smi)
+    launches, in_path_us = phase_main(smi)
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{
@@ -336,6 +395,7 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "in_path_us": in_path_us,
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

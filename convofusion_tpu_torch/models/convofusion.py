@@ -82,7 +82,10 @@ class Convofusion(nn.Module):
         self.text_encoder = T5TextEncoder(**te, dtype=dtype)
         self.audio_encoder = AudioConvEncoder(**cfg["audio_encoder"],
                                               dtype=dtype)
-        self.condition_fuser = TextAudioMotionFuser(out_dim=d, dtype=dtype)
+        # the JAX model builds its fuser without a compute dtype
+        # (convofusion_tpu/models/convofusion.py:146-147): its embedding
+        # rows stay fp32 in a bf16 model
+        self.condition_fuser = TextAudioMotionFuser(out_dim=d)
         self.denoiser = Denoiser(latent_dim=self.latent_dim,
                                  **cfg["denoiser"], dtype=dtype)
         self.scheduler = scheduler_from_config(cfg["scheduler"],
