@@ -22,15 +22,35 @@ Phases, each raising on failure (non-zero exit, no result line):
                one call split into encode / reverse / decode, and a
                profile of a few reverse steps, which gives the step
                kernel's device time inside the loop (in_path_us)
-Then a JSON line of per-kernel numbers and, last, the result line
-{"ok": true, "device": {...}}.
+  6. weg_parity - production geometry, fp32, batch 2, DDIM-10, word-
+               excitation guidance (WEG) with focus words on both rows,
+               numpy-made inputs and noise: sample(focus=...) on the card
+               against the CPU, with the config's WEG parameters and with
+               the refinement forced at step 0; refinement iterations and
+               text-only passes must be equal on both sides
+  7. serve   - production geometry, bf16, batch 96, DDIM-50, WEG on,
+               through build_service and GestureService: 2 x 96 requests
+               from client threads (most with 1-3 focus words of their own
+               text), a few more through serve_http on a loopback port;
+               (128, 189) finite motion for every request, exactly 50
+               kernel launches per micro-batch; batch ms, requests/s,
+               latency p50/p95, occupancy, peak memory, WEG counts per
+               batch; then direct sample() calls on one assembled batch
+               with and without focus, for WEG's own cost and the
+               pipeline's
+Then a JSON line of per-kernel numbers (launches summed over phases 5-7,
+and each phase's count under launches_by_phase)
+and, last, the result line {"ok": true, "device": {...}}.
 """
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -43,8 +63,14 @@ from convofusion_tpu_torch.data.synthetic import (
     prepare_arrays,
     synthetic_raw_batch,
 )
-from convofusion_tpu_torch.models.convofusion import Convofusion
+from convofusion_tpu_torch.models.convofusion import Convofusion, to_tensors
+from convofusion_tpu_torch.models.tokenizer import focus_word_indices
 from convofusion_tpu_torch.ops import guided_step as gs_mod
+from convofusion_tpu_torch.serving import (
+    GestureRequest,
+    build_service,
+    serve_http,
+)
 
 BATCH, STEPS, TIMED_CALLS = 96, 50, 3   # bench.py:26-29 (batch, steps)
 KERNEL_TOL = 1e-5
@@ -63,6 +89,16 @@ PEAK_FP32_FLOPS = 67e12
 STEP_FLOPS_PER_ELEMENT = 20
 # card-vs-CPU fp32 motion after 50 guided steps: see phase_parity
 PARITY_ATOL = 1e-3
+# phase 6: DDIM-10 with WEG; the tolerance is argued in phase_weg_parity
+WEG_STEPS = 10
+WEG_PARITY_ATOL = 1e-3
+WEG_LATENT_ATOL = 2e-3
+# the refinement forced at step 0: the loop runs to its bound on both sides
+WEG_FORCED = {"thresholds": {0: 0.99}, "max_refinement_steps": 5}
+# phase 7: requests a client thread submits, and the HTTP requests
+SERVE_CLIENTS, SERVE_HTTP_REQUESTS = 8, 4
+# every Nth service request carries no focus words
+NO_FOCUS_EVERY = 5
 
 
 def log(*args):
@@ -276,6 +312,299 @@ def phase_parity():
     return dm
 
 
+def focus_words(texts, rng):
+    """1-3 distinct words of each text as its focus words; every
+    NO_FOCUS_EVERY-th text none."""
+    out = []
+    for i, text in enumerate(texts):
+        words = sorted(set(text.split()))
+        if i % NO_FOCUS_EVERY == NO_FOCUS_EVERY - 1:
+            out.append(())
+            continue
+        k = min(int(rng.integers(1, 4)), len(words))
+        out.append(tuple(str(w) for w in rng.choice(words, size=k,
+                                                     replace=False)))
+    return out
+
+
+def phase_weg_parity(device="cuda"):
+    """sample(focus=...) on the card and on the CPU from the same seeded
+    weights, inputs and noise, fp32, TF32 off.  Besides the GEMM order
+    (phase 4), each WEG step moves the latents by ~1000 x the gradient of
+    the focus loss, and the focus-column gather's backward adds with
+    atomics on the card, so the card's gradient is not bit-reproducible;
+    the refinement counts must still agree.  On an H100 the motion (|motion|
+    <= 4.2) differed by 2.7e-5 with the config's parameters and 3.1e-5
+    with the refinement forced: WEG_PARITY_ATOL leaves 30x headroom.  The
+    latents, where WEG's gradient steps land, differed by 2.0e-4 and
+    2.1e-4: WEG_LATENT_ATOL leaves ~10x headroom.  Returns the larger max
+    |motion diff| of the two runs."""
+    b = 2
+    raw = synthetic_raw_batch(31, b, mel_frames=PRODUCTION["mel_frames"])
+    init, steps = _noise(np.random.default_rng(32), WEG_STEPS,
+                         (b, 16, PRODUCTION["latent_dim"][1]))
+    words = focus_words(raw["text_lsn"], np.random.default_rng(33))
+    words = [w or tuple(t.split()[:1]) for w, t in zip(words,
+                                                       raw["text_lsn"])]
+    runs = {}
+    for side in (device, "cpu"):
+        model = Convofusion(PRODUCTION, dtype="float32", device=side,
+                            seed=0)
+        batch, _, tb_lsn = prepare_arrays(model, raw)
+        fi, fv = focus_word_indices(
+            tb_lsn.word_map(model.tokenizer.wrapped_texts(raw["text_lsn"])),
+            [list(w) for w in words], max_indices=8)
+        for name, params in (("config", None), ("forced", WEG_FORCED)):
+            t0 = time.perf_counter()
+            model.weg_counts = type(model.weg_counts)()
+            launches = gs_mod.guided_step.launches
+            motion, latents = model.sample(
+                batch, num_inference_steps=WEG_STEPS, init_noise=init,
+                step_noise=steps, focus={"focus_idx": fi,
+                                         "focus_valid": fv},
+                weg_params=params)
+            if side != "cpu" and gs_mod.guided_step.launches - launches \
+                    != WEG_STEPS:
+                raise RuntimeError("WEG parity run on the card missed the "
+                                   "kernel")
+            runs[side, name] = (motion.float().cpu(), latents.cpu(),
+                                model.weg_counts)
+            log(f"# weg_parity: {name} parameters on {side}: "
+                f"{time.perf_counter() - t0:.1f} s, {model.weg_counts}")
+        del model
+    log(f"# weg_parity: focus words {words}, valid columns "
+        f"{fv.sum(axis=1).tolist()}")
+    worst = 0.0
+    for name in ("config", "forced"):
+        (m_gpu, l_gpu, c_gpu), (m_cpu, l_cpu, c_cpu) = (
+            runs[device, name], runs["cpu", name])
+        for t in (m_gpu, m_cpu):
+            if t.shape != (b, 128, 189) or not torch.isfinite(t).all():
+                raise RuntimeError(f"WEG parity motion {tuple(t.shape)} not "
+                                   f"finite or misshapen")
+        if c_gpu != c_cpu:
+            raise RuntimeError(f"WEG counts differ: card {c_gpu}, CPU "
+                               f"{c_cpu}")
+        dm = float((m_gpu - m_cpu).abs().max())
+        dl = float((l_gpu - l_cpu).abs().max())
+        log(f"# weg_parity: {name}: fp32 DDIM-{WEG_STEPS} batch {b} card vs "
+            f"CPU: refinement iterations at step 0 {c_gpu.refinement_iterations}"
+            f" / {c_cpu.refinement_iterations}, text-only passes "
+            f"{c_gpu.text_only_passes} / {c_cpu.text_only_passes}; max|motion "
+            f"diff| {dm:.3g} (|motion| <= {float(m_cpu.abs().max()):.3g}), "
+            f"max|latent diff| {dl:.3g}; tolerances {WEG_PARITY_ATOL} "
+            f"(motion), {WEG_LATENT_ATOL} (latents)")
+        if not dm <= WEG_PARITY_ATOL:
+            raise RuntimeError(f"WEG card vs CPU motion differ by {dm}")
+        if not dl <= WEG_LATENT_ATOL:
+            raise RuntimeError(f"WEG card vs CPU latents differ by {dl}")
+        worst = max(worst, dm)
+    return worst
+
+
+def _serve_requests(n, seed):
+    raw = synthetic_raw_batch(seed, n, mel_frames=PRODUCTION["mel_frames"])
+    words = focus_words(raw["text_lsn"], np.random.default_rng(seed + 1))
+    return [GestureRequest(
+        text_lsn=raw["text_lsn"][i], text_spk=raw["text_spk"][i],
+        melspec=raw["melspec_lsn"][i],
+        active_passive=raw["active_passive_lsn"][i],
+        lsn_id=int(raw["lsn_id"][i]), focus_words=words[i])
+        for i in range(n)]
+
+
+def _submit_from_clients(svc, reqs, clients):
+    """Each client thread submits its share, then waits on its futures.
+    Returns the motions in request order and the wall time."""
+    out = [None] * len(reqs)
+    errors = []
+
+    def client(c):
+        try:
+            futs = [(i, svc.submit(reqs[i]))
+                    for i in range(c, len(reqs), clients)]
+            for i, fut in futs:
+                out[i] = fut.result(timeout=600)
+        except Exception as e:  # re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise RuntimeError(f"service clients failed: {errors[:1]}")
+    return out, wall
+
+
+def _check_served(motions, what):
+    for m in motions:
+        if m is None or m.shape != (128, 189) or not np.isfinite(m).all():
+            raise RuntimeError(f"{what}: a request resolved to "
+                               f"{None if m is None else m.shape} or to "
+                               f"non-finite motion")
+
+
+def _post(url, req):
+    body = json.dumps({
+        "text_lsn": req.text_lsn, "text_spk": req.text_spk,
+        "melspec": req.melspec.tolist(),
+        "active_passive": req.active_passive.tolist(),
+        "lsn_id": req.lsn_id, "focus_words": list(req.focus_words)}).encode()
+    with urllib.request.urlopen(urllib.request.Request(
+            f"{url}/generate", data=body,
+            headers={"Content-Type": "application/json"}),
+            timeout=600) as resp:
+        return np.asarray(json.loads(resp.read())["motion"], np.float32)
+
+
+def phase_serve(smi, device=None):
+    """The production service with WEG at batch 96 through its own entry
+    points.  Returns the step-kernel launches after the warm-up batch:
+    the service's batches and the 4 direct calls."""
+    cfg = copy.deepcopy(PRODUCTION)
+    cfg["serve"].update(batch_size=BATCH, max_wait_ms=1000.0)
+    cfg["scheduler"]["num_inference_timesteps"] = STEPS
+    cfg["weg_type"] = "semantic"
+    svc = build_service(cfg, dtype="bfloat16", device=device)
+    on_card = svc.model.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        # warm-up: one full batch, then the counters start at 0
+        warm, _ = _submit_from_clients(svc, _serve_requests(BATCH, 40),
+                                       SERVE_CLIENTS)
+        _check_served(warm, "serve warm-up")
+        svc.reset_stats()
+        gs_mod.guided_step.launches = 0
+        reqs = _serve_requests(2 * BATCH, 41)
+        motions, wall = _submit_from_clients(svc, reqs, SERVE_CLIENTS)
+        _check_served(motions, "serve")
+        st = svc.stats()
+        launches = gs_mod.guided_step.launches
+        if st["requests"] != 2 * BATCH or \
+                (on_card and launches != STEPS * st["batches"]):
+            raise RuntimeError(f"serve: {st['requests']} requests in "
+                               f"{st['batches']} batches with {launches} "
+                               f"kernel launches, want {STEPS} a batch")
+        n_focus = sum(bool(r.focus_words) for r in reqs)
+        log(f"# serve: bf16 batch {BATCH} DDIM-{STEPS} WEG on {smi}: "
+            f"{st['requests']} requests ({n_focus} with focus words) from "
+            f"{SERVE_CLIENTS} client threads in {st['batches']} batches, "
+            f"{wall * 1e3:.1f} ms wall, {st['requests'] / wall:.2f} "
+            f"requests/s; batch {st['batch_ms_p50']:.1f} ms (p50), latency "
+            f"p50 {st['latency_p50_ms']:.1f} ms p95 "
+            f"{st['latency_p95_ms']:.1f} ms, occupancy "
+            f"{st['occupancy']:.3f}; a batch: "
+            f"{st['text_only_passes'] / st['batches']:.1f} text-only "
+            f"passes, {st['refinement_iterations'] / st['batches']:.1f} "
+            f"refinement iterations, {launches / st['batches']:.1f} kernel "
+            f"launches")
+
+        # a few requests over HTTP on a loopback port
+        server = serve_http(svc, port=0)
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        try:
+            host, port = server.server_address[:2]
+            url = f"http://{host}:{port}"
+            http_reqs = _serve_requests(SERVE_HTTP_REQUESTS, 42)
+            got = [None] * len(http_reqs)
+
+            def post(i):
+                got[i] = _post(url, http_reqs[i])
+
+            t0 = time.perf_counter()
+            posters = [threading.Thread(target=post, args=(i,))
+                       for i in range(len(http_reqs))]
+            for p in posters:
+                p.start()
+            for p in posters:
+                p.join(timeout=600)
+            http_ms = (time.perf_counter() - t0) * 1e3
+            _check_served(got, "serve over HTTP")
+            with urllib.request.urlopen(f"{url}/stats", timeout=60) as resp:
+                http_st = json.loads(resp.read())
+            if http_st["requests"] != 2 * BATCH + SERVE_HTTP_REQUESTS:
+                raise RuntimeError(f"GET /stats counts {http_st['requests']}"
+                                   f" requests")
+        finally:
+            server.shutdown()
+            server.server_close()
+            th.join(timeout=60)
+        log(f"# serve: {SERVE_HTTP_REQUESTS} requests over HTTP in "
+            f"{http_ms:.1f} ms; GET /stats: {http_st['requests']} requests, "
+            f"{http_st['batches']} batches, occupancy "
+            f"{http_st['occupancy']:.3f}")
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+        # one assembled batch straight through sample(), with and without
+        # focus: WEG's own cost, and the pipeline's against the batch time
+        arrays, focus = svc._build(reqs[:BATCH])
+        model, gen = svc.model, torch.Generator(device=svc.model.device)
+        gen.manual_seed(43)
+        sampler = model.cached_sampler(num_inference_steps=STEPS)
+        direct = {}
+        for name, f in (("with focus", focus), ("without focus", None),
+                        ("with focus", focus), ("without focus", None)):
+            t0 = time.perf_counter()
+            motion, _ = sampler(to_tensors(arrays, model.device), gen,
+                                focus=f)
+            if on_card:
+                torch.cuda.synchronize()
+            direct.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            _check_served(list(motion.float().cpu().numpy()), "direct")
+        launches = gs_mod.guided_step.launches
+        if on_card and launches != STEPS * (http_st["batches"] + 4):
+            raise RuntimeError(f"serve: {launches} kernel launches over "
+                               f"{http_st['batches']} service batches and 4 "
+                               f"direct calls")
+        log(f"# serve: direct sample() of one assembled batch: with focus "
+            f"{direct['with focus']} ms, without {direct['without focus']} "
+            f"ms; the service's batch {st['batch_ms_p50']:.1f} ms (p50); "
+            f"peak memory {peak / 2**30:.2f} GiB")
+        if on_card:
+            profile_weg(model, to_tensors(arrays, model.device), focus, gen,
+                        sampler.uncond_for(to_tensors(arrays,
+                                                      model.device)))
+    finally:
+        svc.close()
+    return launches
+
+
+def profile_weg(model, batch, focus, gen, uncond):
+    """PROFILE_STEPS-step sample() calls on one batch with and without
+    focus under the profiler: the difference is what WEG adds to a step
+    (kernels and device time); busy over wall is the card's share."""
+    rows = {}
+    for name, f in (("with focus", focus), ("without focus", None)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.sample(batch, gen, PROFILE_STEPS, uncond_cache=uncond,
+                         focus=f)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+        count = sum(e.count for e in kernels)
+        rows[name] = (wall_ms, busy_ms, count)
+        log(f"# profile: sample() of {PROFILE_STEPS} steps {name}: wall "
+            f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+            f"({busy_ms / wall_ms:.1%}), {count} kernels")
+    (w1, b1, c1), (w0, b0, c0) = rows["with focus"], rows["without focus"]
+    log(f"# profile: WEG adds a step {(c1 - c0) / PROFILE_STEPS:.0f} "
+        f"kernels, {(b1 - b0) / PROFILE_STEPS:.1f} ms of device time and "
+        f"{(w1 - w0) / PROFILE_STEPS:.1f} ms of wall (under the profiler)")
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -380,7 +709,12 @@ def main():
     phase_build()
     rows, max_err = phase_kernel()
     phase_parity()
-    launches, in_path_us = phase_main(smi)
+    by_phase = {}
+    by_phase["main"], in_path_us = phase_main(smi)
+    gs_mod.guided_step.launches = 0
+    phase_weg_parity()
+    by_phase["weg_parity"] = gs_mod.guided_step.launches
+    by_phase["serve"] = phase_serve(smi)
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{
@@ -388,7 +722,8 @@ def main():
         "route": "cuda",
         "source": "convofusion_tpu_torch/csrc/guided_step.cu",
         "replaces": "convofusion_tpu/ops/pallas_step.py:36",
-        "launches": launches,
+        "launches": sum(by_phase.values()),
+        "launches_by_phase": by_phase,
         "max_abs_err": max_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -3,14 +3,19 @@
 Layers, entry point down to the device (each module's counterpart keeps its
 path in ``convofusion_tpu/``):
 
-  models/convofusion.py   Convofusion.sample: encode -> reverse -> decode
+  serving.py              GestureService (micro-batching, three threads),
+                          serve_http, build_service, the CLI
+  models/convofusion.py   Convofusion.sample: encode -> reverse -> decode;
+                          CachedSampler
+  models/weg.py           word-excitation guidance (loss, refinement)
   models/t5.py, audioenc.py, condfuser.py
                           condition encoders (T5 trunk x2, mel MLP, fuser)
   models/denoiser.py      7-branch guided denoiser
   models/vae.py           chunked body/hands VAE decoder
   diffusion/schedulers.py DDPM / DDIM tables and the plain step
   ops/                    attention, transformer blocks, embeddings,
-                          positional encodings, the fused step kernel
+                          positional encodings, smoothing kernel, the
+                          fused step kernel
   csrc/                   hand-written CUDA kernels (sm_90a)
   compat/from_jax.py      JAX parameter tree -> port state_dict
   data/synthetic.py       seeded synthetic batches

@@ -4,8 +4,10 @@
 ``convofusion_tpu/config/defaults/config_cf_beatdnd.yaml`` with its module
 files ``modules/{denoiser,motion_vae,text_encoder,audio_encoder,
 scheduler}.yaml``; ``TINY`` is the small geometry of
-``convofusion_tpu/config/testing.py:10-36`` (``tiny_config('diffusion')``).
-Sub-dicts are the constructor arguments of the port's modules.
+``convofusion_tpu/config/testing.py:10-36`` (``tiny_config('diffusion')``),
+with WEG off.  Sub-dicts are the constructor arguments of the port's
+modules; ``weg_parameters`` and ``serve`` are read by the sampler and the
+service.
 """
 from __future__ import annotations
 
@@ -66,6 +68,29 @@ PRODUCTION = {
         "beta_schedule": "scaled_linear",
         "clip_sample": True,
     },
+    # word-excitation guidance: TRAIN.ABLATION.WEG_TYPE
+    # (config_cf_beatdnd.yaml:19); any value but 'no' runs it
+    "weg_type": "semantic",
+    "weg_parameters": {            # assets.yaml:17-22
+        "scale_factor": 1000,
+        "scale_range": [1.0, 0.5],
+        "max_iter_to_alter": 800,
+        # reverse-step index -> refinement threshold
+        "thresholds": {0: 0.05, 200: 0.4, 400: 0.6, 600: 0.8},
+        "max_refinement_steps": 300,
+    },
+    # the service's knobs as convofusion_tpu/serving.py:520-532 resolves
+    # them with no SERVE block; its steps are the scheduler's
+    # num_inference_timesteps (:526-527)
+    "serve": {
+        "batch_size": 32,          # TEST.BATCH_SIZE (config_cf_beatdnd.yaml:36)
+        "max_wait_ms": 25.0,       # serving.py:525
+        "max_queue": None,         # serving.py:530-531: 8 x batch_size
+        "seed": 1234,              # SEED_VALUE (base.yaml:3), serving.py:529
+        "weg_max_focus": 8,        # serving.py:121
+        "host": "127.0.0.1",       # serving.py:549
+        "port": 8476,              # serving.py:550
+    },
 }
 
 
@@ -81,6 +106,7 @@ def _tiny():
     cfg["audio_encoder"].update(latent_dim=64)
     # testing.py leaves modules/scheduler.yaml as it is: DDPM, 1000 steps
     cfg["scheduler"].update(variant="ddpm", num_inference_timesteps=1000)
+    cfg["weg_type"] = "no"         # base.yaml:34
     return cfg
 
 

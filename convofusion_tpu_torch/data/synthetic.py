@@ -3,13 +3,14 @@
 ``synthetic_raw_batch`` and its helpers are a copy of
 ``convofusion_tpu/data/synthetic.py:14-67`` (numpy, seeded), so both
 packages draw identical batches from one seed.  ``prepare_arrays`` mirrors
-``:109-122`` with ``Convofusion.prepare_text_batch`` and returns torch
-tensors on the model's device.
+``:109-122`` with ``Convofusion.prepare_text_batch`` and returns torch tensors
+on the model's device.
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+from convofusion_tpu_torch.models.convofusion import to_tensors
 
 _WORDS = (
     "the quick brown fox jumps over a lazy dog while we talk about maps "
@@ -69,15 +70,10 @@ def synthetic_raw_batch(seed: int, batch: int, frames: int = 128,
 def prepare_arrays(model, raw):
     """Raw (strings + numpy) batch -> dict of tensors on the model's
     device.  Integer arrays become int64 indices."""
-    device = model.device
     text_arrays, tb_spk, tb_lsn = model.prepare_text_batch(
         raw["text_spk"], raw["text_lsn"])
-    batch = {
-        k: torch.from_numpy(np.asarray(raw[k])).to(device)
-        for k in ("motion_lsn", "motion_spk", "melspec_lsn", "melspec_spk")
-    }
-    for k in ("active_passive_lsn", "lsn_id"):
-        batch[k] = torch.from_numpy(
-            np.asarray(raw[k], np.int64)).to(device)
-    batch.update(text_arrays)
-    return batch, tb_spk, tb_lsn
+    arrays = {k: np.asarray(raw[k]) for k in (
+        "motion_lsn", "motion_spk", "melspec_lsn", "melspec_spk",
+        "active_passive_lsn", "lsn_id")}
+    return to_tensors({**arrays, **text_arrays}, model.device), tb_spk, \
+        tb_lsn

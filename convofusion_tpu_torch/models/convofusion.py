@@ -2,26 +2,33 @@
 VAE decode.
 
 Port of ``convofusion_tpu/models/convofusion.py``: ``encode_text``,
-``encode_conditions``, ``encode_uncond``, ``diffusion_reverse`` and
-``sample`` (:330-383,604-943), guided path only (no WEG, no ``preseq``).
-Weights live in the modules; ``compat/from_jax.state_dict_from_jax``
-carries a JAX parameter tree across.
+``encode_conditions``, ``encode_uncond``, ``diffusion_reverse``, ``sample``
+(:330-383,604-943), with word-excitation guidance (WEG), and
+``cached_sampler`` / ``CachedSampler`` (:945-1032); the guided path only
+(no ``preseq``).  Weights live in the modules;
+``compat/from_jax.state_dict_from_jax`` carries a JAX parameter tree
+across.
 
 Per ``sample()``: the conditions are encoded once (T5 x2, the mel MLP and
 the fuser; the uncond branch at batch 1), then each of the N reverse steps
 is one 7-branch ``Denoiser.guided`` call followed by one launch of the
 fused guidance + scheduler step kernel (``ops/guided_step.py``), then the
-VAE decodes (B, 16, D) latents to (B, 128, 189) motion.
+VAE decodes (B, 16, D) latents to (B, 128, 189) motion.  With WEG, each
+step first differentiates a text-only denoiser pass w.r.t. the latents and
+moves them (``models/weg.py``); the step kernel is not differentiated.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from convofusion_tpu_torch import resolve_device, resolve_dtype
 from convofusion_tpu_torch.diffusion.schedulers import scheduler_from_config
+from convofusion_tpu_torch.models import weg as weg_lib
 from convofusion_tpu_torch.models.audioenc import AudioConvEncoder
 from convofusion_tpu_torch.models.condfuser import TextAudioMotionFuser
 from convofusion_tpu_torch.models.denoiser import Denoiser
@@ -39,12 +46,38 @@ from convofusion_tpu_torch.ops.guided_step import guided_step
 from convofusion_tpu_torch.ops.layers import init_weights
 
 
+def to_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
+    """numpy batch -> tensors on ``device``: integer arrays become int64
+    indices, bool masks stay bool, floats stay fp32.  To the card the
+    copies go from pinned memory without blocking the host."""
+    device = torch.device(device)
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.asarray(v))
+        if not t.is_floating_point() and t.dtype != torch.bool:
+            t = t.long()
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
 def uncond_melspec(shape, dtype=torch.float32, device=None):
     """-90 dB everywhere except mel bins 40:45 (reference
     convofusion.py:214-216)."""
     mel = torch.full(shape, -90.0, dtype=dtype, device=device)
     mel[..., 40:45] = 0.0
     return mel
+
+
+@dataclass
+class WegCounts:
+    """What the WEG path ran, summed over ``sample()`` calls: text-only
+    denoiser passes (each a forward and a backward), refinement-loop
+    iterations, and reverse steps whose refinement triggered."""
+    text_only_passes: int = 0
+    refinement_iterations: int = 0
+    refined_steps: int = 0
 
 
 class Convofusion(nn.Module):
@@ -92,10 +125,23 @@ class Convofusion(nn.Module):
                                                self.predict_epsilon)
         self.num_inference_timesteps = int(
             cfg["scheduler"]["num_inference_timesteps"])
+        self.weg_parameters = cfg.get("weg_parameters", {})
+        self.weg_counts = WegCounts()
+        # bumped by load_state_dict: CachedSampler drops its uncond encodes
+        self.weights_version = 0
         if seed is not None:
             init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
         self.eval()
+        # generation only: WEG differentiates w.r.t. the latents alone
+        self.requires_grad_(False)
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        out = super().load_state_dict(state_dict, strict=strict,
+                                      assign=assign)
+        self.weights_version += 1
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -106,23 +152,16 @@ class Convofusion(nn.Module):
         return self.tokenizer(list(texts), pad_to=self.text_pad_len)
 
     def prepare_text_batch(self, texts_spk, texts_lsn):
-        """Strings -> static-shape id (int64) / mask (bool) tensors on the
-        model's device, incl. the uncond rows."""
-        device = self.device
+        """Host side: strings -> static-shape numpy id (int32) / mask
+        (bool) arrays, incl. the uncond rows (``to_tensors`` moves them)."""
         tb_spk = self.tokenize(texts_spk)
         tb_lsn = self.tokenize(texts_lsn)
         tb_unc = self.tokenize([UNCOND_TEXT] * len(texts_lsn))
-
-        def ids(tb):
-            return torch.from_numpy(tb.input_ids).long().to(device)
-
-        def mask(tb):
-            return torch.from_numpy(tb.attention_mask).to(device)
-
         return {
-            "spk_ids": ids(tb_spk), "spk_tmask": mask(tb_spk),
-            "lsn_ids": ids(tb_lsn), "lsn_tmask": mask(tb_lsn),
-            "uncond_ids": ids(tb_unc), "uncond_tmask": mask(tb_unc),
+            "spk_ids": tb_spk.input_ids, "spk_tmask": tb_spk.attention_mask,
+            "lsn_ids": tb_lsn.input_ids, "lsn_tmask": tb_lsn.attention_mask,
+            "uncond_ids": tb_unc.input_ids,
+            "uncond_tmask": tb_unc.attention_mask,
         }, tb_spk, tb_lsn
 
     # ------------------------------------------------------ condition encoding
@@ -175,11 +214,15 @@ class Convofusion(nn.Module):
                           num_inference_steps: Optional[int] = None,
                           generator: Optional[torch.Generator] = None,
                           init_noise: Optional[torch.Tensor] = None,
-                          step_noise: Optional[torch.Tensor] = None):
+                          step_noise: Optional[torch.Tensor] = None,
+                          weg: Optional[Dict] = None,
+                          weg_params: Optional[Dict] = None):
         """Guided reverse process.  ``init_noise`` (B, 16, D) and
         ``step_noise`` (n_steps, B, 16, D) replace the draws from
-        ``generator`` (a test feeds JAX's own sequence).  Latents stay fp32
-        whatever the compute dtype.  Returns the final latents."""
+        ``generator`` (a test feeds JAX's own sequence).  ``weg`` (see
+        :meth:`sample`) turns word-excitation guidance on; ``weg_params``
+        overrides ``cfg['weg_parameters']``.  Latents stay fp32 whatever
+        the compute dtype.  Returns the final latents."""
         if not self.do_classifier_free_guidance:
             raise NotImplementedError(
                 "only guided sampling (guidance_scale > 1) is ported")
@@ -192,6 +235,9 @@ class Convofusion(nn.Module):
         prev_ts = self.scheduler.prev_timesteps(n_steps)
         shape = (batch_size, self.latent_tokens, self.latent_dim)
         dev = self.device
+        refine = (None if weg is None else self._weg_refiner(
+            weg, n_steps, self.weg_parameters if weg_params is None
+            else weg_params))
 
         def draw():
             if generator is None:
@@ -204,6 +250,8 @@ class Convofusion(nn.Module):
         latents = latents * self.scheduler.init_noise_sigma
         is_ddpm = 1.0 if self.scheduler.variant == "ddpm" else 0.0
         for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+            if refine is not None:
+                latents = refine(latents, i, t)
             noise_pred7, _ = self.denoiser.guided(
                 latents, t, cond_real, cond_unc, masks_real, masks_unc)
             noise = (draw() if step_noise is None
@@ -219,16 +267,83 @@ class Convofusion(nn.Module):
                                                  noise=noise)
         return latents
 
-    @torch.inference_mode()
+    def _weg_refiner(self, weg: Dict, n_steps: int, wp: Dict):
+        """refine(latents, i, t) for reverse step i: one loss + gradient
+        pass decides the refinement and, when it does not trigger, feeds
+        the single gradient step (convofusion_tpu/models/convofusion.py:
+        766-798).  The host reads the loss only at steps with a threshold
+        and in each refinement iteration; the single step's ``loss > 0``
+        choice stays on the device."""
+        sched = weg_lib.weg_schedule(wp, n_steps)
+        counts = self.weg_counts
+
+        def text_only_att(lat, t):
+            counts.text_only_passes += 1
+            _, att = self.denoiser.text_only(lat, t, weg["cond_text"],
+                                             weg["masks_text"])
+            return att["tlsn"]
+
+        loss_grad = weg_lib.value_and_grad(weg_lib.make_weg_loss(
+            text_only_att, weg["focus_idx"], weg["focus_valid"],
+            weg["eot_idx"]))
+
+        def refine(lat, i, t):
+            thr, step_size = sched.thresholds[i], sched.step_sizes[i]
+            loss, grad = loss_grad(lat, t)
+            # need = (thr > 0) & (loss0 > 1 - thr), 1 - thr in fp32
+            if thr > 0 and float(loss) > float(np.float32(1.0)
+                                               - np.float32(thr)):
+                lat, _, n = weg_lib.iterative_refinement(
+                    loss_grad, lat, t, thr, step_size,
+                    sched.max_refinement_steps)
+                counts.refinement_iterations += n
+                counts.refined_steps += 1
+                # the refined latents changed: a fresh pass
+                loss, grad = loss_grad(lat, t)
+            if i < sched.max_iter_to_alter:
+                lat = torch.where(loss > 0, lat - step_size * grad, lat)
+            return lat
+
+        return refine
+
+    def weg_inputs(self, focus: Dict, cond_real, masks_real, cond_unc,
+                   masks_unc) -> Dict:
+        """The ``weg`` dict of :meth:`diffusion_reverse` from ``focus``
+        (focus_idx (B, K) int, focus_valid (B, K) bool): the text-only
+        condition is guidance branch 1, tlsn real and every other stream
+        uncond (reference convofusion.py:449-450); the eot index is the
+        first pad position minus 1 (convofusion.py:461)."""
+        dev = self.device
+        pad = masks_real["tlsn"]
+        first_pad = pad.int().argmax(dim=1)
+        eot = torch.where(pad.any(dim=1), first_pad - 1, pad.shape[1] - 1)
+        return {
+            "cond_text": {s: (cond_real[s] if s == "tlsn" else cond_unc[s])
+                          for s in cond_real},
+            "masks_text": {s: (masks_real[s] if s == "tlsn"
+                               else masks_unc[s]) for s in masks_real},
+            "focus_idx": torch.as_tensor(np.asarray(focus["focus_idx"]),
+                                         device=dev).long(),
+            "focus_valid": torch.as_tensor(
+                np.asarray(focus["focus_valid"]), device=dev).float(),
+            "eot_idx": eot,
+        }
+
+    @torch.no_grad()
     def sample(self, batch, generator: Optional[torch.Generator] = None,
                num_inference_steps: Optional[int] = None,
                init_noise: Optional[torch.Tensor] = None,
                step_noise: Optional[torch.Tensor] = None,
-               uncond_cache=None):
+               uncond_cache=None, focus: Optional[Dict] = None,
+               weg_params: Optional[Dict] = None):
         """End-to-end generation for a ``prepare_arrays`` batch.
         ``uncond_cache``: optional (cond_unc, masks_unc) from
-        :meth:`encode_uncond`.  Returns (motion (B, 128, nfeats), latents
-        (B, 16, D))."""
+        :meth:`encode_uncond`.  ``focus``: optional dict(focus_idx,
+        focus_valid) (numpy, from ``tokenizer.focus_word_indices``) turns
+        WEG on; ``weg_params`` overrides ``cfg['weg_parameters']``.  Runs
+        under ``no_grad``, not ``inference_mode``: WEG builds a graph
+        through the latents from conditions encoded here.  Returns (motion
+        (B, 128, nfeats), latents (B, 16, D))."""
         b = batch["lsn_ids"].shape[0]
         cond_real, masks_real = self.encode_conditions(
             batch["spk_ids"], batch["spk_tmask"], batch["lsn_ids"],
@@ -236,10 +351,64 @@ class Convofusion(nn.Module):
             batch["active_passive_lsn"], batch["lsn_id"])
         cond_unc, masks_unc = (uncond_cache if uncond_cache is not None
                                else self.encode_uncond(batch))
+        weg = (None if focus is None else self.weg_inputs(
+            focus, cond_real, masks_real, cond_unc, masks_unc))
         latents = self.diffusion_reverse(
             cond_real, masks_real, cond_unc, masks_unc, b,
-            num_inference_steps, generator, init_noise, step_noise)
+            num_inference_steps, generator, init_noise, step_noise, weg,
+            weg_params)
         # (B, 16, D) -> (2, B, 8, D): tokens alternate body, hands per chunk
         z = latents.reshape(b, self.n_chunks, 2, self.latent_dim)
         z = torch.stack([z[:, :, 0], z[:, :, 1]], dim=0)
         return self.vae.decode(z, self.max_len), latents
+
+    def cached_sampler(self, num_inference_steps: Optional[int] = None
+                       ) -> "CachedSampler":
+        """The model's :class:`CachedSampler` for this step count, shared
+        by every caller with the same step count."""
+        caches = self.__dict__.setdefault("_sampler_caches", {})
+        if num_inference_steps not in caches:
+            caches[num_inference_steps] = CachedSampler(self,
+                                                        num_inference_steps)
+        return caches[num_inference_steps]
+
+
+class CachedSampler:
+    """:meth:`Convofusion.sample` with the uncond conditions cached.
+
+    The uncond branch depends on the weights and the batch geometry only
+    (:meth:`Convofusion.encode_uncond`), so it is encoded once per
+    geometry at batch 1.  The cache is keyed on the model's
+    ``weights_version``, which ``load_state_dict`` bumps.  (The JAX
+    ``CachedSampler`` also caches compiled executables; eager PyTorch has
+    none.)"""
+
+    def __init__(self, model: Convofusion,
+                 num_inference_steps: Optional[int] = None):
+        self.model = model
+        self.num_inference_steps = num_inference_steps
+        self._uncond = {}
+        self._version = None
+
+    def uncond_for(self, arrays):
+        if self._version != self.model.weights_version:
+            self._uncond.clear()
+            self._version = self.model.weights_version
+        geom = tuple(tuple(arrays[k].shape[1:]) for k in (
+            "uncond_ids", "melspec_lsn", "active_passive_lsn"))
+        if geom not in self._uncond:
+            slim = {k: arrays[k][:1] for k in (
+                "uncond_ids", "uncond_tmask", "melspec_lsn",
+                "active_passive_lsn", "lsn_id")}
+            with torch.no_grad():
+                self._uncond[geom] = self.model.encode_uncond(slim)
+        return self._uncond[geom]
+
+    def __call__(self, arrays, generator: Optional[torch.Generator] = None,
+                 focus: Optional[Dict] = None,
+                 init_noise: Optional[torch.Tensor] = None,
+                 step_noise: Optional[torch.Tensor] = None):
+        """Returns (motion, latents), as :meth:`Convofusion.sample`."""
+        return self.model.sample(
+            arrays, generator, self.num_inference_steps, init_noise,
+            step_noise, uncond_cache=self.uncond_for(arrays), focus=focus)

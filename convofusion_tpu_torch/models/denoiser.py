@@ -1,7 +1,8 @@
 """Latent-diffusion denoiser transformer (production ``trans_dec`` arch).
 
-Port of ``Denoiser._embed_sample``, ``_build_memory``, ``__call__`` and
-``guided`` (``convofusion_tpu/models/denoiser.py:117-179,249-291``):
+Port of ``Denoiser._embed_sample``, ``_build_memory``, ``__call__``,
+``text_only`` and ``guided`` (``convofusion_tpu/models/denoiser.py:
+117-208,249-291``):
   1. project the (B, 16, latent_dim) latent tokens to d
   2. sinusoidal timestep embedding -> 2-layer MLP -> (B, 1, d)
   3. add the body/hands token-type embedding (even/odd tokens) + sine_bh PE
@@ -74,10 +75,13 @@ class Denoiser(nn.Module):
         x = self.query_pos(x + bh[None])
         return x, time_emb
 
-    def _build_memory(self, cond, time_emb):
+    def _build_memory(self, cond, time_emb, shared_time: bool):
+        """With a shared timestep, a single-row stream (1, Tk, d) takes
+        the time-embedding row [:1] and stays at batch 1."""
         mem = {}
         for i, stream in enumerate(COND_STREAMS):
-            m = cond[stream] + time_emb
+            single = shared_time and cond[stream].shape[0] == 1
+            m = cond[stream] + (time_emb[:1] if single else time_emb)
             m = m + self.condition_embedding.weight[i]
             mem[stream] = self.mem_pos(m)
         return mem
@@ -85,12 +89,22 @@ class Denoiser(nn.Module):
     def forward(self, sample, timesteps, cond: Dict[str, torch.Tensor],
                 cond_masks: Optional[Dict[str, torch.Tensor]] = None):
         """sample (B, T, latent_dim); timesteps int, 0-dim or (B,);
-        cond[stream] (B, Tk, d); cond_masks[stream] (B, Tk) bool, True =
-        pad.  Returns (noise_pred, att[stream] (B, L, T, Tk))."""
+        cond[stream] (B, Tk, d), or (1, Tk, d) shared by the batch;
+        cond_masks[stream] (B or 1, Tk) bool, True = pad.  Returns
+        (noise_pred, att[stream] (B, L, T, Tk))."""
         x, time_emb = self._embed_sample(sample, timesteps)
-        mem = self._build_memory(cond, time_emb)
+        mem = self._build_memory(cond, time_emb, _is_scalar(timesteps))
         out, att = self.decoder(x, mem, time_emb, cond_masks)
         return self.latent_proj(out), att
+
+    def text_only(self, sample, timesteps, cond: Dict[str, torch.Tensor],
+                  cond_masks: Optional[Dict[str, torch.Tensor]] = None):
+        """``forward`` for the WEG text-only condition (guidance branch 1:
+        tlsn real, the rest single uncond rows).  Needs a scalar timestep,
+        so those rows stay at batch 1."""
+        if not _is_scalar(timesteps):
+            raise ValueError("text_only takes a scalar timestep")
+        return self.forward(sample, timesteps, cond, cond_masks)
 
     def guided(self, sample, timesteps, cond_real, cond_unc,
                masks_real=None, masks_unc=None):
@@ -99,14 +113,12 @@ class Denoiser(nn.Module):
         full-condition branch)."""
         x, time_emb = self._embed_sample(sample, timesteps)
         x7 = x[None].expand((NUM_BRANCHES,) + x.shape)
-        mem_real = self._build_memory(cond_real, time_emb)
+        shared = _is_scalar(timesteps)
+        mem_real = self._build_memory(cond_real, time_emb, shared)
         # single-row uncond conditions (encode_uncond) keep the uncond
-        # memory at batch 1 through LayerNorm + K/V when the timestep is
-        # shared; grouped_attend broadcasts the shared keys/values
-        shared_unc = _is_scalar(timesteps) and all(
-            v.shape[0] == 1 for v in cond_unc.values())
-        mem_unc = self._build_memory(
-            cond_unc, time_emb[:1] if shared_unc else time_emb)
+        # memory at batch 1 through LayerNorm + K/V; grouped_attend
+        # broadcasts the shared keys/values
+        mem_unc = self._build_memory(cond_unc, time_emb, shared)
         out7, att = self.decoder.guided(x7, mem_real, mem_unc, time_emb,
                                         masks_real, masks_unc)
         return self.latent_proj(out7), att

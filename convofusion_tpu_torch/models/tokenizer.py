@@ -2,14 +2,15 @@
 
 Copy of ``UNCOND_TEXT``, ``TokenBatch`` and ``WordHashTokenizer`` from
 ``convofusion_tpu/models/tokenizer.py:34-105``: a deterministic word-level
-tokenizer hashing words into the T5 vocab range.  Its ids do NOT match
+tokenizer hashing words into the T5 vocab range; and of
+``focus_word_indices`` (:244-264), the WEG focus-word token columns.  Its ids do NOT match
 t5-base; the SentencePiece tokenizer is still to be ported.
 """
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -83,3 +84,24 @@ class WordHashTokenizer:
     def wrapped_texts(self, texts: Sequence[str]) -> List[str]:
         """Texts as the word maps see them (bos/eos wrapped)."""
         return [t if t == UNCOND_TEXT else f"<bos> {t} <eos>" for t in texts]
+
+
+def focus_word_indices(
+    word_maps: List[List[str]], focus_words: List[List[str]],
+    max_indices: int = 8,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Token indices of focus words, padded to a static size (reference
+    convofusion.py:941-951).  Returns (indices (B, max_indices) int32,
+    valid (B, max_indices) bool)."""
+    b = len(word_maps)
+    idx = np.zeros((b, max_indices), np.int32)
+    valid = np.zeros((b, max_indices), bool)
+    for i in range(b):
+        hits = []
+        fw = focus_words[i] if i < len(focus_words) else []
+        for word in fw:
+            hits += [j for j, x in enumerate(word_maps[i]) if x == word]
+        hits = hits[:max_indices]
+        idx[i, : len(hits)] = hits
+        valid[i, : len(hits)] = True
+    return idx, valid

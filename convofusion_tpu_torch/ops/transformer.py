@@ -3,9 +3,12 @@ conditional decoder layer of the denoiser.
 
 Port of ``convofusion_tpu/ops/transformer.py``: ``_FFN``, ``TimeBlock``,
 ``TransformerDecoderLayer``, ``SkipTransformerDecoder`` (:38-53,96-145,
-189-252), ``TransformerDecoderLayer2Att.__call__`` / ``.guided``
-(:255-347,445-510), ``DenoiserDecoder.__call__`` / ``.guided``
-(:513-565,609-627) and the guidance tables (:26,732-750).  Inference only:
+189-252), ``TransformerDecoderLayer2Att.__call__`` / ``.forward_mem`` /
+``.guided`` (:255-347,404-510), ``DenoiserDecoder.__call__`` /
+``.forward_mem`` / ``.guided`` (:513-565,573-589,609-627) and the guidance
+tables (:26,732-750).  ``forward`` here is both ``__call__`` and
+``forward_mem``: its cross-attention broadcasts single-row memories, so
+one body serves full and mixed-batch streams.  Inference only:
 dropout is the identity and is left out.  No caller passes positional
 queries inside the layers (``pos``/``query_pos`` are always None on the
 sampling path), so those arguments are left out too.
@@ -203,9 +206,12 @@ class TransformerDecoderLayer2Att(_FFN):
 
     def forward(self, tgt, memory: Dict[str, torch.Tensor], time_embed,
                 mem_masks: Optional[Dict[str, torch.Tensor]] = None):
-        """tgt (B, Tq, D); memory[stream] (B, Tk_s, D); mem_masks[stream]
-        (B, Tk_s) bool, True = pad.  Returns (tgt, att[stream] (B, Tq,
-        Tk_s))."""
+        """tgt (B, Tq, D); memory[stream] (B, Tk_s, D), or single shared
+        rows (1, Tk_s, D) that stay at batch 1 through LayerNorm + K/V and
+        broadcast inside ``grouped_attend`` (the WEG text-only pass, where
+        four of five streams are the uncond variant); mem_masks[stream]
+        (B or 1, Tk_s) bool, True = pad.  Returns (tgt, att[stream] (B,
+        Tq, Tk_s))."""
         mem_masks = mem_masks or {}
         tgt2 = self.norm1(tgt)
         tgt2, _ = self.self_attn(tgt2, tgt2, tgt2, need_weights=False)
@@ -216,10 +222,11 @@ class TransformerDecoderLayer2Att(_FFN):
         branch_outs, att = [], {}
         for s in COND_STREAMS:
             mod, norm = self._cross(s)
-            mem = norm(memory[s])
-            out, w = mod(q_cond, mem, mem, mem_masks.get(s))
-            branch_outs.append(out)
-            att[s] = w
+            k, v = mod.project_kv(norm(memory[s]))
+            o, w = mod.grouped_attend(mod.q_proj(q_cond)[None], k, v,
+                                      mem_masks.get(s))
+            branch_outs.append(mod.out_proj(o[0]))
+            att[s] = w[0]
         tgt = tgt + self.att_fuser(torch.cat(branch_outs, dim=-1))
         tgt = tgt + self.time_block2(tgt, time_embed)
         tgt = tgt + self.ffn(self.norm3(tgt))

@@ -25,11 +25,13 @@ import torch
 from convofusion_tpu.config.testing import tiny_config
 from convofusion_tpu.data import synthetic as jax_synthetic
 from convofusion_tpu.diffusion.schedulers import DiffusionScheduler
+from convofusion_tpu.models import weg as jax_weg
 from convofusion_tpu.models.convofusion import Convofusion as JaxConvofusion
 from convofusion_tpu.ops.pallas_step import fused_guided_step
 from convofusion_tpu_torch.compat.from_jax import state_dict_from_jax
 from convofusion_tpu_torch.config import TINY
 from convofusion_tpu_torch.data import synthetic as torch_synthetic
+from convofusion_tpu_torch.models import weg
 from convofusion_tpu_torch.models.convofusion import Convofusion
 from convofusion_tpu_torch.ops.guided_step import guided_step
 
@@ -49,6 +51,17 @@ FP32_DISTANCE_RATIO = 1.25
 # one step on the same bf16 planes: fp32 arithmetic, as in
 # tests/test_torch_guided_step.py
 STEP_TOL = 2e-5
+# the WEG loss (|loss| ~ 0.88): within 1 ulp at its magnitude; observed
+# 0.11 (4.3e-4).  The per-token terms 1 - max_att are bf16 on both sides,
+# but XLA keeps them in fp32 inside its fusion where the port rounds them
+# (max_att itself differed by at most 1 ulp)
+WEG_LOSS_ULPS = 1
+# its gradient w.r.t. the fp32 latents, in ulps of max |grad|: the
+# softmax, smoothing and max run in bf16, so JAX's own bf16 gradient is
+# 55 ulps from the fp32 port's at most.  Observed against JAX: 56 ulps at
+# most, 2.6 on average; the port's mean distance from the fp32 port is
+# 0.55x JAX's (within FP32_DISTANCE_RATIO)
+WEG_GRAD_ULPS, WEG_GRAD_MEAN_ULPS = 128, 4
 ACP = DiffusionScheduler().alphas_cumprod
 STEP_CASES = {
     # name: (alpha_t, alpha_prev, is_ddpm, add_noise)
@@ -195,3 +208,65 @@ def test_step_on_bf16_planes_matches_pallas(planes, case):
     delta = np.abs(_np(np_j) - _np(np_t)).max()
     bound = _lipschitz(float(a_t), float(a_prev), is_ddpm, gs) * delta
     assert np.abs(own.numpy() - want).max() <= bound + STEP_TOL
+
+
+def test_weg_loss_and_grad_match_jax_bf16(twins):
+    """The WEG loss of the bf16 text-only pass and its gradient w.r.t. the
+    fp32 latents against jax.value_and_grad on JAX's bf16 model, on JAX's
+    conditions: the tlsn attention stays bf16 through the layer mean,
+    softmax, smoothing and max on both sides; the loss and the gradient
+    are fp32."""
+    jm, params, ports, jbatch, _ = twins
+    cond, masks = jm.encode_conditions(params, *(jbatch[k]
+                                                 for k in BATCH_KEYS))
+    cond_u, masks_u = jm.encode_uncond(params, jbatch)
+    cond_t = {s: cond[s] if s == "tlsn" else cond_u[s] for s in cond}
+    masks_t = {s: masks[s] if s == "tlsn" else masks_u[s] for s in masks}
+    pad = masks["tlsn"]
+    eot = jnp.where(jnp.any(pad, axis=1),
+                    jnp.argmax(pad.astype(jnp.int32), axis=1) - 1,
+                    pad.shape[1] - 1)
+    # interior, boundary (column 1) and repeated focus columns
+    fi = np.asarray([[1, 3, 0], [2, 4, 1], [1, 2, 3]], np.int32)
+    fv = np.asarray([[1, 1, 0], [1, 1, 1], [1, 0, 0]], np.float32)
+    latents = np.random.default_rng(5).standard_normal(
+        (B, T, LAT)).astype(np.float32)
+
+    def jax_att(lat, t):
+        _, att = jm.denoiser.apply({"params": params["denoiser"]}, lat, t,
+                                   cond_t, masks_t,
+                                   method=jm.denoiser.text_only)
+        assert att["tlsn"].dtype == jnp.bfloat16
+        return att["tlsn"]
+
+    loss_j, grad_j = jax.value_and_grad(jax_weg.make_weg_loss(
+        jax_att, jnp.asarray(fi), jnp.asarray(fv), eot))(
+        jnp.asarray(latents), jnp.asarray(TIMESTEP))
+
+    def port_loss_grad(dtype):
+        tc, tm = _torch(cond_t), _torch(masks_t)
+        if dtype == "float32":
+            tc = {k: v.float() for k, v in tc.items()}
+
+        def att(lat, t):
+            out = ports[dtype].denoiser.text_only(lat, t, tc, tm)[1]["tlsn"]
+            assert out.dtype == getattr(torch, dtype)
+            return out
+
+        with torch.no_grad():
+            return weg.value_and_grad(weg.make_weg_loss(
+                att, torch.from_numpy(fi), torch.from_numpy(fv),
+                torch.from_numpy(np.array(eot))))(
+                torch.from_numpy(latents), TIMESTEP)
+
+    loss_t, grad_t = port_loss_grad("bfloat16")
+    _, grad_f32 = port_loss_grad("float32")
+    assert loss_t.dtype == grad_t.dtype == torch.float32
+    assert abs(float(loss_t) - float(loss_j)) <= \
+        WEG_LOSS_ULPS * _ulp(np.asarray(loss_j))
+    a, b, ref = np.asarray(grad_j), grad_t.numpy(), grad_f32.numpy()
+    diff = np.abs(a - b)
+    assert diff.max() <= WEG_GRAD_ULPS * _ulp(a)
+    assert diff.mean() <= WEG_GRAD_MEAN_ULPS * _ulp(a)
+    assert np.abs(b - ref).mean() <= \
+        FP32_DISTANCE_RATIO * np.abs(a - ref).mean()
