@@ -38,13 +38,39 @@ Phases, each raising on failure (non-zero exit, no result line):
                batch; then direct sample() calls on one assembled batch
                with and without focus, for WEG's own cost and the
                pipeline's
-Then a JSON line of per-kernel numbers (launches summed over phases 5-7,
+  8. rollout_parity - production geometry, fp32, the long-form rollout
+               (cli/unbounded.rollout) of a 2-part batch of 2 (3 windows),
+               DDIM-10, numpy-made noise for every window: the card
+               against the CPU without WEG and with 'random' WEG (one
+               seeded random.Random a side); every window's motion and
+               latents within their tolerances, root xz continuity between
+               windows, exactly 10 kernel launches a window on the card,
+               equal WEG counts on both sides
+  9. rollout - production geometry, bf16, batch 96, 3 parts (5 windows),
+               DDIM-50 (bench.py --mode rollout's defaults): one warm-up
+               and two timed rollouts without WEG, one with 'random' WEG;
+               finite (96, 128, 189) motion for every window, exactly 250
+               kernel launches a rollout, one uncond encode a sampler (the
+               first window of its first rollout); windows/s, ms a window,
+               the host's ms a window (window text, tokenization, focus
+               words, stitching) against the sampler's, peak memory; then
+               the last window's sample() alone, with and without its
+               preseq, in turns
+ 10. dpmpp    - production geometry, DPM-Solver++ 2M at 20 steps: fp32
+               batch 2 on the card against the CPU, then bf16 batch 96,
+               one warm-up and three timed calls (clips/s, ms/call); the
+               fused step kernel is never launched (JAX's gate); after the
+               count is read, DDIM-20 and dpmpp_2m-20 in turns on that model
+Then a JSON line of per-kernel numbers (launches summed over phases 5-10,
 and each phase's count under launches_by_phase)
 and, last, the result line {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
+import dataclasses
+import gc
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -57,13 +83,19 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from convofusion_tpu_torch.cli.unbounded import rollout
 from convofusion_tpu_torch.config import PRODUCTION
 from convofusion_tpu_torch.diffusion.schedulers import DiffusionScheduler
 from convofusion_tpu_torch.data.synthetic import (
     prepare_arrays,
+    synthetic_long_batch,
     synthetic_raw_batch,
 )
-from convofusion_tpu_torch.models.convofusion import Convofusion, to_tensors
+from convofusion_tpu_torch.models.convofusion import (
+    CachedSampler,
+    Convofusion,
+    to_tensors,
+)
 from convofusion_tpu_torch.models.tokenizer import focus_word_indices
 from convofusion_tpu_torch.ops import guided_step as gs_mod
 from convofusion_tpu_torch.serving import (
@@ -99,6 +131,15 @@ WEG_FORCED = {"thresholds": {0: 0.99}, "max_refinement_steps": 5}
 SERVE_CLIENTS, SERVE_HTTP_REQUESTS = 8, 4
 # every Nth service request carries no focus words
 NO_FOCUS_EVERY = 5
+# phase 8: DDIM-10 rollouts of 2 parts (3 windows); tolerances argued in
+# phase_rollout_parity
+ROLLOUT_PARITY_STEPS, ROLLOUT_PARITY_PARTS = 10, 2
+ROLLOUT_MOTION_ATOL, ROLLOUT_LATENT_ATOL = 1e-3, 2e-3
+# phase 9: bench.py --mode rollout's parts (batch and steps as phase 5)
+ROLLOUT_PARTS, ROLLOUT_TIMED = 3, 2
+# phase 10: DPM-Solver++ 2M steps (bench.py --sampler dpmpp_2m --steps 20)
+DPMPP_STEPS = 20
+DPMPP_ATOL, DPMPP_LATENT_ATOL = 1e-3, 2e-3
 
 
 def log(*args):
@@ -605,6 +646,273 @@ def profile_weg(model, batch, focus, gen, uncond):
         f"{(w1 - w0) / PROFILE_STEPS:.1f} ms of wall (under the profiler)")
 
 
+@contextlib.contextmanager
+def sampler_calls(device):
+    """While open, every CachedSampler call (a rollout's window) is
+    recorded: its latents, its wall time up to the motion on the device
+    (synchronised) and its step-kernel launches."""
+    calls = []
+    call = CachedSampler.__call__
+
+    def recording(self, *args, **kwargs):
+        launches = gs_mod.guided_step.launches
+        t0 = time.perf_counter()
+        motion, latents = call(self, *args, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        calls.append(dict(latents=latents.cpu(),
+                          seconds=time.perf_counter() - t0,
+                          launches=gs_mod.guided_step.launches - launches,
+                          call=(self, args, kwargs)))
+        return motion, latents
+
+    CachedSampler.__call__ = recording
+    try:
+        yield calls
+    finally:
+        CachedSampler.__call__ = call
+
+
+def _window_noise(rng, n_windows, n_steps, shape):
+    return [_noise(rng, n_steps, shape) for _ in range(n_windows)]
+
+
+def _check_windows(outs, shape, what):
+    for k, o in enumerate(outs):
+        if o.shape != shape or not np.isfinite(o).all():
+            raise RuntimeError(f"{what}: window {k} motion {o.shape} not "
+                               f"finite or misshapen")
+
+
+def _root_gap(outs):
+    """max |root xz of window k frame 0 - window k-1 frame 64|."""
+    return max((float(np.abs(outs[k][:, 0, [0, 2]]
+                             - outs[k - 1][:, 64, [0, 2]]).max())
+                for k in range(1, len(outs))), default=0.0)
+
+
+def phase_rollout_parity(device="cuda"):
+    """The rollout on the card and on the CPU from the same seeded weights,
+    long batch and per-window noise, fp32, TF32 off, without and with
+    'random' WEG.  Each window is phase 6's case: a DDIM-10 sample, here
+    with the previous window's latents inpainted, so the card-vs-CPU gap
+    of window k-1's latents enters window k through its preseq; the
+    per-window gaps are printed to show whether the chain grows them.
+    Motion is held to 1e-3 and latents to 2e-3, as phase 6 holds them."""
+    b = 2
+    batch = synthetic_long_batch(61, b, n_parts=ROLLOUT_PARITY_PARTS)
+    n_windows = 2 * ROLLOUT_PARITY_PARTS - 1
+    noise = _window_noise(np.random.default_rng(62), n_windows,
+                          ROLLOUT_PARITY_STEPS,
+                          (b, 16, PRODUCTION["latent_dim"][1]))
+    runs = {}
+    for side in (device, "cpu"):
+        model = Convofusion(PRODUCTION, dtype="float32", device=side,
+                            seed=0)
+        for weg_type in ("no", "random"):
+            t0 = time.perf_counter()
+            model.weg_counts = type(model.weg_counts)()
+            with sampler_calls(model.device) as calls:
+                outs = rollout(model, batch,
+                               num_inference_steps=ROLLOUT_PARITY_STEPS,
+                               weg_type=weg_type, verbose=False,
+                               rng=random.Random(63), noise=noise)
+            _check_windows(outs, (b, 128, 189), "rollout parity")
+            per_window = [c["launches"] for c in calls]
+            if side != "cpu" and \
+                    per_window != [ROLLOUT_PARITY_STEPS] * n_windows:
+                raise RuntimeError(f"rollout parity on the card: kernel "
+                                   f"launches a window {per_window}")
+            runs[side, weg_type] = (outs, [c["latents"] for c in calls],
+                                    model.weg_counts)
+            log(f"# rollout_parity: {weg_type} WEG on {side}: "
+                f"{time.perf_counter() - t0:.1f} s, {model.weg_counts}, "
+                f"kernel launches a window {per_window}, root xz gap "
+                f"{_root_gap(outs):.3g}")
+        del model
+    for weg_type in ("no", "random"):
+        (m_gpu, l_gpu, c_gpu), (m_cpu, l_cpu, c_cpu) = (
+            runs[device, weg_type], runs["cpu", weg_type])
+        if c_gpu != c_cpu:
+            raise RuntimeError(f"rollout WEG counts differ: card {c_gpu}, "
+                               f"CPU {c_cpu}")
+        gap = _root_gap(m_gpu)
+        dm = [float(np.abs(g - c).max()) for g, c in zip(m_gpu, m_cpu)]
+        dl = [float((g - c).abs().max()) for g, c in zip(l_gpu, l_cpu)]
+        log(f"# rollout_parity: {weg_type} WEG, fp32 DDIM-"
+            f"{ROLLOUT_PARITY_STEPS} batch {b}, {n_windows} windows, card "
+            f"vs CPU: max|motion diff| a window {[f'{d:.3g}' for d in dm]} "
+            f"(|motion| <= {max(float(np.abs(m).max()) for m in m_cpu):.3g})"
+            f", max|latent diff| a window {[f'{d:.3g}' for d in dl]}; root "
+            f"xz gap {gap:.3g}; tolerances {ROLLOUT_MOTION_ATOL} (motion), "
+            f"{ROLLOUT_LATENT_ATOL} (latents), 1e-4 (root)")
+        if not max(dm) <= ROLLOUT_MOTION_ATOL:
+            raise RuntimeError(f"rollout card vs CPU motion differ by {dm}")
+        if not max(dl) <= ROLLOUT_LATENT_ATOL:
+            raise RuntimeError(f"rollout card vs CPU latents differ by {dl}")
+        if not gap <= 1e-4:
+            raise RuntimeError(f"rollout root xz gap {gap}")
+
+
+def phase_rollout(smi, device=None):
+    """bench.py --mode rollout on the port: bf16 batch 96, 3 parts,
+    DDIM-50."""
+    model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=1)
+    dev = model.device
+    on_card = dev.type == "cuda"
+    batch = synthetic_long_batch(0, BATCH, n_parts=ROLLOUT_PARTS)
+    n_windows = 2 * ROLLOUT_PARTS - 1
+    gen = torch.Generator(device=dev).manual_seed(64)
+    encodes = []
+    encode = model.encode_uncond
+    model.encode_uncond = lambda b: encodes.append(1) or encode(b)
+    if on_card:
+        # phase 8's models hold their cached samplers, which hold them: a
+        # reference cycle that frees their device memory only when the
+        # garbage collector runs
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i, weg_type in enumerate(["no"] * (1 + ROLLOUT_TIMED) + ["random"]):
+        before_enc, before = len(encodes), gs_mod.guided_step.launches
+        model.weg_counts = type(model.weg_counts)()
+        t0 = time.perf_counter()
+        with sampler_calls(dev) as calls:
+            outs = rollout(model, batch, gen, num_inference_steps=STEPS,
+                           weg_type=weg_type, verbose=False,
+                           rng=random.Random(65))
+        wall = time.perf_counter() - t0
+        n_launch = gs_mod.guided_step.launches - before
+        n_enc = len(encodes) - before_enc
+        _check_windows(outs, (BATCH, 128, 189), "rollout")
+        if on_card and n_launch != STEPS * n_windows:
+            raise RuntimeError(f"rollout {i}: {n_launch} kernel launches, "
+                               f"want {STEPS * n_windows}")
+        # one encode by each sampler's first window, then the cache
+        first = i in (0, 1 + ROLLOUT_TIMED)
+        if n_enc != (1 if first else 0):
+            raise RuntimeError(f"rollout {i}: {n_enc} uncond encodes")
+        sampler_s = sum(c["seconds"] for c in calls)
+        host_ms = (wall - sampler_s) / n_windows * 1e3
+        rows.append((weg_type, wall, sampler_s))
+        log(f"# rollout: {'warm-up ' if i == 0 else ''}{weg_type} WEG: "
+            f"{wall * 1e3:.1f} ms, {BATCH * n_windows / wall:.2f} windows/s, "
+            f"{wall / n_windows * 1e3:.1f} ms a window (sampler "
+            f"{sampler_s / n_windows * 1e3:.1f} ms, host {host_ms:.1f} ms, "
+            f"{(wall - sampler_s) / wall:.1%}); {n_launch} kernel launches, "
+            f"{n_enc} uncond encodes, {model.weg_counts}")
+        if weg_type == "no":
+            last_window = calls[-1]["call"]
+    model.encode_uncond = encode
+
+    # the last window's sampler call again, with and without its preseq,
+    # in turns: what inpainting adds to a window's sample()
+    sampler, args, kwargs = last_window
+    direct = {}
+    for name in ("with preseq", "without preseq") * 2:
+        t0 = time.perf_counter()
+        sampler(*args, **{**kwargs, "preseq": kwargs["preseq"]
+                          if name == "with preseq" else None})
+        if on_card:
+            torch.cuda.synchronize()
+        direct.setdefault(name, []).append(
+            round((time.perf_counter() - t0) * 1e3, 1))
+    log(f"# rollout: the last window's sample() alone: {direct} ms")
+    timed = [w for name, w, _ in rows[1:1 + ROLLOUT_TIMED]]
+    med = statistics.median(timed)
+    weg_wall = rows[-1][1]
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    log(f"# rollout: bf16 batch {BATCH} {ROLLOUT_PARTS} parts ({n_windows} "
+        f"windows) DDIM-{STEPS} on {smi}: {BATCH * n_windows / med:.2f} "
+        f"windows/s, {med / n_windows * 1e3:.1f} ms a window (median of "
+        f"{ROLLOUT_TIMED}); with WEG {BATCH * n_windows / weg_wall:.2f} "
+        f"windows/s ({weg_wall / med:.2f}x); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+
+
+def phase_dpmpp(smi, device="cuda"):
+    """DPM-Solver++ 2M: fp32 batch 2 card vs CPU, then bf16 batch 96
+    timing.  Its plain combine and update replace the fused kernel (JAX's
+    gate), so no launch may happen.  Card vs CPU, as phase 4 argues, but at
+    20 steps; held to 1e-3 (motion) and 2e-3 (latents)."""
+    cfg = copy.deepcopy(PRODUCTION)
+    cfg["scheduler"]["variant"] = "dpmpp_2m"
+    b = 2
+    raw = synthetic_raw_batch(71, b, mel_frames=cfg["mel_frames"])
+    init = torch.from_numpy(np.random.default_rng(72).standard_normal(
+        (b, 16, cfg["latent_dim"][1])).astype(np.float32))
+    before = gs_mod.guided_step.launches
+    out = {}
+    for side in (device, "cpu"):
+        model = Convofusion(cfg, dtype="float32", device=side, seed=0)
+        batch, _, _ = prepare_arrays(model, raw)
+        motion, latents = model.sample(batch, num_inference_steps=DPMPP_STEPS,
+                                       init_noise=init)
+        out[side] = (motion.float().cpu(), latents.cpu())
+        del model
+    (m_gpu, l_gpu), (m_cpu, l_cpu) = out[device], out["cpu"]
+    for t in (m_gpu, m_cpu):
+        if t.shape != (b, 128, 189) or not torch.isfinite(t).all():
+            raise RuntimeError("dpmpp motion not finite or misshapen")
+    dm = float((m_gpu - m_cpu).abs().max())
+    dl = float((l_gpu - l_cpu).abs().max())
+    log(f"# dpmpp: fp32 dpmpp_2m-{DPMPP_STEPS} batch {b} card vs CPU: "
+        f"max|motion diff| {dm:.3g} (|motion| <= "
+        f"{float(m_cpu.abs().max()):.3g}), max|latent diff| {dl:.3g}; "
+        f"tolerances {DPMPP_ATOL} (motion), {DPMPP_LATENT_ATOL} (latents)")
+    if not dm <= DPMPP_ATOL or not dl <= DPMPP_LATENT_ATOL:
+        raise RuntimeError(f"dpmpp card vs CPU differ by {dm} / {dl}")
+
+    model = Convofusion(cfg, dtype="bfloat16", device=device, seed=1)
+    on_card = model.device.type == "cuda"
+    raw = synthetic_raw_batch(21, BATCH, mel_frames=cfg["mel_frames"])
+    batch, _, _ = prepare_arrays(model, raw)
+    gen = torch.Generator(device=model.device).manual_seed(73)
+    sampler = model.cached_sampler(DPMPP_STEPS)
+    times = []
+    for call in range(1 + TIMED_CALLS):
+        t0 = time.perf_counter()
+        motion, _ = sampler(batch, gen)
+        if on_card:
+            torch.cuda.synchronize()
+        if call:
+            times.append(time.perf_counter() - t0)
+        if tuple(motion.shape) != (BATCH, 128, 189) or \
+                not torch.isfinite(motion).all():
+            raise RuntimeError("dpmpp batch motion misshapen or not finite")
+    launches = gs_mod.guided_step.launches - before
+    if launches:
+        raise RuntimeError(f"dpmpp launched the step kernel {launches} "
+                           f"times")
+    med = statistics.median(times)
+    log(f"# dpmpp: bf16 batch {BATCH} dpmpp_2m-{DPMPP_STEPS} on {smi}: "
+        f"{BATCH / med:.2f} clips/s, {med * 1e3:.1f} ms/call (median of "
+        f"{TIMED_CALLS}: {[round(t * 1e3, 1) for t in times]}), 0 kernel "
+        f"launches")
+    return model, sampler, batch, gen
+
+
+def dpmpp_against_ddim(model, sampler, batch, gen):
+    """Phase 10's model and batch at DDIM-20 (through the kernel) in turns
+    with dpmpp_2m-20: what the sampler itself costs a step.  Run after
+    phase 10's launches are read."""
+    on_card = model.device.type == "cuda"
+    dpmpp = model.scheduler
+    ddim = dataclasses.replace(dpmpp, variant="ddim")
+    turns = {}
+    for name, sched in (("ddim", ddim), ("dpmpp_2m", dpmpp)) * 2:
+        model.scheduler = sched
+        t0 = time.perf_counter()
+        sampler(batch, gen)
+        if on_card:
+            torch.cuda.synchronize()
+        turns.setdefault(name, []).append(
+            round((time.perf_counter() - t0) * 1e3, 1))
+    model.scheduler = dpmpp
+    log(f"# dpmpp: in turns at {DPMPP_STEPS} steps, ms/call: {turns}")
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -715,6 +1023,15 @@ def main():
     phase_weg_parity()
     by_phase["weg_parity"] = gs_mod.guided_step.launches
     by_phase["serve"] = phase_serve(smi)
+    for name, phase in (("rollout_parity", phase_rollout_parity),
+                        ("rollout", lambda: phase_rollout(smi))):
+        gs_mod.guided_step.launches = 0
+        phase()
+        by_phase[name] = gs_mod.guided_step.launches
+    gs_mod.guided_step.launches = 0
+    dpmpp_case = phase_dpmpp(smi)
+    by_phase["dpmpp"] = gs_mod.guided_step.launches
+    dpmpp_against_ddim(*dpmpp_case)
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{

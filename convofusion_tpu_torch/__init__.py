@@ -5,20 +5,24 @@ path in ``convofusion_tpu/``):
 
   serving.py              GestureService (micro-batching, three threads),
                           serve_http, build_service, the CLI
-  models/convofusion.py   Convofusion.sample: encode -> reverse -> decode;
-                          CachedSampler
+  cli/unbounded.py        rollout: long-form synthesis in half-overlapping
+                          windows (cli/focus.py: WEG focus words)
+  models/convofusion.py   Convofusion.sample: encode -> reverse -> decode,
+                          with preseq inpainting; CachedSampler
+  models/results.py       per-sample result dumps
   models/weg.py           word-excitation guidance (loss, refinement)
   models/t5.py, audioenc.py, condfuser.py
                           condition encoders (T5 trunk x2, mel MLP, fuser)
   models/denoiser.py      7-branch guided denoiser
   models/vae.py           chunked body/hands VAE decoder
-  diffusion/schedulers.py DDPM / DDIM tables and the plain step
+  diffusion/schedulers.py DDPM / DDIM / DPM-Solver++ 2M tables and steps
   ops/                    attention, transformer blocks, embeddings,
                           positional encodings, smoothing kernel, the
                           fused step kernel
   csrc/                   hand-written CUDA kernels (sm_90a)
   compat/from_jax.py      JAX parameter tree -> port state_dict
-  data/synthetic.py       seeded synthetic batches
+  data/synthetic.py       seeded synthetic batches (also long-form)
+  data/audio.py           save_wav
 
 The package imports torch and numpy only.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; with no card and no device given

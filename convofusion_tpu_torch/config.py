@@ -6,8 +6,8 @@ files ``modules/{denoiser,motion_vae,text_encoder,audio_encoder,
 scheduler}.yaml``; ``TINY`` is the small geometry of
 ``convofusion_tpu/config/testing.py:10-36`` (``tiny_config('diffusion')``),
 with WEG off.  Sub-dicts are the constructor arguments of the port's
-modules; ``weg_parameters`` and ``serve`` are read by the sampler and the
-service.
+modules; ``weg_parameters``, ``serve`` and ``fps`` are read by the sampler,
+the service and the long-form rollout.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ PRODUCTION = {
     "text_pad_len": 64,            # base.yaml:124 (TPU.TEXT_PAD_LEN)
     "mel_frames": 161,             # audioenc.audio_num_frames(128, 25, 16000, 512)
     "guidance_scale": 7.5,         # config_cf_beatdnd.yaml:76
+    "fps": 25,                     # DATASET.BEATDND.FPS (base.yaml:101)
     "predict_epsilon": True,       # config_cf_beatdnd.yaml:23
     "denoiser": {                  # modules/denoiser.yaml
         "text_encoded_dim": 512,
@@ -62,6 +63,16 @@ PRODUCTION = {
         "variant": "ddim",
         "eta": 0.0,
         "num_inference_timesteps": 50,
+        "num_train_timesteps": 1000,
+        "beta_start": 0.00085,
+        "beta_end": 0.012,
+        "beta_schedule": "scaled_linear",
+        "clip_sample": True,
+    },
+    # modules/scheduler.yaml:13-21: the training scheduler, DDPM; the
+    # long-form rollout re-noises the previous window's latents with its
+    # add_noise (convofusion_tpu/models/convofusion.py:170-171,676,760)
+    "noise_scheduler": {
         "num_train_timesteps": 1000,
         "beta_start": 0.00085,
         "beta_end": 0.012,

@@ -1,8 +1,8 @@
 """Synthetic batches with the shapes and dtypes of the real pipeline.
 
-``synthetic_raw_batch`` and its helpers are a copy of
-``convofusion_tpu/data/synthetic.py:14-67`` (numpy, seeded), so both
-packages draw identical batches from one seed.  ``prepare_arrays`` mirrors
+``synthetic_raw_batch``, ``synthetic_long_batch`` and their helpers are a
+copy of ``convofusion_tpu/data/synthetic.py:14-106`` (numpy, seeded), so
+both packages draw identical batches from one seed.  ``prepare_arrays`` mirrors
 ``:109-122`` with ``Convofusion.prepare_text_batch`` and returns torch tensors
 on the model's device.
 """
@@ -64,6 +64,44 @@ def synthetic_raw_batch(seed: int, batch: int, frames: int = 128,
             0, 2, size=(batch, n_chunks)).astype(np.int32),
         "lsn_id": rng.integers(1, 36, size=(batch,)).astype(np.int32),
         "length": [frames] * batch,
+    }
+
+
+def synthetic_long_batch(seed: int, batch: int, n_parts: int = 3,
+                         frames_per_part: int = 128, fps: int = 25,
+                         sr: int = 16000, hop: int = 512):
+    """Long-form batch for the rollout (``cli/unbounded.rollout``): (B,
+    n_parts*128) motion/audio/mel/apb plus whisper-style word segments,
+    like the 30 s utterance sets of the reference rollout."""
+    rng = np.random.default_rng(seed)
+    frames = frames_per_part * n_parts
+    n_samples = int(frames / fps * sr)
+
+    def segments():
+        out = []
+        for _ in range(batch):
+            segs, t = [], 0.0
+            while t < frames / fps - 1.0:
+                dur = float(rng.uniform(0.2, 0.6))
+                segs.append([[t, t + dur], str(rng.choice(_WORDS))])
+                t += dur + float(rng.uniform(0.05, 0.8))
+            out.append(segs)
+        return out
+
+    return {
+        "motion_lsn": synthetic_motion(rng, batch, frames),
+        "motion_spk": synthetic_motion(rng, batch, frames),
+        "melspec_lsn": synthetic_melspec(rng, batch, n_samples // hop + 1),
+        "melspec_spk": synthetic_melspec(rng, batch, n_samples // hop + 1),
+        "active_passive_lsn": rng.integers(
+            0, 2, (batch, 8 * n_parts)).astype(np.int32),
+        "lsn_id": rng.integers(1, 36, size=(batch,)).astype(np.int32),
+        "audio_lsn": rng.normal(size=(batch, n_samples)).astype(np.float32),
+        "audio_spk": rng.normal(size=(batch, n_samples)).astype(np.float32),
+        "seg_lsn": segments(),
+        "seg_spk": segments(),
+        "name": [f"synthetic/long_{i}" for i in range(batch)],
+        "text_spk": synthetic_texts(rng, batch),
     }
 
 

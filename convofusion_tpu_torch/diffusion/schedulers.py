@@ -1,11 +1,13 @@
-"""DDPM / DDIM schedulers with diffusers-compatible semantics.
+"""DDPM / DDIM / DPM-Solver++ (2M) schedulers with diffusers-compatible
+semantics.
 
-Port of ``convofusion_tpu/diffusion/schedulers.py:26-200``: the beta
-schedule, the fp32 ``alphas_cumprod`` table, 'leading' timestep spacing and
-the plain ``step`` for DDPM (fixed_small variance) and DDIM (eta).  Tables
-are numpy; per-step scalars are 0-dim fp32 CPU tensors, so the coefficient
-arithmetic runs in fp32 as it does in JAX and never reads the card.
-DPM-Solver++ (2M) is still to be ported.
+Port of ``convofusion_tpu/diffusion/schedulers.py:26-258``: the beta
+schedule, the fp32 ``alphas_cumprod`` table, ``add_noise`` / ``velocity``,
+'leading' timestep spacing, the plain ``step`` for DDPM (fixed_small
+variance) and DDIM (eta), ``dpmpp_2m_step`` and ``pred_original_sample``.
+Tables are numpy; per-step scalars are fp32 CPU tensors (0-dim for a scalar
+timestep), so the coefficient arithmetic runs in fp32 as it does in JAX and
+never reads the card.
 """
 from __future__ import annotations
 
@@ -72,6 +74,28 @@ class DiffusionScheduler:
     @property
     def init_noise_sigma(self) -> float:
         return 1.0
+
+    def _sqrt_acps(self, timesteps, samples):
+        """(sqrt(acp), sqrt(1 - acp)) in fp32 for an int or 0-dim timestep
+        (0-dim CPU tensors) or a (B,) one (shaped (B, 1, ...) and moved to
+        the samples' device)."""
+        t = torch.as_tensor(timesteps).cpu().long()
+        acp = torch.from_numpy(self.alphas_cumprod)[t]
+        out = (acp.sqrt(), (1.0 - acp).sqrt())
+        if acp.ndim == 0:
+            return out
+        shape = (-1,) + (1,) * (samples.ndim - 1)
+        return tuple(v.reshape(shape).to(samples.device) for v in out)
+
+    def add_noise(self, samples, noise, timesteps):
+        """q(x_t | x_0) (schedulers.py:85-91): timesteps an int or (B,)."""
+        sqrt_acp, sqrt_1macp = self._sqrt_acps(timesteps, samples)
+        return sqrt_acp * samples + sqrt_1macp * noise
+
+    def velocity(self, samples, noise, timesteps):
+        """The v target (schedulers.py:93-98)."""
+        sqrt_acp, sqrt_1macp = self._sqrt_acps(timesteps, samples)
+        return sqrt_acp * noise - sqrt_1macp * samples
 
     def timesteps(self, num_inference_steps: int) -> np.ndarray:
         """Descending inference timesteps ('leading' spacing, diffusers)."""
@@ -153,10 +177,56 @@ class DiffusionScheduler:
 
         raise ValueError(f"unknown scheduler variant {self.variant}")
 
+    # --- DPM-Solver++ (2M), data-prediction multistep (:194-233) ---------
+    @staticmethod
+    def _lambda(acp_t: torch.Tensor) -> torch.Tensor:
+        alpha = acp_t.sqrt()
+        sigma = (1.0 - acp_t).sqrt()
+        return alpha.clamp(min=1e-20).log() - sigma.clamp(min=1e-20).log()
+
+    def dpmpp_2m_step(self, model_output, t: int, prev_t: int, sample,
+                      prev_d, prev_lambda, is_first: bool):
+        """One DPM-Solver++ 2M update carrying (prev_d, prev_lambda) across
+        steps; the first step takes the first-order update (d = x0), and
+        the final one (prev_t < 0) returns x0 exactly.  Every scalar is a
+        0-dim fp32 tensor.  Returns (prev_sample, x0, new_prev_d,
+        new_lambda)."""
+        model_output = model_output.float()
+        a_t, a_prev = self.alpha_prods(t, prev_t)
+        acp_t, acp_prev = _f32(a_t), _f32(a_prev)
+        x0, _ = self._pred_x0_eps(model_output, sample, acp_t, 1.0 - acp_t)
+        lam_t = self._lambda(acp_t)
+        if prev_t < 0:
+            return x0, x0, x0, lam_t
+        h = self._lambda(acp_prev) - lam_t
+        sigma_t = (1.0 - acp_t).sqrt()
+        sigma_prev = (1.0 - acp_prev).sqrt()
+        alpha_prev = acp_prev.sqrt()
+        if is_first:
+            d = x0
+        else:
+            # second-order combined data prediction
+            h_last = lam_t - torch.as_tensor(prev_lambda, dtype=torch.float32)
+            r = h_last / torch.where(h == 0, _f32(1.0), h)
+            inv_2r = 1.0 / (2.0 * r.clamp(min=1e-8))
+            d = (1.0 + inv_2r) * x0 - inv_2r * prev_d
+        prev_sample = (sigma_prev / sigma_t.clamp(min=1e-20)) * sample \
+            - alpha_prev * (torch.exp(-h) - 1.0) * d
+        return prev_sample, x0, x0, lam_t
+
+    def pred_original_sample(self, model_output, t: int, sample):
+        """x0 prediction only (schedulers.py:235-242)."""
+        acp_t = _f32(self.alphas_cumprod[t])
+        x0, _ = self._pred_x0_eps(model_output.float(), sample, acp_t,
+                                  1.0 - acp_t)
+        return x0
+
 
 def scheduler_from_config(params: dict, predict_epsilon: bool = True
                           ) -> DiffusionScheduler:
-    """Build from a ``config.PRODUCTION['scheduler']``-style dict."""
+    """Build from a ``config.PRODUCTION['scheduler']``-style dict; a block
+    without ``variant`` / ``eta`` (``noise_scheduler``) is DDPM, eta 0
+    (convofusion_tpu/models/convofusion.py:156-167)."""
     return DiffusionScheduler(
         num_train_timesteps=int(params["num_train_timesteps"]),
         beta_start=float(params["beta_start"]),
@@ -164,6 +234,6 @@ def scheduler_from_config(params: dict, predict_epsilon: bool = True
         beta_schedule=str(params["beta_schedule"]),
         clip_sample=bool(params["clip_sample"]),
         prediction_type="epsilon" if predict_epsilon else "sample",
-        variant=str(params["variant"]),
-        eta=float(params["eta"]),
+        variant=str(params.get("variant", "ddpm")),
+        eta=float(params.get("eta", 0.0)),
     )

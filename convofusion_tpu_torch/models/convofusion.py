@@ -3,9 +3,10 @@ VAE decode.
 
 Port of ``convofusion_tpu/models/convofusion.py``: ``encode_text``,
 ``encode_conditions``, ``encode_uncond``, ``diffusion_reverse``, ``sample``
-(:330-383,604-943), with word-excitation guidance (WEG), and
-``cached_sampler`` / ``CachedSampler`` (:945-1032); the guided path only
-(no ``preseq``).  Weights live in the modules;
+(:330-383,604-943), with word-excitation guidance (WEG), the long-form
+rollout's ``preseq`` inpainting and the DPM-Solver++ 2M sampler, and
+``cached_sampler`` / ``CachedSampler`` / ``gen_from_latent``
+(:945-1038); the guided path only.  Weights live in the modules;
 ``compat/from_jax.state_dict_from_jax`` carries a JAX parameter tree
 across.
 
@@ -16,6 +17,10 @@ fused guidance + scheduler step kernel (``ops/guided_step.py``), then the
 VAE decodes (B, 16, D) latents to (B, 128, 189) motion.  With WEG, each
 step first differentiates a text-only denoiser pass w.r.t. the latents and
 moves them (``models/weg.py``); the step kernel is not differentiated.
+With ``preseq`` each step first overwrites the leading latent tokens with
+the previous window's, re-noised to the step's level.  DPM-Solver++ takes
+the plain guidance combine and its own update instead of the kernel, as
+JAX's gate does.
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ def to_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
     device = torch.device(device)
     out = {}
     for k, v in arrays.items():
-        t = torch.from_numpy(np.asarray(v))
+        t = torch.from_numpy(np.ascontiguousarray(v))
         if not t.is_floating_point() and t.dtype != torch.bool:
             t = t.long()
         if device.type == "cuda":
@@ -123,6 +128,9 @@ class Convofusion(nn.Module):
                                  **cfg["denoiser"], dtype=dtype)
         self.scheduler = scheduler_from_config(cfg["scheduler"],
                                                self.predict_epsilon)
+        # the training scheduler: the rollout re-noises its preseq with it
+        self.noise_scheduler = scheduler_from_config(cfg["noise_scheduler"],
+                                                     self.predict_epsilon)
         self.num_inference_timesteps = int(
             cfg["scheduler"]["num_inference_timesteps"])
         self.weg_parameters = cfg.get("weg_parameters", {})
@@ -216,20 +224,25 @@ class Convofusion(nn.Module):
                           init_noise: Optional[torch.Tensor] = None,
                           step_noise: Optional[torch.Tensor] = None,
                           weg: Optional[Dict] = None,
-                          weg_params: Optional[Dict] = None):
+                          weg_params: Optional[Dict] = None,
+                          preseq: Optional[torch.Tensor] = None):
         """Guided reverse process.  ``init_noise`` (B, 16, D) and
         ``step_noise`` (n_steps, B, 16, D) replace the draws from
-        ``generator`` (a test feeds JAX's own sequence).  ``weg`` (see
-        :meth:`sample`) turns word-excitation guidance on; ``weg_params``
-        overrides ``cfg['weg_parameters']``.  Latents stay fp32 whatever
-        the compute dtype.  Returns the final latents."""
+        ``generator`` (a test feeds JAX's own sequence; DPM-Solver++ draws
+        no step noise).  ``weg`` (see :meth:`sample`) turns word-excitation
+        guidance on; ``weg_params`` overrides ``cfg['weg_parameters']``.
+        ``preseq`` (B, L <= 16, D): the previous window's latent tokens,
+        inpainted over the first L tokens at every step.  Latents stay fp32
+        whatever the compute dtype.  Returns the final latents."""
         if not self.do_classifier_free_guidance:
             raise NotImplementedError(
                 "only guided sampling (guidance_scale > 1) is ported")
-        if self.scheduler.variant not in ("ddpm", "ddim"):
+        variant = self.scheduler.variant
+        if variant not in ("ddpm", "ddim", "dpmpp_2m"):
             raise NotImplementedError(
-                f"scheduler variant {self.scheduler.variant!r} is not ported")
+                f"scheduler variant {variant!r} is not ported")
         use_kernel = self.uses_step_kernel()
+        is_dpmpp = variant == "dpmpp_2m"
         n_steps = num_inference_steps or self.num_inference_timesteps
         ts = self.scheduler.timesteps(n_steps)
         prev_ts = self.scheduler.prev_timesteps(n_steps)
@@ -248,12 +261,32 @@ class Convofusion(nn.Module):
         latents = (draw() if init_noise is None
                    else init_noise.to(dev, torch.float32))
         latents = latents * self.scheduler.init_noise_sigma
-        is_ddpm = 1.0 if self.scheduler.variant == "ddpm" else 0.0
+        if preseq is not None:
+            # the reference's aliasing quirk (convofusion.py:666-678): step
+            # 0 re-noises the preseq with the initial noise, every later
+            # step with the step-0 *noised* preseq
+            preseq = preseq.to(dev, torch.float32)
+            n_pre = preseq.shape[1]
+            noise0 = latents[:, :n_pre]
+            noise_later = self.noise_scheduler.add_noise(preseq, noise0,
+                                                         int(ts[0]))
+        prev_d, prev_lambda = torch.zeros_like(latents), 0.0
+        is_ddpm = 1.0 if variant == "ddpm" else 0.0
         for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+            if preseq is not None:
+                noised = self.noise_scheduler.add_noise(
+                    preseq, noise0 if i == 0 else noise_later, t)
+                latents = torch.cat([noised, latents[:, n_pre:]], dim=1)
             if refine is not None:
                 latents = refine(latents, i, t)
             noise_pred7, _ = self.denoiser.guided(
                 latents, t, cond_real, cond_unc, masks_real, masks_unc)
+            if is_dpmpp:
+                latents, _, prev_d, prev_lambda = \
+                    self.scheduler.dpmpp_2m_step(
+                        self.guidance_combine_branches(noise_pred7), t, pt,
+                        latents, prev_d, prev_lambda, i == 0)
+                continue
             noise = (draw() if step_noise is None
                      else step_noise[i].to(dev, torch.float32))
             if use_kernel:
@@ -335,12 +368,15 @@ class Convofusion(nn.Module):
                init_noise: Optional[torch.Tensor] = None,
                step_noise: Optional[torch.Tensor] = None,
                uncond_cache=None, focus: Optional[Dict] = None,
-               weg_params: Optional[Dict] = None):
+               weg_params: Optional[Dict] = None,
+               preseq: Optional[torch.Tensor] = None):
         """End-to-end generation for a ``prepare_arrays`` batch.
         ``uncond_cache``: optional (cond_unc, masks_unc) from
         :meth:`encode_uncond`.  ``focus``: optional dict(focus_idx,
         focus_valid) (numpy, from ``tokenizer.focus_word_indices``) turns
-        WEG on; ``weg_params`` overrides ``cfg['weg_parameters']``.  Runs
+        WEG on; ``weg_params`` overrides ``cfg['weg_parameters']``.
+        ``preseq``: the previous window's latent tokens to inpaint (see
+        :meth:`diffusion_reverse`).  Runs
         under ``no_grad``, not ``inference_mode``: WEG builds a graph
         through the latents from conditions encoded here.  Returns (motion
         (B, 128, nfeats), latents (B, 16, D))."""
@@ -356,21 +392,24 @@ class Convofusion(nn.Module):
         latents = self.diffusion_reverse(
             cond_real, masks_real, cond_unc, masks_unc, b,
             num_inference_steps, generator, init_noise, step_noise, weg,
-            weg_params)
+            weg_params, preseq)
         # (B, 16, D) -> (2, B, 8, D): tokens alternate body, hands per chunk
         z = latents.reshape(b, self.n_chunks, 2, self.latent_dim)
         z = torch.stack([z[:, :, 0], z[:, :, 1]], dim=0)
         return self.vae.decode(z, self.max_len), latents
 
-    def cached_sampler(self, num_inference_steps: Optional[int] = None
+    def cached_sampler(self, num_inference_steps: Optional[int] = None,
+                       weg_params: Optional[Dict] = None
                        ) -> "CachedSampler":
-        """The model's :class:`CachedSampler` for this step count, shared
-        by every caller with the same step count."""
+        """The model's :class:`CachedSampler` for these settings, shared by
+        every caller with the same step count and WEG parameters (the
+        rollout's windows and calls, the service)."""
         caches = self.__dict__.setdefault("_sampler_caches", {})
-        if num_inference_steps not in caches:
-            caches[num_inference_steps] = CachedSampler(self,
-                                                        num_inference_steps)
-        return caches[num_inference_steps]
+        key = (num_inference_steps, repr(weg_params))
+        if key not in caches:
+            caches[key] = CachedSampler(self, num_inference_steps,
+                                        weg_params)
+        return caches[key]
 
 
 class CachedSampler:
@@ -379,14 +418,17 @@ class CachedSampler:
     The uncond branch depends on the weights and the batch geometry only
     (:meth:`Convofusion.encode_uncond`), so it is encoded once per
     geometry at batch 1.  The cache is keyed on the model's
-    ``weights_version``, which ``load_state_dict`` bumps.  (The JAX
-    ``CachedSampler`` also caches compiled executables; eager PyTorch has
-    none.)"""
+    ``weights_version``, which ``load_state_dict`` bumps.  ``weg_params``
+    overrides the model's WEG parameters in every call (the rollout's
+    constants).  (The JAX ``CachedSampler`` also caches compiled
+    executables; eager PyTorch has none.)"""
 
     def __init__(self, model: Convofusion,
-                 num_inference_steps: Optional[int] = None):
+                 num_inference_steps: Optional[int] = None,
+                 weg_params: Optional[Dict] = None):
         self.model = model
         self.num_inference_steps = num_inference_steps
+        self.weg_params = weg_params
         self._uncond = {}
         self._version = None
 
@@ -407,8 +449,17 @@ class CachedSampler:
     def __call__(self, arrays, generator: Optional[torch.Generator] = None,
                  focus: Optional[Dict] = None,
                  init_noise: Optional[torch.Tensor] = None,
-                 step_noise: Optional[torch.Tensor] = None):
+                 step_noise: Optional[torch.Tensor] = None,
+                 preseq: Optional[torch.Tensor] = None):
         """Returns (motion, latents), as :meth:`Convofusion.sample`."""
         return self.model.sample(
             arrays, generator, self.num_inference_steps, init_noise,
-            step_noise, uncond_cache=self.uncond_for(arrays), focus=focus)
+            step_noise, uncond_cache=self.uncond_for(arrays), focus=focus,
+            weg_params=self.weg_params, preseq=preseq)
+
+
+def gen_from_latent(model: Convofusion, latent: torch.Tensor,
+                    nframes: Optional[int] = None) -> torch.Tensor:
+    """Decode motion straight from a (2, B, n_chunks, D) latent
+    (convofusion_tpu/models/convofusion.py:1035-1038)."""
+    return model.vae.decode(latent, nframes or model.max_len)

@@ -1,8 +1,8 @@
 """Latent-diffusion denoiser transformer (production ``trans_dec`` arch).
 
 Port of ``Denoiser._embed_sample``, ``_build_memory``, ``__call__``,
-``text_only`` and ``guided`` (``convofusion_tpu/models/denoiser.py:
-117-208,249-291``):
+``text_only``, ``precompute_step_kv``, ``forward_kv`` and ``guided``
+(``convofusion_tpu/models/denoiser.py:117-291``):
   1. project the (B, 16, latent_dim) latent tokens to d
   2. sinusoidal timestep embedding -> 2-layer MLP -> (B, 1, d)
   3. add the body/hands token-type embedding (even/odd tokens) + sine_bh PE
@@ -106,19 +106,49 @@ class Denoiser(nn.Module):
             raise ValueError("text_only takes a scalar timestep")
         return self.forward(sample, timesteps, cond, cond_masks)
 
+    def precompute_step_kv(self, timesteps, cond_real, cond_unc):
+        """Every layer's memory LayerNorm + K/V for both guidance variants
+        at one scalar timestep: the latent-independent share of a step,
+        for :meth:`guided` and :meth:`forward_kv` (``kvs=``).  The time
+        embedding is one row, so single-row streams stay at batch 1."""
+        if not _is_scalar(timesteps):
+            raise ValueError("precompute_step_kv takes a scalar timestep")
+        dev = self.latent_embd.weight.device
+        ts = torch.as_tensor(timesteps, device=dev).reshape(1)
+        time_emb = self.time_embedding(self.time_proj(ts).to(
+            self.latent_embd.weight.dtype))[:, None, :]
+        return self.decoder.precompute_kv(
+            self._build_memory(cond_real, time_emb, True),
+            self._build_memory(cond_unc, time_emb, True))
+
+    def forward_kv(self, sample, timesteps, kvs, cond_masks=None,
+                   select: Optional[Dict[str, str]] = None):
+        """``forward`` over :meth:`precompute_step_kv`; ``select[stream]``
+        in {'real', 'unc'} (the WEG text-only pass: tlsn 'real', the rest
+        'unc', guidance branch 1)."""
+        x, time_emb = self._embed_sample(sample, timesteps)
+        out, att = self.decoder.forward_kv(x, kvs, select, time_emb,
+                                           cond_masks)
+        return self.latent_proj(out), att
+
     def guided(self, sample, timesteps, cond_real, cond_unc,
-               masks_real=None, masks_unc=None):
-        """All 7 classifier-free-guidance branches at once.  Returns
-        (noise_pred (7, B, T, latent_dim), att[stream] (B, L, T, Tk) of the
-        full-condition branch)."""
+               masks_real=None, masks_unc=None, kvs=None):
+        """All 7 classifier-free-guidance branches at once.  ``kvs``
+        (optional): :meth:`precompute_step_kv` at this timestep, which
+        replaces the conditions.  Returns (noise_pred (7, B, T,
+        latent_dim), att[stream] (B, L, T, Tk) of the full-condition
+        branch)."""
         x, time_emb = self._embed_sample(sample, timesteps)
         x7 = x[None].expand((NUM_BRANCHES,) + x.shape)
-        shared = _is_scalar(timesteps)
-        mem_real = self._build_memory(cond_real, time_emb, shared)
-        # single-row uncond conditions (encode_uncond) keep the uncond
-        # memory at batch 1 through LayerNorm + K/V; grouped_attend
-        # broadcasts the shared keys/values
-        mem_unc = self._build_memory(cond_unc, time_emb, shared)
+        if kvs is None:
+            shared = _is_scalar(timesteps)
+            mem_real = self._build_memory(cond_real, time_emb, shared)
+            # single-row uncond conditions (encode_uncond) keep the uncond
+            # memory at batch 1 through LayerNorm + K/V; grouped_attend
+            # broadcasts the shared keys/values
+            mem_unc = self._build_memory(cond_unc, time_emb, shared)
+        else:
+            mem_real = mem_unc = None
         out7, att = self.decoder.guided(x7, mem_real, mem_unc, time_emb,
-                                        masks_real, masks_unc)
+                                        masks_real, masks_unc, kvs)
         return self.latent_proj(out7), att

@@ -3,12 +3,14 @@ conditional decoder layer of the denoiser.
 
 Port of ``convofusion_tpu/ops/transformer.py``: ``_FFN``, ``TimeBlock``,
 ``TransformerDecoderLayer``, ``SkipTransformerDecoder`` (:38-53,96-145,
-189-252), ``TransformerDecoderLayer2Att.__call__`` / ``.forward_mem`` /
-``.guided`` (:255-347,404-510), ``DenoiserDecoder.__call__`` /
-``.forward_mem`` / ``.guided`` (:513-565,573-589,609-627) and the guidance
-tables (:26,732-750).  ``forward`` here is both ``__call__`` and
-``forward_mem``: its cross-attention broadcasts single-row memories, so
-one body serves full and mixed-batch streams.  Inference only:
+189-252), ``TransformerDecoderLayer2Att.__call__`` / ``.cross_kv`` /
+``.forward_kv`` / ``.forward_mem`` / ``.guided`` (:255-510),
+``DenoiserDecoder.__call__`` / ``.precompute_kv`` / ``.forward_mem`` /
+``.forward_kv`` / ``.guided`` (:513-627) and the guidance tables
+(:26,732-750).  ``forward`` here is both
+``__call__`` and ``forward_mem``: its cross-attention broadcasts
+single-row memories, so one body serves full and mixed-batch streams; it
+and ``forward_kv`` share one body over per-stream K/V.  Inference only:
 dropout is the identity and is left out.  No caller passes positional
 queries inside the layers (``pos``/``query_pos`` are always None on the
 sampling path), so those arguments are left out too.
@@ -204,6 +206,19 @@ class TransformerDecoderLayer2Att(_FFN):
         return (getattr(self, f"multihead_attn_{s}"),
                 getattr(self, f"{s}_norm"))
 
+    def _kv(self, s, mem):
+        """Stream ``s``'s memory LayerNorm + K/V projection."""
+        mod, norm = self._cross(s)
+        return mod.project_kv(norm(mem))
+
+    def cross_kv(self, mem_real, mem_unc):
+        """The latent-independent part of the cross-attentions: per
+        stream, the memory LayerNorm + K/V of both guidance variants,
+        {stream: ((k_r, v_r), (k_u, v_u))}, for :meth:`guided` and
+        :meth:`forward_kv`."""
+        return {s: (self._kv(s, mem_real[s]), self._kv(s, mem_unc[s]))
+                for s in COND_STREAMS}
+
     def forward(self, tgt, memory: Dict[str, torch.Tensor], time_embed,
                 mem_masks: Optional[Dict[str, torch.Tensor]] = None):
         """tgt (B, Tq, D); memory[stream] (B, Tk_s, D), or single shared
@@ -212,6 +227,19 @@ class TransformerDecoderLayer2Att(_FFN):
         four of five streams are the uncond variant); mem_masks[stream]
         (B or 1, Tk_s) bool, True = pad.  Returns (tgt, att[stream] (B,
         Tq, Tk_s))."""
+        return self._forward(tgt, {s: self._kv(s, memory[s])
+                                   for s in COND_STREAMS},
+                             time_embed, mem_masks)
+
+    def forward_kv(self, tgt, kv, select: Dict[str, str], time_embed,
+                   mem_masks: Optional[Dict[str, torch.Tensor]] = None):
+        """:meth:`forward` over precomputed :meth:`cross_kv`;
+        ``select[stream]`` picks the variant, 'real' or 'unc'."""
+        return self._forward(
+            tgt, {s: kv[s][0 if select[s] == "real" else 1]
+                  for s in COND_STREAMS}, time_embed, mem_masks)
+
+    def _forward(self, tgt, kv, time_embed, mem_masks):
         mem_masks = mem_masks or {}
         tgt2 = self.norm1(tgt)
         tgt2, _ = self.self_attn(tgt2, tgt2, tgt2, need_weights=False)
@@ -221,8 +249,8 @@ class TransformerDecoderLayer2Att(_FFN):
         q_cond = self.norm2(tgt)
         branch_outs, att = [], {}
         for s in COND_STREAMS:
-            mod, norm = self._cross(s)
-            k, v = mod.project_kv(norm(memory[s]))
+            mod, _ = self._cross(s)
+            k, v = kv[s]
             o, w = mod.grouped_attend(mod.q_proj(q_cond)[None], k, v,
                                       mem_masks.get(s))
             branch_outs.append(mod.out_proj(o[0]))
@@ -233,12 +261,16 @@ class TransformerDecoderLayer2Att(_FFN):
         return tgt, att
 
     def guided(self, tgt7, mem_real, mem_unc, time_embed,
-               masks_real=None, masks_unc=None):
+               masks_real=None, masks_unc=None, kv=None):
         """tgt7 (G, B, Tq, D) branch-major latents; mem_real[s] (B, Tk, D);
-        mem_unc[s] (B or 1, Tk, D); time_embed (B, 1, D).  Returns (tgt7,
-        att[s] (B, Tq, Tk)) with att from the full-condition branch."""
+        mem_unc[s] (B or 1, Tk, D); time_embed (B, 1, D); ``kv`` (optional)
+        the :meth:`cross_kv` of those memories, which are then not read.
+        Returns (tgt7, att[s] (B, Tq, Tk)) with att from the
+        full-condition branch."""
         masks_real = masks_real or {}
         masks_unc = masks_unc or {}
+        if kv is None:
+            kv = self.cross_kv(mem_real, mem_unc)
         g, b, tq, d = tgt7.shape
 
         flat = self.norm1(tgt7).reshape(g * b, tq, d)
@@ -249,11 +281,10 @@ class TransformerDecoderLayer2Att(_FFN):
         tgt2 = self.norm2(tgt7)
         branch_outs, att = [], {}
         for s in COND_STREAMS:
-            mod, norm = self._cross(s)
+            mod, _ = self._cross(s)
             r_idx = getattr(self, f"_real_idx_{s}")
             u_idx = getattr(self, f"_unc_idx_{s}")
-            k_r, v_r = mod.project_kv(norm(mem_real[s]))
-            k_u, v_u = mod.project_kv(norm(mem_unc[s]))
+            (k_r, v_r), (k_u, v_u) = kv[s]
             q_all = mod.q_proj(tgt2)
             o_r, w_r = mod.grouped_attend(q_all.index_select(0, r_idx),
                                           k_r, v_r, masks_real.get(s))
@@ -297,11 +328,24 @@ class DenoiserDecoder(nn.Module):
             per_layer.append(att)
         return self.norm(out), self._stack(per_layer)
 
+    def precompute_kv(self, mem_real, mem_unc):
+        """Every layer's :meth:`TransformerDecoderLayer2Att.cross_kv`."""
+        return [layer.cross_kv(mem_real, mem_unc) for layer in self.layers]
+
+    def forward_kv(self, tgt, kvs, select, time_embed, mem_masks=None):
+        out, per_layer = tgt, []
+        for layer, kv in zip(self.layers, kvs):
+            out, att = layer.forward_kv(out, kv, select, time_embed,
+                                        mem_masks)
+            per_layer.append(att)
+        return self.norm(out), self._stack(per_layer)
+
     def guided(self, tgt7, mem_real, mem_unc, time_embed, masks_real=None,
-               masks_unc=None):
+               masks_unc=None, kvs=None):
         out, per_layer = tgt7, []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             out, att = layer.guided(out, mem_real, mem_unc, time_embed,
-                                    masks_real, masks_unc)
+                                    masks_real, masks_unc,
+                                    None if kvs is None else kvs[i])
             per_layer.append(att)
         return self.norm(out), self._stack(per_layer)

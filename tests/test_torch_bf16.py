@@ -13,9 +13,12 @@ two sides round at different places and differ by a few ulps, not by
 0.  Each tolerance below is stated in ulps of the largest magnitude it
 compares, with what was observed.  A cast in another place than JAX's (a
 stream kept in bf16 that JAX keeps in fp32) shows as a dtype that differs
-or as a port further from fp32 than JAX is.  Only one denoiser call and one
-step are compared: rounding compounds through 50 steps.
+or as a port further from fp32 than JAX is.  One denoiser call, one step,
+one DPM-Solver++ step and one DDIM-4 window with a preseq are compared:
+rounding compounds through 50 steps.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +36,9 @@ from convofusion_tpu_torch.config import TINY
 from convofusion_tpu_torch.data import synthetic as torch_synthetic
 from convofusion_tpu_torch.models import weg
 from convofusion_tpu_torch.models.convofusion import Convofusion
+from convofusion_tpu_torch.diffusion.schedulers import (
+    DiffusionScheduler as PortScheduler,
+)
 from convofusion_tpu_torch.ops.guided_step import guided_step
 
 B, T, LAT = 3, 16, 32
@@ -62,6 +68,13 @@ WEG_LOSS_ULPS = 1
 # most, 2.6 on average; the port's mean distance from the fp32 port is
 # 0.55x JAX's (within FP32_DISTANCE_RATIO)
 WEG_GRAD_ULPS, WEG_GRAD_MEAN_ULPS = 128, 4
+# a DDIM-4 window with a preseq: x0 clipping turns a bf16 rounding into
+# a jump of up to 2 once a value sits at the clip, so values are compared by
+# their mean.  The port's mean distance from the fp32 port is JAX's within
+# WINDOW_DISTANCE_RATIO (observed 1.16x on the latents, 1.13x on the
+# motion); the mean |port - JAX| stays within WINDOW_MEAN_RATIO of JAX's
+# own mean distance from fp32 (observed 1.39x and 1.46x)
+WINDOW_DISTANCE_RATIO, WINDOW_MEAN_RATIO = 1.5, 2.0
 ACP = DiffusionScheduler().alphas_cumprod
 STEP_CASES = {
     # name: (alpha_t, alpha_prev, is_ddpm, add_noise)
@@ -270,3 +283,78 @@ def test_weg_loss_and_grad_match_jax_bf16(twins):
     assert diff.mean() <= WEG_GRAD_MEAN_ULPS * _ulp(a)
     assert np.abs(b - ref).mean() <= \
         FP32_DISTANCE_RATIO * np.abs(a - ref).mean()
+
+
+@pytest.mark.parametrize("t,prev_t,first", [(950, 900, True),
+                                            (500, 450, False),
+                                            (0, -50, False)],
+                         ids=["first", "middle", "final"])
+def test_dpmpp_step_on_bf16_planes_matches_jax(twins, planes, t, prev_t,
+                                               first):
+    """The dpmpp path's plain combine (bf16 on both sides, as JAX keeps
+    the planes' dtype) and dpmpp_2m_step (fp32) on JAX's bf16 planes:
+    within STEP_TOL (observed 0)."""
+    jm, _, ports, _, _ = twins
+    latents, np_j, _, _ = planes
+    port = ports["bfloat16"]
+    eps_j = jm.guidance_combine_branches(np_j)
+    eps_t = port.guidance_combine_branches(_torch({"p": np_j})["p"])
+    assert eps_j.dtype == jnp.bfloat16 and eps_t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(eps_t), _np(eps_j))
+    prev_d = np.random.default_rng(2).uniform(
+        -1, 1, latents.shape).astype(np.float32)
+    js, ps = (DiffusionScheduler(variant="dpmpp_2m"),
+              PortScheduler(variant="dpmpp_2m"))
+    lam_prev = float(ps._lambda(torch.tensor(ACP[min(t + 50, 999)])))
+    want = js.dpmpp_2m_step(eps_j, t, prev_t, jnp.asarray(latents),
+                            jnp.asarray(prev_d), jnp.float32(lam_prev),
+                            first)
+    got = ps.dpmpp_2m_step(eps_t, t, prev_t, torch.from_numpy(latents),
+                           torch.from_numpy(prev_d), lam_prev, first)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=STEP_TOL)
+
+
+def test_preseq_window_matches_jax_bf16(twins):
+    """A DDIM-4 rollout window with a preseq in bf16 on both sides, JAX's
+    noise replayed, the fp32 port on the same inputs as the reference."""
+    jm, params, ports, jbatch, tbatch = twins
+    cfg = tiny_config("diffusion")
+    for block in ("denoiser", "motion_vae", "text_encoder",
+                  "audio_encoder"):
+        cfg.model[block].params["compute_dtype"] = "bfloat16"
+    cfg.model.scheduler["variant"] = "ddim"
+    jm = JaxConvofusion(cfg)
+    preseq = np.random.default_rng(6).standard_normal(
+        (B, 8, LAT)).astype(np.float32) * 0.3
+    key = jax.random.PRNGKey(4)
+    motion_j, lat_j, _ = jax.jit(lambda p, b, k, ps: jm.sample(
+        p, b, k, num_inference_steps=4, preseq=ps))(
+        params, jbatch, key, jnp.asarray(preseq))
+    k_init, k = jax.random.split(key)
+    init = np.array(jax.random.normal(k_init, (B, T, LAT)))
+    steps = []
+    for _ in range(4):
+        k, k_step = jax.random.split(k)
+        steps.append(np.array(jax.random.normal(k_step, (B, T, LAT))))
+    out = {}
+    for dtype, port in ports.items():
+        saved = port.scheduler
+        port.scheduler = dataclasses.replace(saved, variant="ddim")
+        try:
+            out[dtype] = port.sample(
+                tbatch, num_inference_steps=4,
+                init_noise=torch.from_numpy(init),
+                step_noise=torch.from_numpy(np.stack(steps)),
+                preseq=torch.from_numpy(preseq))
+        finally:
+            port.scheduler = saved
+    for i, want in ((1, lat_j), (0, motion_j)):
+        a, b, ref = _np(want), _np(out["bfloat16"][i]), _np(
+            out["float32"][i])
+        assert np.isfinite(b).all() and b.shape == a.shape
+        jax_dist = np.abs(a - ref).mean()
+        assert np.abs(b - ref).mean() <= WINDOW_DISTANCE_RATIO * jax_dist
+        assert np.abs(a - b).mean() <= WINDOW_MEAN_RATIO * jax_dist
