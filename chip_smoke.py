@@ -61,9 +61,23 @@ Phases, each raising on failure (non-zero exit, no result line):
                one warm-up and three timed calls (clips/s, ms/call); the
                fused step kernel is never launched (JAX's gate); after the
                count is read, DDIM-20 and dpmpp_2m-20 in turns on that model
-Then a JSON line of per-kernel numbers (launches summed over phases 5-10,
-and each phase's count under launches_by_phase)
-and, last, the result line {"ok": true, "device": {...}}.
+ 11. train_parity - production geometry, fp32, batch 4, seeded weights,
+               dropout 0, numpy-made draws fed to both devices: stage 1
+               (the VAE) and stage 2 (token ids) through the Trainer on the
+               card against the CPU: step 1's loss and every gradient, the
+               losses of 3 AdamW steps; the frozen subtrees (T5 trunk, and
+               the VAE in stage 2) bit-identical on the card after them
+ 12. train    - production geometry, bf16 compute with fp32 master weights:
+               stage 2 at batch 64 with token ids, stage 2 at batch 64 with
+               the cached T5 trunk and VAE posterior (bench.py --cached-text
+               --cached-vae), stage 1 at batch 128; each 3 warm-up and 20
+               timed steps (median ms a step, clips/s), peak memory, and 2
+               profiled steps (kernels a step, the card's busy share); every
+               loss finite; then stage 1 on one fixed batch for 50 steps,
+               whose last 5 losses must average below its first 5
+Then a JSON line of per-kernel numbers (launches summed over phases 5-12,
+and each phase's count under launches_by_phase; the training phases launch
+no step kernel) and, last, the result line {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
@@ -77,6 +91,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -84,7 +99,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from convofusion_tpu_torch.cli.unbounded import rollout
-from convofusion_tpu_torch.config import PRODUCTION
+from convofusion_tpu_torch.config import PRODUCTION, PRODUCTION_VAE
 from convofusion_tpu_torch.diffusion.schedulers import DiffusionScheduler
 from convofusion_tpu_torch.data.synthetic import (
     prepare_arrays,
@@ -103,6 +118,7 @@ from convofusion_tpu_torch.serving import (
     build_service,
     serve_http,
 )
+from convofusion_tpu_torch.train.trainer import Trainer, trainable_parameters
 
 BATCH, STEPS, TIMED_CALLS = 96, 50, 3   # bench.py:26-29 (batch, steps)
 KERNEL_TOL = 1e-5
@@ -140,6 +156,17 @@ ROLLOUT_PARTS, ROLLOUT_TIMED = 3, 2
 # phase 10: DPM-Solver++ 2M steps (bench.py --sampler dpmpp_2m --steps 20)
 DPMPP_STEPS = 20
 DPMPP_ATOL, DPMPP_LATENT_ATOL = 1e-3, 2e-3
+# phase 11: training card vs CPU, fp32; tolerances argued in
+# phase_train_parity
+TRAIN_PARITY_BATCH, TRAIN_PARITY_STEPS = 4, 3
+TRAIN_LOSS_RTOL, TRAIN_FIT_RTOL = 1e-4, 1e-3
+TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
+# phase 12: the production batch sizes (config_cf_beatdnd.yaml:11,
+# config_vae_beatdnd.yaml:17), warm-up, timed and profiled steps, and the
+# stage-1 learning check's steps
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 20, 2, 50
+TRAIN_DIFFUSION_BATCH = PRODUCTION["train"]["batch_size"]
+TRAIN_VAE_BATCH = PRODUCTION_VAE["train"]["batch_size"]
 
 
 def log(*args):
@@ -913,6 +940,298 @@ def dpmpp_against_ddim(model, sampler, batch, gen):
     log(f"# dpmpp: in turns at {DPMPP_STEPS} steps, ms/call: {turns}")
 
 
+def without_dropout(cfg):
+    """``cfg`` with every dropout rate 0: the masks come from each
+    device's own generator, so only a dropout-free step compares."""
+    cfg = copy.deepcopy(cfg)
+    for block in ("denoiser", "motion_vae", "audio_encoder"):
+        cfg[block]["dropout"] = 0.0
+    return cfg
+
+
+def train_draws(rng, stage, b, n_steps, lat=128):
+    """Numpy-made draws for ``n_steps`` steps: the VAE's eps and, in stage
+    2, the modality-dropout groups (any of the 7 per row), the noise and
+    the timesteps."""
+    out = []
+    for _ in range(n_steps):
+        d = {"eps": rng.standard_normal((2, b, 8, lat)).astype(np.float32)}
+        if stage != "vae":
+            d.update(group=rng.integers(0, 7, b),
+                     noise=rng.standard_normal((b, 16, lat)).astype(
+                         np.float32),
+                     timesteps=rng.integers(0, 1000, b))
+        out.append(d)
+    return out
+
+
+def train_batch(model, raw):
+    """The batch of ``model``'s stage: motion alone for stage 1."""
+    if model.stage == "vae":
+        return {"motion": to_tensors({"m": raw["motion_lsn"]},
+                                     model.device)["m"]}
+    return prepare_arrays(model, raw)[0]
+
+
+def phase_train_parity(device="cuda"):
+    """Stage 1 and stage 2 (token ids), fp32 with TF32 off, production
+    geometry, batch 4, dropout 0, the same seeded weights and numpy-made
+    draws on the card and on the CPU.  GEMM sums run in another order on
+    each, and the embedding and gather backwards add with atomics on the
+    card: the step-1 loss is held to 1e-4 relative, every gradient to
+    1e-5 + 1e-3 max|g| of its tensor, and the losses of 3 AdamW steps to
+    1e-3 relative (AdamW divides by sqrt(v), which magnifies the gap of a
+    near-zero gradient, so parameters are not compared)."""
+    b = TRAIN_PARITY_BATCH
+    raw = synthetic_raw_batch(31, b, mel_frames=PRODUCTION["mel_frames"])
+    for stage, cfg in (("vae", PRODUCTION_VAE), ("diffusion", PRODUCTION)):
+        draws = train_draws(np.random.default_rng(32), stage, b,
+                            TRAIN_PARITY_STEPS, cfg["latent_dim"][1])
+        out = {}
+        for side in (device, "cpu"):
+            t0 = time.perf_counter()
+            model = Convofusion(without_dropout(cfg), dtype="float32",
+                                device=side, seed=0, stage=stage)
+            batch = train_batch(model, raw)
+            trained = {n for n, _ in trainable_parameters(model, stage)}
+            frozen = {n: p.detach().clone()
+                      for n, p in model.named_parameters()
+                      if n not in trained}
+            trainer = Trainer(model)
+            trainer.init_state()
+            with trainer.training():
+                loss, _ = trainer.compute_grads(batch, None, draws[0])
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+                trainer.apply_grads()
+            losses = [float(loss)] + trainer.fit_steps(
+                [batch] * (TRAIN_PARITY_STEPS - 1), None, log_every=1,
+                draws=draws[1:])
+            changed = [n for n, p in model.named_parameters()
+                       if n in frozen and not torch.equal(p, frozen[n])]
+            if changed:
+                raise RuntimeError(f"train_parity {stage} on {side}: frozen "
+                                   f"parameters moved: {changed[:4]}")
+            if set(grads) != trained:
+                raise RuntimeError(f"train_parity {stage} on {side}: "
+                                   f"{len(grads)} gradients for "
+                                   f"{len(trained)} trainable parameters")
+            out[side] = (losses, grads)
+            log(f"# train_parity: {stage} {TRAIN_PARITY_STEPS} steps on "
+                f"{side} in {time.perf_counter() - t0:.1f} s ({len(frozen)} "
+                f"frozen tensors unchanged)")
+            del model, trainer
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = out[device], out["cpu"]
+        if not all(np.isfinite(l_gpu + l_cpu)):
+            raise RuntimeError(f"train_parity {stage}: losses not finite")
+        d_loss = abs(l_gpu[0] - l_cpu[0]) / abs(l_cpu[0])
+        worst, worst_name = 0.0, None
+        for name, want in g_cpu.items():
+            tol = TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * float(want.abs().max())
+            ratio = float((g_gpu[name] - want).abs().max()) / tol
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        d_fit = max(abs(a - c) / abs(c) for a, c in zip(l_gpu, l_cpu))
+        log(f"# train_parity: {stage} fp32 batch {b} card vs CPU: step-1 "
+            f"loss {l_cpu[0]:.6g}, relative gap {d_loss:.3g} (tolerance "
+            f"{TRAIN_LOSS_RTOL}); {len(g_cpu)} gradients, the worst at "
+            f"{worst:.3g} of its tolerance ({worst_name}); losses of "
+            f"{TRAIN_PARITY_STEPS} steps {[round(x, 6) for x in l_gpu]} "
+            f"card, {[round(x, 6) for x in l_cpu]} CPU, relative gap "
+            f"{d_fit:.3g} (tolerance {TRAIN_FIT_RTOL})")
+        if not d_loss <= TRAIN_LOSS_RTOL:
+            raise RuntimeError(f"train_parity {stage}: loss gap {d_loss}")
+        if not worst <= 1.0:
+            raise RuntimeError(f"train_parity {stage}: gradient "
+                               f"{worst_name} at {worst} x its tolerance")
+        if not d_fit <= TRAIN_FIT_RTOL:
+            raise RuntimeError(f"train_parity {stage}: step losses gap "
+                               f"{d_fit}")
+
+
+def cached_layout(model, batch):
+    """bench.py --cached-text --cached-vae (bench.py:388-416): the T5 trunk
+    states with a one-row uncond trunk, and the frozen VAE's posterior, in
+    place of the token ids and the motion."""
+    out = dict(batch)
+    for who in ("spk", "lsn"):
+        out[f"{who}_trunk"] = model.encode_text_trunk(
+            batch[f"{who}_ids"], batch[f"{who}_tmask"])
+    out["uncond_trunk"] = model.encode_text_trunk(batch["uncond_ids"][:1],
+                                                  batch["uncond_tmask"][:1])
+    out["uncond_tmask"] = batch["uncond_tmask"][:1]
+    out["vae_mu"], out["vae_logvar"] = model.encode_vae_posterior(
+        batch["motion_lsn"])
+    for k in ("spk_ids", "lsn_ids", "uncond_ids", "motion_lsn"):
+        del out[k]
+    return out
+
+
+def time_training(name, model, batch, smi, seed):
+    """TRAIN_WARMUP + TRAIN_TIMED steps, each ending in a sync, then
+    TRAIN_PROFILED steps under the profiler.  Returns the step losses (on
+    the device) and a summary."""
+    dev = model.device
+    on_card = dev.type == "cuda"
+    b = (batch["motion"] if model.stage == "vae"
+         else batch["lsn_tmask"]).shape[0]
+    trainer = Trainer(model)
+    trainer.init_state()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    with trainer.training():
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            t0 = time.perf_counter()
+            loss, _ = trainer.compute_grads(batch, gen)
+            trainer.apply_grads()
+            if on_card:
+                torch.cuda.synchronize()
+            losses.append(loss)
+            if i >= TRAIN_WARMUP:
+                times.append(time.perf_counter() - t0)
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILED):
+                loss, _ = trainer.compute_grads(batch, gen)
+                trainer.apply_grads()
+                losses.append(loss)
+            if on_card:
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        split = split_step(trainer, batch, gen, on_card)
+        check_no_host_wait(trainer, batch, gen, on_card, name)
+    averages = prof.key_averages()
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    # kernel time a step from the profiled steps; the profiler slows the
+    # host, so the busy share divides it by the unprofiled median step
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / TRAIN_PROFILED
+    n_kernels = sum(e.count for e in kernels) // TRAIN_PROFILED
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    med = statistics.median(times)
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise RuntimeError(f"train {name}: a loss is not finite")
+    summary = dict(ms=med * 1e3, clips_per_s=b / med, peak_gib=peak / 2**30,
+                   kernels=n_kernels, device_ms=device_ms,
+                   busy=device_ms / (med * 1e3))
+    log(f"# train: {name}, batch {b}, bf16 + fp32 masters, on {smi}: "
+        f"{med * 1e3:.2f} ms a step (median of {TRAIN_TIMED}; "
+        f"{min(times) * 1e3:.2f}-{max(times) * 1e3:.2f}), "
+        f"{b / med:.1f} clips/s, peak memory {peak / 2**30:.2f} GiB, "
+        f"{n_kernels} kernels a step, {device_ms:.2f} ms of kernel time a "
+        f"step, the card busy {device_ms / (med * 1e3):.1%} of the median "
+        f"step (kernel time from {TRAIN_PROFILED} profiled steps, which took "
+        f"{wall_ms / TRAIN_PROFILED:.1f} ms each under the profiler); losses "
+        f"{float(losses[0]):.4g} -> {float(losses[-1]):.4g}")
+    log(f"# train: {name}: one step split with a sync between the parts: "
+        f"forward {split[0]:.1f} ms, backward {split[1]:.1f} ms, AdamW and "
+        f"the master copy {split[2]:.1f} ms"
+        f"{'; no wait for the card inside a step (CUDA sync checker)' if on_card else ''}")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        log(f"#   {_device_us(e) / 1e3 / TRAIN_PROFILED:8.3f} ms a step "
+            f"{e.count // TRAIN_PROFILED:5d}x  {e.key[:90]}")
+    host = [e for e in averages if e.device_type != DeviceType.CUDA]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        log(f"#   host {e.self_cpu_time_total / 1e3 / TRAIN_PROFILED:8.3f} "
+            f"ms a step {e.count // TRAIN_PROFILED:5d}x  {e.key[:80]}")
+    return summary
+
+
+def split_step(trainer, batch, gen, on_card):
+    """One step's forward, backward and optimizer times in ms, with a sync
+    between the parts (inside ``trainer.training()``)."""
+    marks = [time.perf_counter()]
+
+    def mark():
+        if on_card:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    loss, _ = trainer.loss_fn()(batch, gen, None)
+    mark()
+    loss.backward()
+    mark()
+    trainer.apply_grads()
+    mark()
+    return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+
+def check_no_host_wait(trainer, batch, gen, on_card, name):
+    """One step with the CUDA sync checker on: any op that makes the host
+    wait for the card inside the step (an .item(), a synchronising copy)
+    warns; the phase fails on a warning."""
+    if not on_card:
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.compute_grads(batch, gen)
+            trainer.apply_grads()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    for msg in syncs[:5]:
+        log(f"# train: {name}: host wait: {msg[:300]}")
+    if syncs:
+        raise RuntimeError(f"train {name}: {len(syncs)} host waits in a step")
+
+
+def phase_train(smi, device=None):
+    """bf16 training at the production batch sizes through the Trainer:
+    stage 2 with token ids and with the cached layout, stage 1; then the
+    stage-1 learning check."""
+    rows = {}
+    raw2 = synthetic_raw_batch(41, TRAIN_DIFFUSION_BATCH,
+                               mel_frames=PRODUCTION["mel_frames"])
+    model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=2)
+    on_card = model.device.type == "cuda"
+    if on_card:
+        gc.collect()
+    batch = train_batch(model, raw2)
+    rows["stage2_ids"] = time_training("stage 2, token ids", model, batch,
+                                       smi, 42)
+    del model, batch
+    model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=2)
+    batch = cached_layout(model, train_batch(model, raw2))
+    rows["stage2_cached"] = time_training(
+        "stage 2, cached T5 trunk and VAE posterior", model, batch, smi, 42)
+    del model, batch
+    raw1 = synthetic_raw_batch(43, TRAIN_VAE_BATCH,
+                               mel_frames=PRODUCTION["mel_frames"])
+    model = Convofusion(PRODUCTION_VAE, dtype="bfloat16", device=device,
+                        seed=3, stage="vae")
+    batch = train_batch(model, raw1)
+    rows["stage1"] = time_training("stage 1", model, batch, smi, 44)
+    ids, cached = rows["stage2_ids"], rows["stage2_cached"]
+    log(f"# train: the cached layout saves {1 - cached['ms'] / ids['ms']:.1%}"
+        f" of a stage-2 step ({ids['kernels'] - cached['kernels']} kernels "
+        f"fewer)")
+
+    # stage 1 on one fixed batch: the loss must come down
+    model = Convofusion(PRODUCTION_VAE, dtype="bfloat16", device=device,
+                        seed=5, stage="vae")
+    gen = torch.Generator(device=model.device).manual_seed(45)
+    t0 = time.perf_counter()
+    hist = Trainer(model).fit_steps([batch] * LEARN_STEPS, gen, log_every=1)
+    first, last = statistics.mean(hist[:5]), statistics.mean(hist[-5:])
+    log(f"# train: stage 1, one fixed batch of {TRAIN_VAE_BATCH}, "
+        f"{LEARN_STEPS} steps in {time.perf_counter() - t0:.1f} s: mean "
+        f"loss of the first 5 {first:.4f}, of the last 5 {last:.4f}, ratio "
+        f"{last / first:.3f}")
+    if not (np.isfinite(hist).all() and last < first):
+        raise RuntimeError(f"stage 1 did not learn: {first} -> {last}")
+    return rows
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -1032,6 +1351,15 @@ def main():
     dpmpp_case = phase_dpmpp(smi)
     by_phase["dpmpp"] = gs_mod.guided_step.launches
     dpmpp_against_ddim(*dpmpp_case)
+    del dpmpp_case
+    for name, phase in (("train_parity", phase_train_parity),
+                        ("train", lambda: phase_train(smi))):
+        gs_mod.guided_step.launches = 0
+        phase()
+        by_phase[name] = gs_mod.guided_step.launches
+        if by_phase[name]:
+            raise RuntimeError(f"{name} launched the step kernel "
+                               f"{by_phase[name]} times")
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{

@@ -7,8 +7,10 @@ returns the port ``Convofusion``'s state_dict: flax ``kernel`` (in, out)
 becomes ``weight`` (out, in), LayerNorm ``scale`` becomes ``weight``,
 ``embedding`` becomes ``weight``, and the q/k/v projections pack into
 ``in_proj_weight``/``in_proj_bias``.  Every leaf must be consumed: a key it
-does not know raises.  The VAE encoder's parameters are skipped by name
-(``_SKIPPED``) until the encoder is ported.
+does not know raises.  A stage-1 tree (``vae`` alone) gives the state_dict
+of ``Convofusion(..., stage='vae')``; any other tree must hold every
+module.  The map is linear (transposes and concatenations), so it carries
+a gradient tree as it carries parameters.
 """
 from __future__ import annotations
 
@@ -18,11 +20,6 @@ import numpy as np
 import torch
 
 from convofusion_tpu_torch.ops.transformer import COND_STREAMS
-
-# VAE encoder subtrees (stage-1 training, not yet ported)
-_SKIPPED = ("vae/body_encoder/", "vae/hands_encoder/",
-            "vae/body_skel_embedding/", "vae/hands_skel_embedding/",
-            "vae/body_global_motion_token", "vae/hands_global_motion_token")
 
 
 def _flatten(tree, prefix=""):
@@ -114,7 +111,9 @@ class _Converter:
                          f"{lk}.multihead_attn_{s}")
                 self.layernorm(f"{lp}/{s}_norm", f"{lk}.{s}_norm")
 
-    def skip_decoder(self, p, k):
+    def skip_stack(self, p, k, cross: bool):
+        """A skip encoder (``cross`` False: self-attention, 2 norms) or
+        decoder (cross-attention too, 3 norms)."""
         self.layernorm(f"{p}/norm", f"{k}.norm")
         blocks = [("middle_block", "middle_block")]
         for i in range(self.count(f"{p}/input_blocks_")):
@@ -124,15 +123,23 @@ class _Converter:
         for jp, tk in blocks:
             lp, lk = f"{p}/{jp}", f"{k}.{tk}"
             self.mha(f"{lp}/self_attn", f"{lk}.self_attn")
-            self.mha(f"{lp}/multihead_attn", f"{lk}.multihead_attn")
+            if cross:
+                self.mha(f"{lp}/multihead_attn", f"{lk}.multihead_attn")
             self.ffn(lp, lk)
-            for n in ("norm1", "norm2", "norm3"):
+            for n in ("norm1", "norm2", "norm3")[:3 if cross else 2]:
                 self.layernorm(f"{lp}/{n}", f"{lk}.{n}")
 
     def vae(self):
         for part in ("body", "hands"):
-            self.skip_decoder(f"vae/{part}_decoder", f"vae.{part}_decoder")
+            self.skip_stack(f"vae/{part}_encoder", f"vae.{part}_encoder",
+                            cross=False)
+            self.skip_stack(f"vae/{part}_decoder", f"vae.{part}_decoder",
+                            cross=True)
+            self.dense(f"vae/{part}_skel_embedding",
+                       f"vae.{part}_skel_embedding")
             self.dense(f"vae/{part}_final_layer", f"vae.{part}_final_layer")
+            name = f"{part}_global_motion_token"
+            self.put(f"vae.{name}", self.take(f"vae/{name}"))
 
     def text_encoder(self, p="text_encoder", k="text_encoder"):
         tp, tk = f"{p}/text_model", f"{k}.text_model.encoder"
@@ -170,12 +177,12 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     state_dict (fp32 tensors on the CPU)."""
     conv = _Converter(_flatten(params))
     conv.vae()
-    conv.denoiser()
-    conv.text_encoder()
-    conv.audio_encoder()
-    conv.condition_fuser()
-    unknown = sorted(k for k in conv.flat if k not in conv.used
-                     and not k.startswith(_SKIPPED))
+    if set(params) != {"vae"}:
+        conv.denoiser()
+        conv.text_encoder()
+        conv.audio_encoder()
+        conv.condition_fuser()
+    unknown = sorted(k for k in conv.flat if k not in conv.used)
     if unknown:
         raise KeyError(f"JAX parameters with no port counterpart: "
                        f"{unknown[:8]}{' ...' if len(unknown) > 8 else ''}")

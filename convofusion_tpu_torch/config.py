@@ -3,15 +3,76 @@
 ``PRODUCTION`` is the stage-2 model of
 ``convofusion_tpu/config/defaults/config_cf_beatdnd.yaml`` with its module
 files ``modules/{denoiser,motion_vae,text_encoder,audio_encoder,
-scheduler}.yaml``; ``TINY`` is the small geometry of
-``convofusion_tpu/config/testing.py:10-36`` (``tiny_config('diffusion')``),
-with WEG off.  Sub-dicts are the constructor arguments of the port's
-modules; ``weg_parameters``, ``serve`` and ``fps`` are read by the sampler,
-the service and the long-form rollout.
+scheduler}.yaml``; ``PRODUCTION_VAE`` the same model under the stage-1
+experiment ``config_vae_beatdnd.yaml``.  ``TINY`` and ``TINY_VAE`` are the
+small geometry of ``convofusion_tpu/config/testing.py:10-36``
+(``tiny_config('diffusion')`` and ``tiny_config('vae')``), with WEG off.
+Sub-dicts are the constructor arguments of the port's modules;
+``weg_parameters``, ``serve`` and ``fps`` are read by the sampler, the
+service and the long-form rollout, ``train`` by the training losses and
+the trainer.
 """
 from __future__ import annotations
 
 import copy
+
+# the BEAT/DnD skeleton's (parent, child) bones: assets.yaml:12
+BONES = (
+    (0, 4), (4, 3), (3, 2), (2, 1), (0, 18), (18, 19), (19, 20), (20, 21),
+    (21, 22), (0, 13), (13, 14), (14, 15), (15, 16), (16, 17), (3, 9),
+    (9, 10), (10, 11), (3, 5), (5, 6), (6, 7), (7, 23), (23, 24), (24, 25),
+    (25, 26), (7, 27), (27, 28), (28, 29), (29, 30), (7, 8), (8, 31),
+    (31, 32), (32, 33), (33, 34), (7, 35), (35, 36), (36, 37), (37, 38),
+    (7, 39), (39, 40), (40, 41), (41, 42), (11, 43), (43, 44), (44, 45),
+    (45, 46), (11, 47), (47, 48), (48, 49), (49, 50), (11, 12), (12, 51),
+    (51, 52), (52, 53), (53, 54), (11, 55), (55, 56), (56, 57), (57, 58),
+    (11, 59), (59, 60), (60, 61), (61, 62),
+)
+
+# TRAIN.OPTIM beyond TYPE and LR, at the defaults
+# convofusion_tpu/train/trainer.py:53-72 reads them with (torch AdamW's
+# weight decay; a constant schedule; no gradient clipping)
+_OPTIM_DEFAULTS = {
+    "type": "adamw",
+    "weight_decay": 1e-2,
+    "schedule": "constant",       # or 'cosine'
+    "warmup_steps": 0,
+    "decay_steps": 10_000,
+    "end_lr_factor": 0.0,
+    "grad_clip": 0.0,             # global-norm clip; 0 = off
+}
+
+# stage 2: config_cf_beatdnd.yaml (LAMBDA_BL absent there: base.yaml:75)
+TRAIN_DIFFUSION = {
+    "batch_size": 64,                                  # :11
+    "optim": {**_OPTIM_DEFAULTS, "lr": 7e-5},          # :15-17
+    "loss": {                                          # :54-63
+        "lambda_latent": 0.0,
+        "lambda_kl": 5.0e-2,
+        "lambda_rec": 5.0,
+        "lambda_prior": 0.0,
+        "lambda_guided_attention": 0.0,
+        "lambda_bl": 0.0,
+    },
+    "laplace_kernel_size": 5,     # modules/motion_vae.yaml:14
+    "bones": BONES,
+}
+
+# stage 1: config_vae_beatdnd.yaml
+TRAIN_VAE = {
+    "batch_size": 128,                                 # :17
+    "optim": {**_OPTIM_DEFAULTS, "lr": 1e-4},          # :22
+    "loss": {                                          # :44-53
+        "lambda_latent": 1.0e-4,
+        "lambda_kl": 5.0e-2,
+        "lambda_rec": 5.0,
+        "lambda_prior": 0.0,
+        "lambda_guided_attention": 0.0,   # base.yaml:76
+        "lambda_bl": 1.0,
+    },
+    "laplace_kernel_size": 5,
+    "bones": BONES,
+}
 
 PRODUCTION = {
     "latent_dim": [1, 128],        # config_cf_beatdnd.yaml:70
@@ -20,6 +81,7 @@ PRODUCTION = {
     "text_pad_len": 64,            # base.yaml:124 (TPU.TEXT_PAD_LEN)
     "mel_frames": 161,             # audioenc.audio_num_frames(128, 25, 16000, 512)
     "guidance_scale": 7.5,         # config_cf_beatdnd.yaml:76
+    "guidance_uncondp": 0.1,       # config_cf_beatdnd.yaml:77
     "fps": 25,                     # DATASET.BEATDND.FPS (base.yaml:101)
     "predict_epsilon": True,       # config_cf_beatdnd.yaml:23
     "denoiser": {                  # modules/denoiser.yaml
@@ -32,6 +94,7 @@ PRODUCTION = {
         "flip_sin_to_cos": True,
         "freq_shift": 0.0,
         "position_embedding": "sine",
+        "dropout": 0.1,
     },
     "motion_vae": {                # modules/motion_vae.yaml
         "arch": "encoder_decoder",
@@ -41,6 +104,7 @@ PRODUCTION = {
         "normalize_before": True,
         "activation": "gelu",
         "position_embedding": "sine",
+        "dropout": 0.1,
     },
     "text_encoder": {              # modules/text_encoder.yaml + t5-base dims
         "latent_dim": 512,         # (models/factory.py:141-161)
@@ -55,6 +119,7 @@ PRODUCTION = {
         "input_size": 80,
         "hidden_size": 256,
         "latent_dim": 512,
+        "dropout": 0.1,            # the module's default (audioenc.py:24)
     },
     # modules/scheduler.yaml:1-11 (scaled_linear 0.00085 -> 0.012,
     # fixed_small, clip_sample, eta 0); DDIM at 50 steps is the sampling
@@ -102,15 +167,27 @@ PRODUCTION = {
         "host": "127.0.0.1",       # serving.py:549
         "port": 8476,              # serving.py:550
     },
+    "train": copy.deepcopy(TRAIN_DIFFUSION),
 }
+
+
+def _with_train(cfg, train):
+    out = copy.deepcopy(cfg)
+    out["train"] = copy.deepcopy(train)
+    return out
+
+
+PRODUCTION_VAE = _with_train(PRODUCTION, TRAIN_VAE)
 
 
 def _tiny():
     cfg = copy.deepcopy(PRODUCTION)
     cfg["latent_dim"] = [1, 32]
     cfg["text_pad_len"] = 16
-    cfg["denoiser"].update(num_layers=3, ff_size=64, text_encoded_dim=64)
-    cfg["motion_vae"].update(num_layers=3, ff_size=64)
+    # dropout 0 in the VAE and the denoiser; the audio MLP keeps its 0.1
+    cfg["denoiser"].update(num_layers=3, ff_size=64, text_encoded_dim=64,
+                           dropout=0.0)
+    cfg["motion_vae"].update(num_layers=3, ff_size=64, dropout=0.0)
     cfg["text_encoder"].update(latent_dim=64, d_model=32, d_ff=64,
                                num_layers=2, num_heads=4, d_kv=8,
                                vocab_size=1000)
@@ -122,3 +199,4 @@ def _tiny():
 
 
 TINY = _tiny()
+TINY_VAE = _with_train(TINY, TRAIN_VAE)

@@ -7,7 +7,9 @@ schedule, the fp32 ``alphas_cumprod`` table, ``add_noise`` / ``velocity``,
 variance) and DDIM (eta), ``dpmpp_2m_step`` and ``pred_original_sample``.
 Tables are numpy; per-step scalars are fp32 CPU tensors (0-dim for a scalar
 timestep), so the coefficient arithmetic runs in fp32 as it does in JAX and
-never reads the card.
+never reads the card.  Per-sample timesteps, a (B,) tensor, gather from a
+copy of the table on the samples' device (made once a device and kept by
+the scheduler), with no trip to the host.
 """
 from __future__ import annotations
 
@@ -61,6 +63,9 @@ class DiffusionScheduler:
     prediction_type: str = "epsilon"  # or "sample"
     variant: str = "ddpm"
     eta: float = 0.0
+    # (table name, device) -> the fp32 table there; see `table`
+    _device_tables: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         betas = make_beta_schedule(
@@ -75,17 +80,33 @@ class DiffusionScheduler:
     def init_noise_sigma(self) -> float:
         return 1.0
 
+    def table(self, name: str, device) -> torch.Tensor:
+        """The fp32 ``alphas_cumprod`` or ``betas`` table as a tensor on
+        ``device``, copied there once."""
+        key = (name, torch.device(device))
+        if key not in self._device_tables:
+            self._device_tables[key] = torch.from_numpy(
+                getattr(self, name)).to(key[1])
+        return self._device_tables[key]
+
+    def gather(self, name: str, timesteps: torch.Tensor, like: torch.Tensor
+               ) -> torch.Tensor:
+        """``table(name)[timesteps]`` on ``like``'s device, shaped
+        (B, 1, ...) to broadcast against it."""
+        t = timesteps.to(like.device).long()
+        vals = self.table(name, like.device)[t]
+        return vals.reshape((-1,) + (1,) * (like.ndim - 1))
+
     def _sqrt_acps(self, timesteps, samples):
-        """(sqrt(acp), sqrt(1 - acp)) in fp32 for an int or 0-dim timestep
-        (0-dim CPU tensors) or a (B,) one (shaped (B, 1, ...) and moved to
-        the samples' device)."""
-        t = torch.as_tensor(timesteps).cpu().long()
-        acp = torch.from_numpy(self.alphas_cumprod)[t]
-        out = (acp.sqrt(), (1.0 - acp).sqrt())
-        if acp.ndim == 0:
-            return out
-        shape = (-1,) + (1,) * (samples.ndim - 1)
-        return tuple(v.reshape(shape).to(samples.device) for v in out)
+        """(sqrt(acp), sqrt(1 - acp)) in fp32: 0-dim CPU tensors for an int
+        or 0-dim timestep; for (B,) timesteps, gathered on the samples'
+        device and shaped (B, 1, ...)."""
+        t = torch.as_tensor(timesteps)
+        if t.ndim > 0:
+            acp = self.gather("alphas_cumprod", t, samples)
+        else:
+            acp = torch.from_numpy(self.alphas_cumprod)[t.cpu().long()]
+        return acp.sqrt(), (1.0 - acp).sqrt()
 
     def add_noise(self, samples, noise, timesteps):
         """q(x_t | x_0) (schedulers.py:85-91): timesteps an int or (B,)."""
@@ -214,9 +235,15 @@ class DiffusionScheduler:
             - alpha_prev * (torch.exp(-h) - 1.0) * d
         return prev_sample, x0, x0, lam_t
 
-    def pred_original_sample(self, model_output, t: int, sample):
-        """x0 prediction only (schedulers.py:235-242)."""
-        acp_t = _f32(self.alphas_cumprod[t])
+    def pred_original_sample(self, model_output, t, sample):
+        """x0 prediction only (schedulers.py:235-242).  ``t`` an int, or a
+        (B,) tensor of per-sample timesteps (the latent loss's vmap,
+        convofusion_tpu/models/convofusion.py:557-559)."""
+        t = torch.as_tensor(t)
+        if t.ndim > 0:
+            acp_t = self.gather("alphas_cumprod", t, sample)
+        else:
+            acp_t = torch.from_numpy(self.alphas_cumprod)[t.cpu().long()]
         x0, _ = self._pred_x0_eps(model_output.float(), sample, acp_t,
                                   1.0 - acp_t)
         return x0

@@ -1,14 +1,22 @@
-"""Convofusion generation: encode conditions, guided reverse diffusion,
-VAE decode.
+"""Convofusion: the two training stages and guided generation.
 
-Port of ``convofusion_tpu/models/convofusion.py``: ``encode_text``,
-``encode_conditions``, ``encode_uncond``, ``diffusion_reverse``, ``sample``
-(:330-383,604-943), with word-excitation guidance (WEG), the long-form
-rollout's ``preseq`` inpainting and the DPM-Solver++ 2M sampler, and
-``cached_sampler`` / ``CachedSampler`` / ``gen_from_latent``
-(:945-1038); the guided path only.  Weights live in the modules;
-``compat/from_jax.state_dict_from_jax`` carries a JAX parameter tree
-across.
+Port of ``convofusion_tpu/models/convofusion.py``: the training losses
+(:262-567: ``encode_vae_posterior``, ``train_vae_loss``,
+``train_vae_diffusion_loss``, ``encode_text_trunk``, ``project_trunk``,
+``encode_conditions_precomputed``, the 6-group modality dropout,
+``train_diffusion_loss``), ``encode_text``, ``encode_conditions``,
+``encode_uncond``, ``diffusion_reverse``, ``sample`` (:330-383,604-943),
+with word-excitation guidance (WEG), the long-form rollout's ``preseq``
+inpainting and the DPM-Solver++ 2M sampler, and ``cached_sampler`` /
+``CachedSampler`` / ``gen_from_latent`` (:945-1038); the guided path only.
+Weights live in the modules; ``compat/from_jax.state_dict_from_jax``
+carries a JAX parameter tree across.
+
+A training loss draws its randomness (the VAE's reparameterisation noise,
+the modality-dropout groups, the diffusion noise and timesteps) on the
+model's device from a ``torch.Generator``, or takes each from ``draws``;
+dropout masks come from PyTorch's default generator.  A step reads nothing
+back to the host.
 
 Per ``sample()``: the conditions are encoded once (T5 x2, the mel MLP and
 the fuser; the uncond branch at batch 1), then each of the N reverse steps
@@ -24,8 +32,9 @@ JAX's gate does.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +42,12 @@ from torch import nn
 
 from convofusion_tpu_torch import resolve_device, resolve_dtype
 from convofusion_tpu_torch.diffusion.schedulers import scheduler_from_config
+from convofusion_tpu_torch.losses.diffvae import (
+    bone_pairs,
+    channel_weights,
+    diffusion_losses,
+    vae_losses,
+)
 from convofusion_tpu_torch.models import weg as weg_lib
 from convofusion_tpu_torch.models.audioenc import AudioConvEncoder
 from convofusion_tpu_torch.models.condfuser import TextAudioMotionFuser
@@ -49,6 +64,20 @@ from convofusion_tpu_torch.models.vae import (
 )
 from convofusion_tpu_torch.ops.guided_step import guided_step
 from convofusion_tpu_torch.ops.layers import init_weights
+from convofusion_tpu_torch.ops.smoothing import (
+    laplace_filter_time,
+    laplacian_1d_kernel,
+)
+from convofusion_tpu_torch.ops.transformer import (
+    COND_STREAMS,
+    GUIDANCE_BRANCHES,
+    NUM_BRANCHES,
+)
+
+STAGES = ("vae", "diffusion", "vae_diffusion")
+# modality-dropout groups a training batch is cut into, besides the rows
+# that keep every condition (convofusion_tpu/models/convofusion.py:75)
+CLF_GUIDANCE_DROPS = 6
 
 
 def to_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
@@ -65,6 +94,30 @@ def to_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
             t = t.pin_memory()
         out[k] = t.to(device, non_blocking=True)
     return out
+
+
+@contextlib.contextmanager
+def _eval(module: nn.Module):
+    """``module`` in eval mode inside the block, as it was after."""
+    was = module.training
+    if was:
+        module.eval()
+    try:
+        yield
+    finally:
+        if was:
+            module.train()
+
+
+def _draw(draws: Optional[Dict], name: str, make, device):
+    """``draws[name]`` (a tensor or an array) moved to ``device`` if
+    given, else ``make()``."""
+    if draws is not None and name in draws:
+        value = draws[name]
+        if not torch.is_tensor(value):
+            value = torch.from_numpy(np.array(value))
+        return value.to(device)
+    return make()
 
 
 def uncond_melspec(shape, dtype=torch.float32, device=None):
@@ -86,17 +139,23 @@ class WegCounts:
 
 
 class Convofusion(nn.Module):
-    """The stage-2 model for generation.
+    """The model of a training stage, and of generation.
 
     ``cfg`` is a dict shaped like ``config.PRODUCTION``; ``dtype`` the
     compute dtype of every module ('float32' or 'bfloat16'); ``device``
     None means the card (raises without one); ``seed`` seeds the weight
-    init (None keeps PyTorch's default init, for weights loaded after)."""
+    init (None keeps PyTorch's default init, for weights loaded after);
+    ``stage`` 'vae' builds the motion VAE alone (stage 1), 'diffusion'
+    (the default, stage 2, and generation) and 'vae_diffusion' build the
+    whole model (convofusion_tpu/models/convofusion.py:142)."""
 
     def __init__(self, cfg: Dict, dtype="float32", device=None,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0, stage: str = "diffusion"):
         super().__init__()
+        if stage not in STAGES:
+            raise ValueError(f"stage {stage!r}, not one of {STAGES}")
         self.cfg = cfg
+        self.stage = stage
         dtype = resolve_dtype(dtype)
         device = resolve_device(device)
         self.latent_size, self.latent_dim = (int(v) for v in cfg["latent_dim"])
@@ -116,23 +175,45 @@ class Convofusion(nn.Module):
         d = int(cfg["denoiser"]["text_encoded_dim"])
 
         self.vae = ConvoFusionVae(latent_dim=self.latent_dim,
+                                  latent_size=self.latent_size,
                                   **cfg["motion_vae"], dtype=dtype)
-        self.text_encoder = T5TextEncoder(**te, dtype=dtype)
-        self.audio_encoder = AudioConvEncoder(**cfg["audio_encoder"],
-                                              dtype=dtype)
-        # the JAX model builds its fuser without a compute dtype
-        # (convofusion_tpu/models/convofusion.py:146-147): its embedding
-        # rows stay fp32 in a bf16 model
-        self.condition_fuser = TextAudioMotionFuser(out_dim=d)
-        self.denoiser = Denoiser(latent_dim=self.latent_dim,
-                                 **cfg["denoiser"], dtype=dtype)
-        self.scheduler = scheduler_from_config(cfg["scheduler"],
-                                               self.predict_epsilon)
-        # the training scheduler: the rollout re-noises its preseq with it
-        self.noise_scheduler = scheduler_from_config(cfg["noise_scheduler"],
-                                                     self.predict_epsilon)
-        self.num_inference_timesteps = int(
-            cfg["scheduler"]["num_inference_timesteps"])
+        if stage != "vae":
+            self.text_encoder = T5TextEncoder(**te, dtype=dtype)
+            self.audio_encoder = AudioConvEncoder(**cfg["audio_encoder"],
+                                                  dtype=dtype)
+            # the JAX model builds its fuser without a compute dtype
+            # (convofusion_tpu/models/convofusion.py:146-147): its
+            # embedding rows stay fp32 in a bf16 model
+            self.condition_fuser = TextAudioMotionFuser(out_dim=d)
+            self.denoiser = Denoiser(latent_dim=self.latent_dim,
+                                     **cfg["denoiser"], dtype=dtype)
+            self.scheduler = scheduler_from_config(cfg["scheduler"],
+                                                   self.predict_epsilon)
+            # the training scheduler: it noises training latents, and the
+            # rollout re-noises its preseq with it
+            self.noise_scheduler = scheduler_from_config(
+                cfg["noise_scheduler"], self.predict_epsilon)
+            self.num_inference_timesteps = int(
+                cfg["scheduler"]["num_inference_timesteps"])
+        train = cfg.get("train", {})
+        self.guidance_uncondp = float(cfg.get("guidance_uncondp", 0.0))
+        self.loss_weights = dict(train.get("loss", {}))
+        laplace_size = int(train.get("laplace_kernel_size", 0))
+        bones = train.get("bones")
+        # the losses' constant tables, kept on the model's device
+        self.register_buffer(
+            "_bone_pairs", None if bones is None
+            else torch.from_numpy(bone_pairs(bones)), persistent=False)
+        self.register_buffer("_channel_weights", torch.from_numpy(
+            channel_weights(int(cfg["nfeats"]))), persistent=False)
+        self.register_buffer(
+            "_laplace_kernel", None if laplace_size == 0
+            else torch.from_numpy(laplacian_1d_kernel(laplace_size)),
+            persistent=False)
+        # [group, stream]: is the stream real in guidance branch `group`
+        self.register_buffer("_keep_table", torch.tensor(
+            [[s in GUIDANCE_BRANCHES[g] for s in COND_STREAMS]
+             for g in range(NUM_BRANCHES)]), persistent=False)
         self.weg_parameters = cfg.get("weg_parameters", {})
         self.weg_counts = WegCounts()
         # bumped by load_state_dict: CachedSampler drops its uncond encodes
@@ -153,7 +234,7 @@ class Convofusion(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.denoiser.latent_embd.weight.device
+        return self.vae.body_final_layer.weight.device
 
     # ------------------------------------------------------- host-side text
     def tokenize(self, texts):
@@ -199,6 +280,222 @@ class Convofusion(nn.Module):
                            mel.device),
             torch.full_like(batch["active_passive_lsn"][:1], 2),
             torch.zeros_like(batch["lsn_id"][:1]))
+
+    def encode_text_trunk(self, ids, tmask):
+        """The frozen T5 trunk alone, outside the graph: the hidden states
+        before the projection, a pure function of the text that a training
+        run can cache (JAX :336-355)."""
+        with torch.no_grad():
+            return self.text_encoder.text_model(ids, tmask)
+
+    def project_trunk(self, trunk):
+        """The trainable ReLU + Linear head over trunk states: the tail of
+        ``T5TextEncoder.forward``."""
+        return self.text_encoder.projection(trunk)
+
+    def encode_conditions_precomputed(self, spk_trunk, spk_tmask, lsn_trunk,
+                                      lsn_tmask, melspec_lsn, apb, lsn_id):
+        """``encode_conditions`` with the T5 trunk replaced by its cached
+        states (:meth:`encode_text_trunk`); the same outputs."""
+        tspk = self.project_trunk(spk_trunk)
+        tlsn = self.project_trunk(lsn_trunk)
+        alsn = self.audio_encoder(melspec_lsn)
+        cond = self.condition_fuser(tspk, alsn, tlsn, apb, lsn_id)
+        return cond, {"spkemb": ~spk_tmask, "tlsn": ~lsn_tmask}
+
+    # ------------------------------------------------------------- training
+    def _posterior_shape(self, batch_size: int, nframes: int):
+        """(2, B, n_chunks, latent_size * D): the shape of mu and logvar."""
+        return (2, batch_size, nframes // 16,
+                self.latent_size * self.latent_dim)
+
+    def encode_vae_posterior(self, motion) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        """The frozen VAE's (mu, logvar) for the cached-posterior layout,
+        in eval mode with no grad, batch-leading: (B, 2, n_chunks, D) each
+        (JAX :262-275)."""
+        with torch.no_grad(), _eval(self.vae):
+            _, (mu, logvar), _ = self.vae.encode(motion)
+        return (mu.transpose(0, 1).contiguous(),
+                logvar.transpose(0, 1).contiguous())
+
+    def train_vae_loss(self, batch, generator: Optional[torch.Generator]
+                       = None, draws: Optional[Dict] = None):
+        """Stage-1 loss on ``batch['motion']`` (B, T, nfeats) (JAX
+        :277-306).  ``draws['eps']`` replaces the reparameterisation draw.
+        Returns (total, dict of the terms), 0-dim tensors."""
+        motion = batch["motion"]
+        b, t, _ = motion.shape
+        dev = motion.device
+        eps = _draw(draws, "eps", lambda: torch.randn(
+            self._posterior_shape(b, t), generator=generator, device=dev),
+            dev)
+        latent, (mu, logvar), _ = self.vae.encode(motion, eps=eps)
+        recon = self.vae.decode(latent, t)
+        lap_rst = lap_ref = None
+        if self._laplace_kernel is not None:
+            lap_ref = laplace_filter_time(motion, self._laplace_kernel)
+            lap_rst = laplace_filter_time(recon, self._laplace_kernel)
+        w = self.loss_weights
+        losses = vae_losses(
+            recon, motion, mu, logvar, self._channel_weights, lap_rst,
+            lap_ref, pairs=self._bone_pairs,
+            lambda_rec=float(w["lambda_rec"]),
+            lambda_kl=float(w["lambda_kl"]),
+            lambda_bl=float(w.get("lambda_bl", 0.0)))
+        return losses["total"], losses
+
+    def train_vae_diffusion_loss(self, batch, generator: Optional[
+            torch.Generator] = None, draws: Optional[Dict] = None):
+        """The joint stage (JAX :308-327): the VAE loss of
+        ``batch['motion_lsn']`` plus the diffusion loss of the batch.
+        ``draws`` holds each part's under 'vae' and 'diffusion'."""
+        draws = draws or {}
+        vae_total, vae_terms = self.train_vae_loss(
+            {"motion": batch["motion_lsn"]}, generator, draws.get("vae"))
+        diff_total, diff_terms = self.train_diffusion_loss(
+            batch, generator, draws.get("diffusion"))
+        losses = {**{f"vae_{k}": v for k, v in vae_terms.items()},
+                  **diff_terms}
+        losses["total"] = vae_total + diff_total
+        return losses["total"], losses
+
+    def _dropout_groups(self, batch_size: int,
+                        generator: Optional[torch.Generator], device):
+        """Each row's modality-dropout group: 6 disjoint random groups of
+        ``int(uncondp * B)`` rows, the rest group 6, which keeps every
+        condition (JAX :403-414)."""
+        k = int(self.guidance_uncondp * batch_size)
+        n = CLF_GUIDANCE_DROPS * k
+        perm = torch.randperm(batch_size, generator=generator, device=device)
+        group = torch.full((batch_size,), NUM_BRANCHES - 1,
+                           dtype=torch.long, device=device)
+        group[perm[:n]] = torch.arange(n, device=device) // max(k, 1)
+        return group
+
+    def apply_modality_dropout(self, batch, generator: Optional[
+            torch.Generator] = None, draws: Optional[Dict] = None):
+        """Each row keeps the conditions of its group's guidance branch and
+        takes the uncond value of every other (JAX :416-462): uncond token
+        ids and mask, the -90 dB mel, apb 2, listener id 0.  Works on the
+        token-id layout and on the cached-trunk layout (``lsn_trunk`` /
+        ``spk_trunk`` / ``uncond_trunk``); uncond rows may be one row that
+        broadcasts.  ``draws['group']`` (B,) replaces the groups."""
+        tmask = batch["lsn_tmask"]
+        b, dev = tmask.shape[0], tmask.device
+        group = _draw(draws, "group", lambda: self._dropout_groups(
+            b, generator, dev), dev).long()
+        kept = self._keep_table[group]                  # (B, 5)
+        keep = {s: kept[:, i] for i, s in enumerate(COND_STREAMS)}
+        k_t, k_s = keep["tlsn"][:, None], keep["spkemb"][:, None]
+        out = dict(batch)
+        if "lsn_ids" in batch:
+            out["lsn_ids"] = torch.where(k_t, batch["lsn_ids"],
+                                         batch["uncond_ids"])
+            out["spk_ids"] = torch.where(k_s, batch["spk_ids"],
+                                         batch["uncond_ids"])
+        out["lsn_tmask"] = torch.where(k_t, tmask, batch["uncond_tmask"])
+        out["spk_tmask"] = torch.where(k_s, batch["spk_tmask"],
+                                       batch["uncond_tmask"])
+        mel = batch["melspec_lsn"]
+        out["melspec_lsn"] = torch.where(
+            keep["alsn"][:, None, None], mel,
+            uncond_melspec((1,) + tuple(mel.shape[1:]), mel.dtype,
+                           mel.device))
+        out["active_passive_lsn"] = torch.where(
+            keep["apb"][:, None], batch["active_passive_lsn"], 2)
+        out["lsn_id"] = torch.where(keep["lsnemb"], batch["lsn_id"], 0)
+        if "lsn_trunk" in batch:
+            out["lsn_trunk"] = torch.where(k_t[..., None], batch["lsn_trunk"],
+                                           batch["uncond_trunk"])
+            out["spk_trunk"] = torch.where(k_s[..., None], batch["spk_trunk"],
+                                           batch["uncond_trunk"])
+        return out
+
+    def train_diffusion_loss(self, batch, generator: Optional[
+            torch.Generator] = None, draws: Optional[Dict] = None):
+        """Stage-2 loss (JAX :464-567) on a ``prepare_arrays`` batch, or on
+        its cached layouts: T5 trunk states (``spk_trunk``, ``lsn_trunk``,
+        a one-row ``uncond_trunk``) in place of the token ids, and the
+        frozen VAE's posterior (``vae_mu``, ``vae_logvar``, from
+        :meth:`encode_vae_posterior`) in place of ``motion_lsn``.  The
+        frozen VAE encodes in eval mode with no grad.  ``draws`` replaces
+        the draws 'eps', 'group', 'noise' and 'timesteps'.  Returns (total,
+        dict of the terms), 0-dim tensors."""
+        dev = self.device
+        if "vae_mu" in batch:
+            mu = batch["vae_mu"].transpose(0, 1)
+            logvar = batch["vae_logvar"].transpose(0, 1)
+            eps = _draw(draws, "eps", lambda: torch.randn(
+                mu.shape, generator=generator, device=dev), dev)
+            latent = mu + torch.exp(0.5 * logvar) * eps
+        else:
+            motion = batch["motion_lsn"]
+            eps = _draw(draws, "eps", lambda: torch.randn(
+                self._posterior_shape(*motion.shape[:2]),
+                generator=generator, device=dev), dev)
+            with torch.no_grad(), _eval(self.vae):
+                latent, _, _ = self.vae.encode(motion, eps=eps)
+        b = latent.shape[1]
+        # (2, B, 8, D) -> (B, 16, D), body and hands interleaved per chunk
+        z = latent.permute(1, 2, 0, 3).reshape(b, -1, self.latent_dim)
+
+        dropped = self.apply_modality_dropout(batch, generator, draws)
+        if "lsn_trunk" in batch:
+            cond, masks = self.encode_conditions_precomputed(
+                dropped["spk_trunk"], dropped["spk_tmask"],
+                dropped["lsn_trunk"], dropped["lsn_tmask"],
+                dropped["melspec_lsn"], dropped["active_passive_lsn"],
+                dropped["lsn_id"])
+        else:
+            cond, masks = self.encode_conditions(
+                dropped["spk_ids"], dropped["spk_tmask"], dropped["lsn_ids"],
+                dropped["lsn_tmask"], dropped["melspec_lsn"],
+                dropped["active_passive_lsn"], dropped["lsn_id"])
+
+        sched = self.noise_scheduler
+        noise = _draw(draws, "noise", lambda: torch.randn(
+            z.shape, generator=generator, device=dev), dev)
+        timesteps = _draw(draws, "timesteps", lambda: torch.randint(
+            0, sched.num_train_timesteps, (b,), generator=generator,
+            device=dev), dev).long()
+        noisy = sched.add_noise(z, noise, timesteps)
+        noise_pred, att = self.denoiser(noisy, timesteps, cond, masks)
+
+        w = self.loss_weights
+        lambda_latent = float(w.get("lambda_latent", 0.0))
+        lambda_prior = float(w.get("lambda_prior", 0.0))
+        lambda_ga = float(w.get("lambda_guided_attention", 0.0))
+        target = noise if self.predict_epsilon else z
+        np_main, np_prior, tgt_main, n_prior = noise_pred, None, target, None
+        if lambda_prior != 0.0:
+            if not self.predict_epsilon:
+                raise ValueError("lambda_prior needs epsilon prediction (the "
+                                 "reference's x-prediction path never "
+                                 "chunks the target)")
+            # torch.chunk: the first half takes the odd row
+            h = (b + 1) // 2
+            np_main, np_prior = noise_pred[:h], noise_pred[h:]
+            tgt_main, n_prior = target[:h], target[h:]
+        kwargs = dict(noise_pred_prior=np_prior, noise_prior=n_prior,
+                      lambda_prior=lambda_prior,
+                      att_mats=att if lambda_ga != 0.0 else None,
+                      lambda_guided_attention=lambda_ga)
+        if lambda_latent != 0.0:
+            # with the prior chunk on, the latent term covers the main
+            # chunk only (JAX :550-563)
+            h = np_main.shape[0]
+            t_main = timesteps[:h]
+            pred_x0 = self.scheduler.pred_original_sample(np_main, t_main,
+                                                          noisy[:h])
+            weights = self.scheduler.table("betas", dev)[t_main]
+            losses = diffusion_losses(np_main, tgt_main, self.predict_epsilon,
+                                      pred_x0, z[:h], weights, lambda_latent,
+                                      **kwargs)
+        else:
+            losses = diffusion_losses(np_main, tgt_main, self.predict_epsilon,
+                                      **kwargs)
+        return losses["total"], losses
 
     # ------------------------------------------------------------- sampling
     def guidance_combine_branches(self, chunks):

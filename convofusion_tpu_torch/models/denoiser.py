@@ -41,7 +41,7 @@ class Denoiser(nn.Module):
                  num_heads: int = 4, normalize_before: bool = True,
                  activation: str = "gelu", flip_sin_to_cos: bool = True,
                  freq_shift: float = 0.0, position_embedding: str = "sine",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         if position_embedding != "sine":
             raise NotImplementedError(
@@ -59,7 +59,7 @@ class Denoiser(nn.Module):
         self.decoder = DenoiserDecoder(
             d_model=d, num_layers=num_layers, nhead=num_heads,
             dim_feedforward=ff_size, activation=activation,
-            normalize_before=normalize_before, dtype=dtype)
+            normalize_before=normalize_before, dtype=dtype, dropout=dropout)
 
     def _embed_sample(self, sample, timesteps):
         b, t, _ = sample.shape

@@ -68,14 +68,23 @@ class T5Attention(nn.Module):
         if has_relative_bias:
             self.relative_attention_bias = nn.Embedding(
                 num_buckets, num_heads, dtype=dtype)
+            # (L, L) buckets for the longest text seen so far, grown on
+            # demand: a copy from the host at every call would make the
+            # host wait for the card
+            self.register_buffer("_buckets", torch.zeros(
+                (0, 0), dtype=torch.long), persistent=False)
 
     def compute_bias(self, t: int):
-        """(1, H, T, T) relative position bias."""
-        buckets = relative_position_bucket(
-            np.arange(t)[None, :] - np.arange(t)[:, None],
-            self.num_buckets, self.max_distance)
-        idx = torch.from_numpy(buckets.astype(np.int64)).to(
-            self.relative_attention_bias.weight.device)
+        """(1, H, T, T) relative position bias.  A bucket depends on j - i
+        only, so the top-left (T, T) block of a longer table is T's."""
+        if self._buckets.shape[0] < t:
+            pos = np.arange(t)
+            buckets = relative_position_bucket(
+                pos[None, :] - pos[:, None], self.num_buckets,
+                self.max_distance)
+            self._buckets = torch.from_numpy(buckets.astype(np.int64)).to(
+                self._buckets.device)
+        idx = self._buckets[:t, :t]
         return self.relative_attention_bias(idx).permute(2, 0, 1)[None]
 
     def forward(self, x, attention_mask=None, position_bias=None):

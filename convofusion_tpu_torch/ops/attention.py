@@ -8,7 +8,10 @@ torch ``nn.MultiheadAttention`` (packed ``in_proj_weight`` /
 The softmax is written out: logits at padded keys are set to -1e9 (not
 -inf) and the softmax runs in fp32, so a fully padded row gives uniform
 weights instead of NaN, and the weights exist for the callers that keep
-them (scaled_dot_product_attention returns none).
+them (scaled_dot_product_attention returns none).  Attention dropout
+(``dropout``, the JAX module's rate) drops the softmax weights before they
+meet the values; the weights returned are the ones before dropout
+(``convofusion_tpu/ops/attention.py:88-98``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from convofusion_tpu_torch.ops.layers import Linear
+from convofusion_tpu_torch.ops.layers import Dropout, Linear
 
 _BIG_NEG = -1e9
 
@@ -37,7 +40,7 @@ def _softmax(logits, dtype):
 
 class MultiheadAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.num_heads = d_model, num_heads
         self.head_dim = d_model // num_heads
@@ -49,6 +52,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(
             torch.zeros(3 * d_model, dtype=dtype))
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
+        self.attn_dropout = Dropout(dropout)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     @property
@@ -93,7 +97,8 @@ class MultiheadAttention(nn.Module):
             logits = logits.masked_fill(
                 key_padding_mask[:, None, None, :], _BIG_NEG)
         weights = _softmax(logits, self.dtype)
-        out = (weights @ v).transpose(1, 2).reshape(b, tq, d)
+        out = (self.attn_dropout(weights) @ v).transpose(1, 2).reshape(
+            b, tq, d)
         out = self.out_proj(out)
         return out, (weights.mean(dim=1) if need_weights else None)
 
@@ -115,4 +120,4 @@ class MultiheadAttention(nn.Module):
             logits = logits.masked_fill(
                 key_padding_mask[None, :, None, :], _BIG_NEG)
         weights = _softmax(logits, self.dtype)
-        return weights @ v, weights
+        return self.attn_dropout(weights) @ v, weights

@@ -1,5 +1,5 @@
-"""Dense, LayerNorm and Embed with the JAX package's dtype rules, and the
-seeded weight init.
+"""Dense, LayerNorm and Embed with the JAX package's dtype rules, dropout,
+and the seeded weight init.
 
 The JAX modules keep fp32 parameters and take a ``dtype`` (compute dtype):
 ``nn.Dense(dtype=bf16)`` casts its input and kernel to bf16 and returns bf16;
@@ -26,6 +26,24 @@ class Linear(nn.Linear):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
+class Dropout(nn.Module):
+    """``nn.Dropout(rate)(x, deterministic=not training)``: the identity,
+    with no op launched, unless the module trains and ``p > 0``.  Masks
+    come from PyTorch's default generator of the input's device."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x):
+        if self.training and self.p > 0.0:
+            return F.dropout(x, self.p, True)
+        return x
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm(epsilon=1e-5)``: fp32 weights, fp32 math and output."""
 
@@ -41,7 +59,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init at the scale of the flax defaults: Dense kernels lecun
     normal (std 1/sqrt(fan_in)), zero biases, Embed rows std
     1/sqrt(features), norms at one (T5LayerNorm starts at one and is left
-    alone).  Values are drawn in fp32 on the CPU
+    alone), the VAE's global motion tokens std 1 (flax ``normal(1.0)``,
+    convofusion_tpu/models/vae.py:91-96).  Values are drawn in fp32 on the CPU
     and cast into each parameter, so one seed gives the same weights on
     every device and (up to rounding) in every dtype."""
 
@@ -64,3 +83,5 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 fill(p, 1.0 / math.sqrt(p.shape[1]))
             elif name == "in_proj_bias":
                 nn.init.zeros_(p)
+            elif name.endswith("_global_motion_token"):
+                fill(p, 1.0)

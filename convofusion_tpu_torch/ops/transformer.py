@@ -1,19 +1,21 @@
-"""Transformer blocks: the skip decoder of the VAE and the five-stream
-conditional decoder layer of the denoiser.
+"""Transformer blocks: the skip encoder and skip decoder of the VAE and the
+five-stream conditional decoder layer of the denoiser.
 
-Port of ``convofusion_tpu/ops/transformer.py``: ``_FFN``, ``TimeBlock``,
-``TransformerDecoderLayer``, ``SkipTransformerDecoder`` (:38-53,96-145,
-189-252), ``TransformerDecoderLayer2Att.__call__`` / ``.cross_kv`` /
+Port of ``convofusion_tpu/ops/transformer.py``: ``_FFN``,
+``TransformerEncoderLayer``, ``TransformerDecoderLayer``,
+``SkipTransformerEncoder``, ``SkipTransformerDecoder``, ``TimeBlock``
+(:38-252), ``TransformerDecoderLayer2Att.__call__`` / ``.cross_kv`` /
 ``.forward_kv`` / ``.forward_mem`` / ``.guided`` (:255-510),
 ``DenoiserDecoder.__call__`` / ``.precompute_kv`` / ``.forward_mem`` /
 ``.forward_kv`` / ``.guided`` (:513-627) and the guidance tables
-(:26,732-750).  ``forward`` here is both
-``__call__`` and ``forward_mem``: its cross-attention broadcasts
-single-row memories, so one body serves full and mixed-batch streams; it
-and ``forward_kv`` share one body over per-stream K/V.  Inference only:
-dropout is the identity and is left out.  No caller passes positional
-queries inside the layers (``pos``/``query_pos`` are always None on the
-sampling path), so those arguments are left out too.
+(:26,732-750); pre-norm only.  ``forward`` here is both ``__call__`` and
+``forward_mem``: its cross-attention broadcasts single-row memories, so one
+body serves full and mixed-batch streams; it and ``forward_kv`` share one
+body over per-stream K/V.  Dropout sits where JAX has it: the attention
+weights, the FFN after its activation, each residual branch, and the
+TimeBlock after its SiLU; each is the identity unless the module trains.
+No caller passes positional queries inside the layers (``pos`` /
+``query_pos`` are always None), so those arguments are left out.
 
 Module and parameter names are the reference torch ones (``linear1`` /
 ``linear2`` on the layer, ``time_block1.emb_layers.1``,
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from convofusion_tpu_torch.ops.attention import MultiheadAttention
-from convofusion_tpu_torch.ops.layers import LayerNorm, Linear
+from convofusion_tpu_torch.ops.layers import Dropout, LayerNorm, Linear
 
 # the five conditioning streams, in fuser concat order
 COND_STREAMS = ("spkemb", "alsn", "tlsn", "apb", "lsnemb")
@@ -64,63 +66,95 @@ def _activation(name: str):
 
 
 class _FFN(nn.Module):
-    """linear1 -> activation -> linear2.  A mixin: the reference keeps
-    ``linear1``/``linear2`` directly on the layer, not under ``ffn``."""
+    """linear1 -> activation -> dropout -> linear2.  A mixin: the reference
+    keeps ``linear1``/``linear2`` directly on the layer, not under
+    ``ffn``."""
 
-    def _init_ffn(self, d_model, dim_feedforward, activation, dtype):
+    def _init_ffn(self, d_model, dim_feedforward, activation, dtype,
+                  dropout):
         self.linear1 = Linear(d_model, dim_feedforward, dtype=dtype)
         self.linear2 = Linear(dim_feedforward, d_model, dtype=dtype)
         self.act = _activation(activation)
+        self.ffn_dropout = Dropout(dropout)
 
     def ffn(self, x):
-        return self.linear2(self.act(self.linear1(x)))
+        return self.linear2(self.ffn_dropout(self.act(self.linear1(x))))
 
 
-class TransformerDecoderLayer(_FFN):
-    """Pre-norm decoder layer (the production VAE, modules/motion_vae.yaml);
-    the post-norm ablation is not ported."""
+def _pre_norm(normalize_before: bool, what: str):
+    if not normalize_before:
+        raise NotImplementedError(f"post-norm {what} layers are not ported")
+
+
+class TransformerEncoderLayer(_FFN):
+    """Pre-norm encoder layer (the production VAE encoder,
+    modules/motion_vae.yaml); the post-norm ablation is not ported."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", normalize_before: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        if not normalize_before:
-            raise NotImplementedError("post-norm decoder layers are not "
-                                      "ported")
-        self.self_attn = MultiheadAttention(d_model, nhead, dtype)
-        self.multihead_attn = MultiheadAttention(d_model, nhead, dtype)
-        self._init_ffn(d_model, dim_feedforward, activation, dtype)
+        _pre_norm(normalize_before, "encoder")
+        self.self_attn = MultiheadAttention(d_model, nhead, dtype, dropout)
+        self._init_ffn(d_model, dim_feedforward, activation, dtype, dropout)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.drop = Dropout(dropout)
+
+    def forward(self, src):
+        src2 = self.norm1(src)
+        src2, _ = self.self_attn(src2, src2, src2, need_weights=False)
+        src = src + self.drop(src2)
+        return src + self.drop(self.ffn(self.norm2(src)))
+
+
+class TransformerDecoderLayer(_FFN):
+    """Pre-norm decoder layer (the production VAE decoder,
+    modules/motion_vae.yaml); the post-norm ablation is not ported."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 activation: str = "gelu", normalize_before: bool = True,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        _pre_norm(normalize_before, "decoder")
+        self.self_attn = MultiheadAttention(d_model, nhead, dtype, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dtype,
+                                                 dropout)
+        self._init_ffn(d_model, dim_feedforward, activation, dtype, dropout)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.norm3 = LayerNorm(d_model)
+        self.drop = Dropout(dropout)
 
     def forward(self, tgt, memory):
         tgt2 = self.norm1(tgt)
         tgt2, _ = self.self_attn(tgt2, tgt2, tgt2, need_weights=False)
-        tgt = tgt + tgt2
+        tgt = tgt + self.drop(tgt2)
         tgt2, _ = self.multihead_attn(self.norm2(tgt), memory, memory,
                                       need_weights=False)
-        tgt = tgt + tgt2
-        return tgt + self.ffn(self.norm3(tgt))
+        tgt = tgt + self.drop(tgt2)
+        return tgt + self.drop(self.ffn(self.norm3(tgt)))
 
 
-class SkipTransformerDecoder(nn.Module):
-    """U-Net-style decoder stack: (n-1)/2 in-blocks, middle, (n-1)/2
-    out-blocks with Linear(2d->d) skip merges."""
+class _SkipStack(nn.Module):
+    """U-Net-style layer stack: (n-1)/2 in-blocks, middle, (n-1)/2
+    out-blocks with Linear(2d->d) skip merges, then a LayerNorm."""
+
+    layer_cls = None
 
     def __init__(self, d_model: int, num_layers: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "gelu",
                  normalize_before: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         if num_layers % 2 != 1:
-            raise ValueError("SkipTransformerDecoder needs an odd depth")
+            raise ValueError(f"{type(self).__name__} needs an odd depth")
         num_block = (num_layers - 1) // 2
 
         def layer():
-            return TransformerDecoderLayer(d_model, nhead, dim_feedforward,
-                                           activation, normalize_before,
-                                           dtype)
+            return self.layer_cls(d_model, nhead, dim_feedforward,
+                                  activation, normalize_before, dtype,
+                                  dropout)
 
         self.input_blocks = nn.ModuleList(layer() for _ in range(num_block))
         self.middle_block = layer()
@@ -130,18 +164,27 @@ class SkipTransformerDecoder(nn.Module):
             for _ in range(num_block))
         self.norm = LayerNorm(d_model)
 
-    def forward(self, tgt, memory):
-        """No padding masks: the VAE's 128 frames and 8 chunks are
-        static."""
-        x, xs = tgt, []
+    def forward(self, x, *memory):
+        """``memory``: the decoder's cross-attention memory, none for the
+        encoder.  No padding masks: the VAE's 128 frames, 8 chunks and
+        16-frame chunks are static."""
+        xs = []
         for blk in self.input_blocks:
-            x = blk(x, memory)
+            x = blk(x, *memory)
             xs.append(x)
-        x = self.middle_block(x, memory)
+        x = self.middle_block(x, *memory)
         for lin, blk in zip(self.linear_blocks, self.output_blocks):
             x = lin(torch.cat([x, xs.pop()], dim=-1))
-            x = blk(x, memory)
+            x = blk(x, *memory)
         return self.norm(x)
+
+
+class SkipTransformerEncoder(_SkipStack):
+    layer_cls = TransformerEncoderLayer
+
+
+class SkipTransformerDecoder(_SkipStack):
+    layer_cls = TransformerDecoderLayer
 
 
 class TimeBlock(nn.Module):
@@ -149,13 +192,14 @@ class TimeBlock(nn.Module):
 
     h (..., T, D); emb (..., 1, D)."""
 
-    def __init__(self, latent_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, latent_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.emb_layers = nn.Sequential(
             nn.SiLU(), Linear(latent_dim, 2 * latent_dim, dtype=dtype))
         self.norm = LayerNorm(latent_dim)
         self.out_layers = nn.Sequential(
-            nn.SiLU(), nn.Identity(),  # (Dropout in the reference)
+            nn.SiLU(), Dropout(dropout),
             Linear(latent_dim, latent_dim, dtype=dtype))
 
     def forward(self, h, emb):
@@ -175,21 +219,21 @@ class TransformerDecoderLayer2Att(_FFN):
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", normalize_before: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         if not normalize_before:
             raise ValueError("the denoiser layer is pre-norm "
                              "(modules/denoiser.yaml)")
         d = d_model
-        self.self_attn = MultiheadAttention(d, nhead, dtype)
-        self.time_block1 = TimeBlock(d, dtype)
-        self.time_block2 = TimeBlock(d, dtype)
+        self.self_attn = MultiheadAttention(d, nhead, dtype, dropout)
+        self.time_block1 = TimeBlock(d, dtype, dropout)
+        self.time_block2 = TimeBlock(d, dtype, dropout)
         self.norm1 = LayerNorm(d)
         self.norm2 = LayerNorm(d)
         self.norm3 = LayerNorm(d)
         for s in COND_STREAMS:
             setattr(self, f"multihead_attn_{s}",
-                    MultiheadAttention(d, 1, dtype))
+                    MultiheadAttention(d, 1, dtype, dropout))
             setattr(self, f"{s}_norm", LayerNorm(d))
             # branch indices as device tensors: indexing with a Python list
             # would copy it to the card on every call
@@ -200,7 +244,8 @@ class TransformerDecoderLayer2Att(_FFN):
             self.register_buffer(f"_unc_idx_{s}", torch.tensor(unc),
                                  persistent=False)
         self.att_fuser = Linear(len(COND_STREAMS) * d, d, dtype=dtype)
-        self._init_ffn(d, dim_feedforward, activation, dtype)
+        self._init_ffn(d, dim_feedforward, activation, dtype, dropout)
+        self.drop = Dropout(dropout)
 
     def _cross(self, s):
         return (getattr(self, f"multihead_attn_{s}"),
@@ -243,7 +288,7 @@ class TransformerDecoderLayer2Att(_FFN):
         mem_masks = mem_masks or {}
         tgt2 = self.norm1(tgt)
         tgt2, _ = self.self_attn(tgt2, tgt2, tgt2, need_weights=False)
-        tgt = tgt + tgt2
+        tgt = tgt + self.drop(tgt2)
         tgt = tgt + self.time_block1(tgt, time_embed)
 
         q_cond = self.norm2(tgt)
@@ -255,9 +300,9 @@ class TransformerDecoderLayer2Att(_FFN):
                                       mem_masks.get(s))
             branch_outs.append(mod.out_proj(o[0]))
             att[s] = w[0]
-        tgt = tgt + self.att_fuser(torch.cat(branch_outs, dim=-1))
+        tgt = tgt + self.drop(self.att_fuser(torch.cat(branch_outs, dim=-1)))
         tgt = tgt + self.time_block2(tgt, time_embed)
-        tgt = tgt + self.ffn(self.norm3(tgt))
+        tgt = tgt + self.drop(self.ffn(self.norm3(tgt)))
         return tgt, att
 
     def guided(self, tgt7, mem_real, mem_unc, time_embed,
@@ -275,7 +320,7 @@ class TransformerDecoderLayer2Att(_FFN):
 
         flat = self.norm1(tgt7).reshape(g * b, tq, d)
         sa, _ = self.self_attn(flat, flat, flat, need_weights=False)
-        tgt7 = tgt7 + sa.reshape(g, b, tq, d)
+        tgt7 = tgt7 + self.drop(sa.reshape(g, b, tq, d))
         tgt7 = tgt7 + self.time_block1(tgt7, time_embed[None])
 
         tgt2 = self.norm2(tgt7)
@@ -295,9 +340,10 @@ class TransformerDecoderLayer2Att(_FFN):
             out.index_copy_(0, u_idx, o_u)
             branch_outs.append(mod.out_proj(out))
             att[s] = w_r[-1]   # last real branch = full condition
-        tgt7 = tgt7 + self.att_fuser(torch.cat(branch_outs, dim=-1))
+        tgt7 = tgt7 + self.drop(self.att_fuser(torch.cat(branch_outs,
+                                                         dim=-1)))
         tgt7 = tgt7 + self.time_block2(tgt7, time_embed[None])
-        tgt7 = tgt7 + self.ffn(self.norm3(tgt7))
+        tgt7 = tgt7 + self.drop(self.ffn(self.norm3(tgt7)))
         return tgt7, att
 
 
@@ -308,11 +354,12 @@ class DenoiserDecoder(nn.Module):
     def __init__(self, d_model: int, num_layers: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "gelu",
                  normalize_before: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerDecoderLayer2Att(d_model, nhead, dim_feedforward,
-                                        activation, normalize_before, dtype)
+                                        activation, normalize_before, dtype,
+                                        dropout)
             for _ in range(num_layers))
         self.norm = LayerNorm(d_model)
 

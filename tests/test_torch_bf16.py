@@ -14,8 +14,10 @@ two sides round at different places and differ by a few ulps, not by
 compares, with what was observed.  A cast in another place than JAX's (a
 stream kept in bf16 that JAX keeps in fp32) shows as a dtype that differs
 or as a port further from fp32 than JAX is.  One denoiser call, one step,
-one DPM-Solver++ step and one DDIM-4 window with a preseq are compared:
-rounding compounds through 50 steps.
+one DPM-Solver++ step, one DDIM-4 window with a preseq and one stage-2
+training loss with its gradients are compared: rounding compounds through
+50 steps.  The last case holds the trainer's fp32 master weights to what
+they are for: keeping updates smaller than bf16's spacing.
 """
 import dataclasses
 
@@ -40,6 +42,8 @@ from convofusion_tpu_torch.diffusion.schedulers import (
     DiffusionScheduler as PortScheduler,
 )
 from convofusion_tpu_torch.ops.guided_step import guided_step
+from convofusion_tpu_torch.train.trainer import Trainer, trainable_parameters
+from test_torch_train import diffusion_draws
 
 B, T, LAT = 3, 16, 32
 TIMESTEP = 620
@@ -75,6 +79,15 @@ WEG_GRAD_ULPS, WEG_GRAD_MEAN_ULPS = 128, 4
 # motion); the mean |port - JAX| stays within WINDOW_MEAN_RATIO of JAX's
 # own mean distance from fp32 (observed 1.39x and 1.46x)
 WINDOW_DISTANCE_RATIO, WINDOW_MEAN_RATIO = 1.5, 2.0
+# a stage-2 training loss (|loss| ~ 1.8, fp32 from bf16 predictions):
+# within 1 ulp of JAX's (observed 0.035); its gradients, in fractions of
+# each tensor's max |fp32 gradient|: max |port - JAX| within
+# TRAIN_GRAD_MAX (observed 0.095, on the attention and audio biases, whose
+# gradient sums every row), the port's mean distance from the fp32 port
+# within FP32_DISTANCE_RATIO of JAX's summed over the tensors (observed
+# 0.65x) and within TRAIN_GRAD_TENSOR_RATIO of it in each (observed 1.31x)
+TRAIN_LOSS_ULPS = 1
+TRAIN_GRAD_MAX, TRAIN_GRAD_TENSOR_RATIO = 0.125, 2.0
 ACP = DiffusionScheduler().alphas_cumprod
 STEP_CASES = {
     # name: (alpha_t, alpha_prev, is_ddpm, add_noise)
@@ -358,3 +371,89 @@ def test_preseq_window_matches_jax_bf16(twins):
         jax_dist = np.abs(a - ref).mean()
         assert np.abs(b - ref).mean() <= WINDOW_DISTANCE_RATIO * jax_dist
         assert np.abs(a - b).mean() <= WINDOW_MEAN_RATIO * jax_dist
+
+
+def _stage2_grads(model, batch, draws):
+    """The stage-2 loss and the trainable gradients in fp32, with the
+    model in eval mode (its audio dropout off) and grads enabled."""
+    params = [p for _, p in trainable_parameters(model, "diffusion")]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        loss, _ = model.train_diffusion_loss(batch, None, draws)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float() for n, p in
+                             model.named_parameters() if p.grad is not None}
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+            p.grad = None
+
+
+def test_training_loss_and_grads_match_jax_bf16(twins):
+    """train_diffusion_loss in bf16 on both sides, on JAX's draws: JAX's
+    fp32 parameters cast at each use against the port's bf16 weights."""
+    _, params, ports, jbatch, tbatch = twins
+    cfg = tiny_config("diffusion")
+    for block in ("denoiser", "motion_vae", "text_encoder", "audio_encoder"):
+        cfg.model[block].params["compute_dtype"] = "bfloat16"
+    jm = JaxConvofusion(cfg)
+    jm.audio_encoder = jm.audio_encoder.clone(dropout=0.0)
+    key = jax.random.PRNGKey(9)
+    (loss_j, _), grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jm.train_diffusion_loss(p, jbatch, key), has_aux=True))(
+        params)
+    want = state_dict_from_jax(jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32), grads_j))
+    draws = diffusion_draws(jm, key, B)
+    loss_t, grads_t = _stage2_grads(ports["bfloat16"], tbatch, draws)
+    loss_f, grads_f = _stage2_grads(ports["float32"], tbatch, draws)
+    loss_j = float(loss_j)
+    assert abs(loss_t - loss_j) <= TRAIN_LOSS_ULPS * _ulp(np.asarray(loss_j))
+    assert abs(loss_t - loss_f) <= FP32_DISTANCE_RATIO * abs(loss_j - loss_f)
+    assert set(grads_t) == set(grads_f)
+    port_dist = jax_dist = 0.0
+    for name, ref in grads_f.items():
+        a, b, r = want[name].numpy(), grads_t[name].numpy(), ref.numpy()
+        scale = np.abs(r).max()
+        assert np.abs(a - b).max() <= TRAIN_GRAD_MAX * scale, name
+        dj, dp = np.abs(a - r).mean(), np.abs(b - r).mean()
+        assert dp <= TRAIN_GRAD_TENSOR_RATIO * dj, name
+        port_dist, jax_dist = port_dist + dp / scale, jax_dist + dj / scale
+    assert port_dist <= FP32_DISTANCE_RATIO * jax_dist
+
+
+def test_fp32_master_keeps_updates_below_bf16_spacing():
+    """A constant gradient makes every AdamW update ~-lr = -7e-5; a bf16
+    weight in [2^-4, 2^-3) has spacing 2^-11 (4.9e-4), so stepped in bf16
+    it would never move.  The fp32 master moves at the first step and,
+    some steps later, carries the bf16 weight across a rounding
+    boundary."""
+    model = Convofusion(TINY, dtype="bfloat16", device="cpu", seed=1)
+    trainer = Trainer(model)
+    trainer.init_state()
+    weight = model.denoiser.latent_proj.weight
+    idx = next(i for i, p in enumerate(trainer.params) if p is weight)
+    start = weight.detach().clone()
+    big = (start.float().abs() >= 2 ** -4) & (start.float().abs() < 2 ** -3)
+    assert int(big.sum()) > 10
+    lr = TINY["train"]["optim"]["lr"]
+    lone_bf16 = start + torch.tensor(-lr, dtype=torch.bfloat16)
+    assert torch.equal(lone_bf16[big], start[big])
+
+    def step():
+        with trainer.training():
+            for p in trainer.params:
+                p.grad = torch.ones_like(p)
+            trainer.apply_grads()
+
+    step()
+    master = trainer.masters[idx]
+    assert master.dtype == torch.float32
+    assert torch.equal(weight[big], start[big])
+    assert bool((master[big] < start.float()[big]).all())
+    for _ in range(9):
+        step()
+    assert torch.equal(weight, master.to(torch.bfloat16))
+    moved = weight[big] != start[big]
+    assert float(moved.float().mean()) > 0.5

@@ -2,7 +2,8 @@
 
 - ``state_dict_from_jax`` followed by the JAX package's own converters
   (``compat/torch_loader``, ``models/t5.t5_params_from_torch``) gives back
-  the original JAX tree, bit for bit;
+  the original JAX tree, bit for bit, the VAE encoder included, for a
+  stage-2 tree and for a stage-1 (VAE-only) one;
 - unknown JAX keys raise;
 - at production geometry the port has, module by module, exactly the
   parameter count of the JAX tree (``jax.eval_shape``, no compute);
@@ -24,11 +25,10 @@ from convofusion_tpu.models.convofusion import Convofusion as JaxConvofusion
 from convofusion_tpu.models.t5 import t5_params_from_torch
 from convofusion_tpu.models.tokenizer import WordHashTokenizer
 from convofusion_tpu_torch.compat.from_jax import (
-    _SKIPPED,
     _flatten,
     state_dict_from_jax,
 )
-from convofusion_tpu_torch.config import PRODUCTION, TINY
+from convofusion_tpu_torch.config import PRODUCTION, TINY, TINY_VAE
 from convofusion_tpu_torch.models.convofusion import Convofusion
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,18 +60,25 @@ def test_round_trip_through_jax_converters(tiny):
     params, sd = tiny
     _assert_same_tree(tl.denoiser_params(_sub(sd, "denoiser."), 64, 3),
                       params["denoiser"])
-    vae = _sub(sd, "vae.")
-    for part in ("body", "hands"):
-        _assert_same_tree(
-            tl.skip_decoder(vae, f"{part}_decoder", 32, 3),
-            params["vae"][f"{part}_decoder"])
-        _assert_same_tree(tl.linear(vae, f"{part}_final_layer"),
-                          params["vae"][f"{part}_final_layer"])
+    _assert_same_tree(tl.vae_params(_sub(sd, "vae."), 32, 3), params["vae"])
     _assert_same_tree(
         t5_params_from_torch(_sub(sd, "text_encoder.text_model."), 2),
         params["text_encoder"]["text_model"])
     _assert_same_tree(tl.linear(sd, "text_encoder.projection.1"),
                       params["text_encoder"]["projection_1"])
+
+
+def test_stage1_tree_round_trip():
+    """A tree with the VAE alone loads into a stage='vae' model and comes
+    back through the JAX converter unchanged."""
+    jm = JaxConvofusion(tiny_config("vae"))
+    params = jax.tree_util.tree_map(
+        np.asarray, jm.init_params(jax.random.PRNGKey(1)))
+    assert set(params) == {"vae"}
+    tm = Convofusion(TINY_VAE, device="cpu", seed=None, stage="vae")
+    tm.load_state_dict(state_dict_from_jax(params))
+    sd = {k: v.numpy() for k, v in tm.state_dict().items()}
+    _assert_same_tree(tl.vae_params(_sub(sd, "vae."), 32, 3), params["vae"])
 
 
 def test_unknown_key_raises(tiny):
@@ -99,8 +106,7 @@ def test_production_parameter_count_matches_jax():
     for name in ("denoiser", "text_encoder", "audio_encoder",
                  "condition_fuser", "vae"):
         want = sum(int(np.prod(s.shape))
-                   for k, s in _flatten_shapes(shapes[name], name).items()
-                   if not k.startswith(_SKIPPED))
+                   for s in _flatten_shapes(shapes[name], name).values())
         got = sum(p.numel() for p in getattr(tm, name).parameters())
         assert got == want, name
     assert sum(p.numel() for p in tm.parameters()) > 200e6
