@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of ConvoFusion on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 1-3,13]
 
-Phases, each raising on failure (non-zero exit, no result line):
+Phases, each raising on failure (non-zero exit, no result line); --phases
+picks some (default all; 1-3 always run, and one phase that launches the
+step kernel must be among them):
   1. device  - require CUDA; print the card's name and power limit; TF32 off
   2. build   - nvcc the hand-written kernels from convofusion_tpu_torch/csrc
   3. kernel  - at the main path's B=96 shapes, every kernel against its
@@ -27,7 +29,10 @@ Phases, each raising on failure (non-zero exit, no result line):
                numpy-made inputs and noise: sample(focus=...) on the card
                against the CPU, with the config's WEG parameters and with
                the refinement forced at step 0; refinement iterations and
-               text-only passes must be equal on both sides
+               text-only passes must be equal on both sides, and each case
+               runs twice on the card, bit-equal (a deterministic WEG
+               gradient); then one WEG step's ms and kernels with the
+               deterministic forms and with the earlier gather forms
   7. serve   - production geometry, bf16, batch 96, DDIM-50, WEG on,
                through build_service and GestureService: 2 x 96 requests
                from client threads (most with 1-3 focus words of their own
@@ -72,22 +77,36 @@ Phases, each raising on failure (non-zero exit, no result line):
                the cached T5 trunk and VAE posterior (bench.py --cached-text
                --cached-vae), stage 1 at batch 128; each 3 warm-up and 20
                timed steps (median ms a step, clips/s), peak memory, and 2
-               profiled steps (kernels a step, the card's busy share); every
-               loss finite; then stage 1 on one fixed batch for 50 steps,
-               whose last 5 losses must average below its first 5
-Then a JSON line of per-kernel numbers (launches summed over phases 5-12,
-and each phase's count under launches_by_phase; the training phases launch
-no step kernel) and, last, the result line {"ok": true, "device": {...}}.
+               profiled steps (kernels a step, the card's busy share), and
+               one profiled step with F.dropout's fused kernel (the kernels
+               that masks from the step's generator add); every loss
+               finite; then stage 1 on one fixed batch for 50 steps, whose
+               last 5 losses must average below its first 5
+ 13. checkpoint - the production stage-2 model from the YAML config
+               (load_config + from_cfg), bf16: saved without the T5 trunk,
+               in the foreground and the background (ms, MiB), loaded into
+               a fresh model (ms; every tensor bit-equal, the live trunk
+               kept), served from the file by build_service with the
+               DDIM-50 overrides (one micro-batch of TEST.BATCH_SIZE,
+               finite motion, 50 kernel launches); then resume: fp32 batch
+               4 stage 2, dropout 0.1, 2 steps + save + load + 2 steps
+               against 4 straight steps, losses within 1e-6 relative
+Then a JSON line of per-kernel numbers (launches summed over phases 5-13
+that ran, and each phase's count under launches_by_phase; the dpmpp and
+training phases launch no step kernel) and, last, the result line
+{"ok": true, "device": {...}}.
 """
+import argparse
 import contextlib
 import copy
 import dataclasses
-import gc
 import json
+import os
 import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -95,11 +114,19 @@ import warnings
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from convofusion_tpu_torch.cli.unbounded import rollout
-from convofusion_tpu_torch.config import PRODUCTION, PRODUCTION_VAE
+from convofusion_tpu_torch.config import (
+    DEFAULTS_DIR,
+    PRODUCTION,
+    PRODUCTION_VAE,
+    from_cfg,
+    load_config,
+)
+from convofusion_tpu_torch.config.omega import OmegaConf
 from convofusion_tpu_torch.diffusion.schedulers import DiffusionScheduler
 from convofusion_tpu_torch.data.synthetic import (
     prepare_arrays,
@@ -111,13 +138,17 @@ from convofusion_tpu_torch.models.convofusion import (
     Convofusion,
     to_tensors,
 )
+from convofusion_tpu_torch.models import weg as weg_lib
 from convofusion_tpu_torch.models.tokenizer import focus_word_indices
 from convofusion_tpu_torch.ops import guided_step as gs_mod
+from convofusion_tpu_torch.ops import layers
+from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
 from convofusion_tpu_torch.serving import (
     GestureRequest,
     build_service,
     serve_http,
 )
+from convofusion_tpu_torch.train import checkpoint as ckpt_lib
 from convofusion_tpu_torch.train.trainer import Trainer, trainable_parameters
 
 BATCH, STEPS, TIMED_CALLS = 96, 50, 3   # bench.py:26-29 (batch, steps)
@@ -143,6 +174,8 @@ WEG_PARITY_ATOL = 1e-3
 WEG_LATENT_ATOL = 2e-3
 # the refinement forced at step 0: the loop runs to its bound on both sides
 WEG_FORCED = {"thresholds": {0: 0.99}, "max_refinement_steps": 5}
+# timed calls of one WEG step in each form
+WEG_COST_CALLS = 20
 # phase 7: requests a client thread submits, and the HTTP requests
 SERVE_CLIENTS, SERVE_HTTP_REQUESTS = 8, 4
 # every Nth service request carries no focus words
@@ -167,6 +200,13 @@ TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 20, 2, 50
 TRAIN_DIFFUSION_BATCH = PRODUCTION["train"]["batch_size"]
 TRAIN_VAE_BATCH = PRODUCTION_VAE["train"]["batch_size"]
+# phase 13: the YAML scheduler is DDPM-1000 (modules/scheduler.yaml:1-11);
+# the served batch takes bench.py's DDIM-50 through dotlist overrides
+DDIM_OVERRIDES = ["model.scheduler.variant=ddim",
+                  f"model.scheduler.num_inference_timesteps={STEPS}"]
+# the resume check: batch, (N, M) steps, and the loss tolerance argued in
+# resume_check
+CKPT_RESUME_BATCH, CKPT_RESUME_STEPS, CKPT_RESUME_RTOL = 4, (2, 2), 1e-6
 
 
 def log(*args):
@@ -415,37 +455,53 @@ def phase_weg_parity(device="cuda"):
     words = [w or tuple(t.split()[:1]) for w, t in zip(words,
                                                        raw["text_lsn"])]
     runs = {}
-    for side in (device, "cpu"):
+    for k, side in enumerate((device, "cpu")):
         model = Convofusion(PRODUCTION, dtype="float32", device=side,
                             seed=0)
         batch, _, tb_lsn = prepare_arrays(model, raw)
         fi, fv = focus_word_indices(
             tb_lsn.word_map(model.tokenizer.wrapped_texts(raw["text_lsn"])),
             [list(w) for w in words], max_indices=8)
+        # the card runs each case twice: its WEG gradient is deterministic,
+        # so the second run must give the same bits
+        repeats = 2 if k == 0 else 1
         for name, params in (("config", None), ("forced", WEG_FORCED)):
-            t0 = time.perf_counter()
-            model.weg_counts = type(model.weg_counts)()
-            launches = gs_mod.guided_step.launches
-            motion, latents = model.sample(
-                batch, num_inference_steps=WEG_STEPS, init_noise=init,
-                step_noise=steps, focus={"focus_idx": fi,
-                                         "focus_valid": fv},
-                weg_params=params)
-            if side != "cpu" and gs_mod.guided_step.launches - launches \
-                    != WEG_STEPS:
-                raise RuntimeError("WEG parity run on the card missed the "
-                                   "kernel")
-            runs[side, name] = (motion.float().cpu(), latents.cpu(),
-                                model.weg_counts)
-            log(f"# weg_parity: {name} parameters on {side}: "
-                f"{time.perf_counter() - t0:.1f} s, {model.weg_counts}")
+            outs = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                model.weg_counts = type(model.weg_counts)()
+                launches = gs_mod.guided_step.launches
+                motion, latents = model.sample(
+                    batch, num_inference_steps=WEG_STEPS, init_noise=init,
+                    step_noise=steps, focus={"focus_idx": fi,
+                                             "focus_valid": fv},
+                    weg_params=params)
+                if side != "cpu" and gs_mod.guided_step.launches \
+                        - launches != WEG_STEPS:
+                    raise RuntimeError("WEG parity run on the card missed "
+                                       "the kernel")
+                outs.append((motion.float().cpu(), latents.cpu(),
+                             model.weg_counts))
+                log(f"# weg_parity: {name} parameters on {side}: "
+                    f"{time.perf_counter() - t0:.1f} s, {model.weg_counts}")
+            if repeats > 1:
+                same = all(torch.equal(a, b) for a, b in zip(outs[0][:2],
+                                                             outs[1][:2]))
+                log(f"# weg_parity: {name}: two runs on {side} from the same "
+                    f"noise: motion and latents bit-equal: {same}")
+                if not same:
+                    raise RuntimeError(f"WEG on {side} is not reproducible: "
+                                       f"{name} runs differ")
+            runs[k, name] = outs[0]
+        if k == 0:
+            weg_step_cost(model, batch, fi, fv)
         del model
     log(f"# weg_parity: focus words {words}, valid columns "
         f"{fv.sum(axis=1).tolist()}")
     worst = 0.0
     for name in ("config", "forced"):
         (m_gpu, l_gpu, c_gpu), (m_cpu, l_cpu, c_cpu) = (
-            runs[device, name], runs["cpu", name])
+            runs[0, name], runs[1, name])
         for t in (m_gpu, m_cpu):
             if t.shape != (b, 128, 189) or not torch.isfinite(t).all():
                 raise RuntimeError(f"WEG parity motion {tuple(t.shape)} not "
@@ -468,6 +524,102 @@ def phase_weg_parity(device="cuda"):
             raise RuntimeError(f"WEG card vs CPU latents differ by {dl}")
         worst = max(worst, dm)
     return worst
+
+
+def _select_columns_gather(p, idx):
+    """models/weg.select_columns as a gather, whose backward is a
+    scatter-add with atomics on the card (the earlier form)."""
+    idx = idx.long()
+    return torch.gather(p, 2, idx[:, None, :].expand(
+        p.shape[0], p.shape[1], idx.shape[1]))
+
+
+def _smooth_conv(p, eot_idx, kernel_size=3, sigma=0.5):
+    """models/weg.sliced_reflect_smooth with a gather, F.pad's reflect mode
+    and F.conv2d (the earlier form)."""
+    b, tq, tk = p.shape
+    j = torch.arange(tk, device=p.device)[None, :]
+    eot = eot_idx[:, None].long()
+    src = torch.where(j == 0, 2, torch.where(j == eot, eot - 2, j))
+    p_ext = _select_columns_gather(p, src.clamp(0, tk - 1))
+    k = torch.as_tensor(gaussian_kernel_2d(kernel_size, sigma),
+                        dtype=p.dtype, device=p.device)
+    pad = kernel_size // 2
+    x = F.pad(p_ext, (0, 0, pad, pad), mode="reflect")
+    x = F.pad(x, (pad, pad))
+    out = F.conv2d(x[:, None], k[None, None])[:, 0]
+    return out * ((j >= 1) & (j < eot))[:, None, :]
+
+
+@contextlib.contextmanager
+def weg_gather_forms():
+    """While open, WEG's focus loss runs its earlier, non-deterministic
+    forms: only to time the deterministic ones against them."""
+    saved = weg_lib.select_columns, weg_lib.sliced_reflect_smooth
+    weg_lib.select_columns = _select_columns_gather
+    weg_lib.sliced_reflect_smooth = _smooth_conv
+    try:
+        yield
+    finally:
+        weg_lib.select_columns, weg_lib.sliced_reflect_smooth = saved
+
+
+def weg_step_cost(model, batch, fi, fv):
+    """One WEG step's loss and gradient (the text-only pass, its backward
+    and the focus loss) with the deterministic forms and with the earlier
+    gather forms, in turns: wall ms (median of WEG_COST_CALLS, synced) and
+    kernels and device ms from one profiled call each."""
+    keys = ("spk_ids", "spk_tmask", "lsn_ids", "lsn_tmask", "melspec_lsn",
+            "active_passive_lsn", "lsn_id")
+    with torch.no_grad():
+        cond, masks = model.encode_conditions(*(batch[k] for k in keys))
+        unc, umasks = model.encode_uncond(batch)
+    weg = model.weg_inputs({"focus_idx": fi, "focus_valid": fv}, cond,
+                           masks, unc, umasks)
+
+    def text_only_att(lat, t):
+        return model.denoiser.text_only(lat, t, weg["cond_text"],
+                                        weg["masks_text"])[1]["tlsn"]
+
+    # one loss for both forms: it looks the module's functions up at call
+    # time
+    loss_grad = weg_lib.value_and_grad(weg_lib.make_weg_loss(
+        text_only_att, weg["focus_idx"], weg["focus_valid"],
+        weg["eot_idx"]))
+    lat = torch.randn((fi.shape[0], 16, model.latent_dim),
+                      generator=torch.Generator(device=model.device)
+                      .manual_seed(34), device=model.device)
+    on_card = model.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    forms = {"deterministic": contextlib.nullcontext,
+             "gather": weg_gather_forms}
+    walls = {name: [] for name in forms}
+    grads = {}
+    for _ in range(WEG_COST_CALLS):
+        for name, form in forms.items():
+            with form():
+                sync()
+                t0 = time.perf_counter()
+                _, grads[name] = loss_grad(lat, 981)
+                sync()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    for name, form in forms.items():
+        with form(), profile(activities=activities) as prof:
+            loss_grad(lat, 981)
+            sync()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        log(f"# weg_parity: one WEG step (text-only pass, backward, focus "
+            f"loss), fp32 batch {fi.shape[0]}, {name} forms: "
+            f"{statistics.median(walls[name]):.2f} ms (median of "
+            f"{WEG_COST_CALLS}), {sum(e.count for e in kernels)} kernels, "
+            f"{sum(_device_us(e) for e in kernels) / 1e3:.3f} ms of device "
+            f"time")
+    gap = float((grads["deterministic"] - grads["gather"]).abs().max())
+    log(f"# weg_parity: the two forms' gradients differ by {gap:.3g} "
+        f"(|grad| <= {float(grads['gather'].abs().max()):.3g})")
 
 
 def _serve_requests(n, seed):
@@ -794,10 +946,8 @@ def phase_rollout(smi, device=None):
     encode = model.encode_uncond
     model.encode_uncond = lambda b: encodes.append(1) or encode(b)
     if on_card:
-        # phase 8's models hold their cached samplers, which hold them: a
-        # reference cycle that frees their device memory only when the
-        # garbage collector runs
-        gc.collect()
+        # no gc.collect(): a cached sampler holds its model weakly, so
+        # phase 8's models went with their last reference
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     rows = []
@@ -1106,6 +1256,14 @@ def time_training(name, model, batch, smi, seed):
             wall_ms = (time.perf_counter() - t0) * 1e3
         split = split_step(trainer, batch, gen, on_card)
         check_no_host_wait(trainer, batch, gen, on_card, name)
+        with default_generator_dropout(), profile(
+                activities=activities) as fused_prof:
+            trainer.compute_grads(batch, gen)
+            trainer.apply_grads()
+            if on_card:
+                torch.cuda.synchronize()
+    fused_kernels = sum(e.count for e in fused_prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
     averages = prof.key_averages()
     kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
     # kernel time a step from the profiled steps; the profiler slows the
@@ -1117,7 +1275,8 @@ def time_training(name, model, batch, smi, seed):
     if not bool(torch.isfinite(torch.stack(losses)).all()):
         raise RuntimeError(f"train {name}: a loss is not finite")
     summary = dict(ms=med * 1e3, clips_per_s=b / med, peak_gib=peak / 2**30,
-                   kernels=n_kernels, device_ms=device_ms,
+                   kernels=n_kernels, fused_dropout_kernels=fused_kernels,
+                   device_ms=device_ms,
                    busy=device_ms / (med * 1e3))
     log(f"# train: {name}, batch {b}, bf16 + fp32 masters, on {smi}: "
         f"{med * 1e3:.2f} ms a step (median of {TRAIN_TIMED}; "
@@ -1128,6 +1287,10 @@ def time_training(name, model, batch, smi, seed):
         f"step (kernel time from {TRAIN_PROFILED} profiled steps, which took "
         f"{wall_ms / TRAIN_PROFILED:.1f} ms each under the profiler); losses "
         f"{float(losses[0]):.4g} -> {float(losses[-1]):.4g}")
+    log(f"# train: {name}: {n_kernels} kernels a step with the dropout "
+        f"masks drawn from the step's generator, {fused_kernels} with "
+        f"F.dropout's fused kernel from the default generator (one profiled "
+        f"step): {n_kernels - fused_kernels:+d}")
     log(f"# train: {name}: one step split with a sync between the parts: "
         f"forward {split[0]:.1f} ms, backward {split[1]:.1f} ms, AdamW and "
         f"the master copy {split[2]:.1f} ms"
@@ -1141,6 +1304,25 @@ def time_training(name, model, batch, smi, seed):
         log(f"#   host {e.self_cpu_time_total / 1e3 / TRAIN_PROFILED:8.3f} "
             f"ms a step {e.count // TRAIN_PROFILED:5d}x  {e.key[:80]}")
     return summary
+
+
+@contextlib.contextmanager
+def default_generator_dropout():
+    """While open, ``ops/layers.Dropout`` is ``F.dropout`` (one fused
+    kernel, masks from the device's default generator), the earlier form:
+    only to count the kernels the step's-generator masks add."""
+    forward = layers.Dropout.forward
+
+    def fused(self, x):
+        if self.training and self.p > 0.0:
+            return F.dropout(x, self.p, True)
+        return x
+
+    layers.Dropout.forward = fused
+    try:
+        yield
+    finally:
+        layers.Dropout.forward = forward
 
 
 def split_step(trainer, batch, gen, on_card):
@@ -1193,9 +1375,6 @@ def phase_train(smi, device=None):
     raw2 = synthetic_raw_batch(41, TRAIN_DIFFUSION_BATCH,
                                mel_frames=PRODUCTION["mel_frames"])
     model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=2)
-    on_card = model.device.type == "cuda"
-    if on_card:
-        gc.collect()
     batch = train_batch(model, raw2)
     rows["stage2_ids"] = time_training("stage 2, token ids", model, batch,
                                        smi, 42)
@@ -1230,6 +1409,161 @@ def phase_train(smi, device=None):
     if not (np.isfinite(hist).all() and last < first):
         raise RuntimeError(f"stage 1 did not learn: {first} -> {last}")
     return rows
+
+
+def _bit_equal(a: torch.nn.Module, b: torch.nn.Module, skip=None):
+    """Names of the tensors of ``a`` that differ from ``b``'s in any bit
+    (``skip``: a name prefix left out)."""
+    sb = b.state_dict()
+    return [k for k, v in a.state_dict().items()
+            if not (skip and k.startswith(skip)) and not torch.equal(
+                v, sb[k])]
+
+
+def _save_timed(*args, **kwargs):
+    """save_checkpoint's path and its ms up to the return (and, in the
+    background, up to the write's end)."""
+    t0 = time.perf_counter()
+    path = ckpt_lib.save_checkpoint(*args, **kwargs)
+    returned = (time.perf_counter() - t0) * 1e3
+    ckpt_lib.wait_for_checkpoints()
+    return path, returned, (time.perf_counter() - t0) * 1e3
+
+
+def phase_checkpoint(smi, device=None, merged=None):
+    """The production stage-2 model from the YAML config (config/defaults/
+    config_cf_beatdnd.yaml through load_config and from_cfg), bf16: saved
+    without its trunk, in the foreground and in the background, loaded into
+    a fresh model of the same seed whose other weights were zeroed (every
+    tensor bit-equal, the trunk its own), then served from the file through
+    build_service (the DDIM-50 overrides, TEST.BATCH_SIZE requests, one
+    micro-batch).  Then resume: fp32 batch CKPT_RESUME_BATCH stage 2 with
+    dropout 0.1, the generator on the card, N + save + load + M steps
+    against N + M straight steps."""
+    merged = merged or load_config(os.path.join(
+        DEFAULTS_DIR, "config_cf_beatdnd.yaml"))
+    cfg = from_cfg(merged)
+    seed = cfg["serve"]["seed"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as tmp:
+        model = Convofusion(cfg, dtype="bfloat16", device=device, seed=seed)
+        dev = model.device
+        on_card = dev.type == "cuda"
+        path, save_ms, _ = _save_timed(tmp, 1, model)
+        size = os.path.getsize(path)
+        bg_path, bg_return_ms, bg_ms = _save_timed(os.path.join(tmp, "bg"),
+                                                   1, model, background=True)
+        same_file = all(torch.equal(v, w) for v, w in zip(
+            torch.load(path, weights_only=True)["state_dict"].values(),
+            torch.load(bg_path, weights_only=True)["state_dict"].values()))
+        trunk_keys = [k for k in torch.load(path, weights_only=True)[
+            "state_dict"] if "text_model" in k]
+        fresh = Convofusion(cfg, dtype="bfloat16", device=device, seed=seed)
+        with torch.no_grad():
+            for n, p in fresh.named_parameters():
+                if not n.startswith(ckpt_lib.TRUNK):
+                    p.zero_()
+        live = {k: v.clone() for k, v in fresh.state_dict().items()
+                if k.startswith(ckpt_lib.TRUNK)}
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_lib.load_checkpoint(path, fresh)
+        if on_card:
+            torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        differ = _bit_equal(fresh, model, skip=ckpt_lib.TRUNK)
+        trunk_moved = [k for k, v in fresh.state_dict().items()
+                       if k in live and not torch.equal(v, live[k])]
+        n_tensors = len(model.state_dict())
+        log(f"# checkpoint: production stage 2 from the YAML config, bf16, "
+            f"{n_tensors} tensors: saved without the trunk in "
+            f"{save_ms:.1f} ms, {size / 2**20:.1f} MiB ({len(trunk_keys)} "
+            f"trunk keys in the file); in the background the call returned "
+            f"in {bg_return_ms:.1f} ms and the write ended at {bg_ms:.1f} ms "
+            f"(same tensors: {same_file}); loaded in {load_ms:.1f} ms into a "
+            f"fresh model with its other weights zeroed: {len(differ)} "
+            f"tensors differ, the live trunk moved in {len(trunk_moved)}")
+        if differ or trunk_moved or trunk_keys or not same_file:
+            raise RuntimeError(f"checkpoint round trip: differ {differ[:3]}, "
+                               f"trunk moved {trunk_moved[:3]}, trunk keys "
+                               f"{trunk_keys[:3]}, same file {same_file}")
+        del fresh
+
+        # served from the file: one micro-batch of TEST.BATCH_SIZE
+        served_cfg = OmegaConf.merge(merged,
+                                     OmegaConf.from_dotlist(DDIM_OVERRIDES))
+        svc = build_service(served_cfg, dtype="bfloat16", device=device,
+                            checkpoint=path)
+        try:
+            served_differ = _bit_equal(svc.model, model,
+                                       skip=ckpt_lib.TRUNK)
+            before = gs_mod.guided_step.launches
+            t0 = time.perf_counter()
+            motions, _ = _submit_from_clients(
+                svc, _serve_requests(svc.batch_size, 91), SERVE_CLIENTS)
+            wall = time.perf_counter() - t0
+            _check_served(motions, "checkpoint serve")
+            launches = gs_mod.guided_step.launches - before
+            st = svc.stats()
+        finally:
+            svc.close()
+        log(f"# checkpoint: build_service(config + {DDIM_OVERRIDES}, "
+            f"checkpoint=...) on {smi}: {len(served_differ)} tensors differ "
+            f"from the saved model; {st['requests']} requests in "
+            f"{st['batches']} micro-batch(es), {wall * 1e3:.1f} ms, WEG "
+            f"{svc.weg}, {launches} kernel launches")
+        if served_differ or st["batches"] != 1 or (
+                on_card and launches != STEPS):
+            raise RuntimeError(f"checkpoint serve: {len(served_differ)} "
+                               f"tensors differ, {st['batches']} batches, "
+                               f"{launches} launches")
+        del model, svc
+        resume_check(cfg, seed, device, tmp)
+
+
+def resume_check(cfg, seed, device, tmp):
+    """fp32 stage 2, dropout 0.1 everywhere, batch CKPT_RESUME_BATCH:
+    N steps, a save with the trainer and the generator, a load into a fresh
+    model, trainer and generator, M more steps, against N + M straight
+    steps from the same seed.  On the card the losses agree to 1e-6
+    relative, not bit for bit: the embedding and gather backwards add
+    with atomics, so two runs of one step may sum in other orders (at the
+    CPU the test suite holds them bit-equal)."""
+    n, m = CKPT_RESUME_STEPS
+    raw = synthetic_raw_batch(93, CKPT_RESUME_BATCH,
+                              mel_frames=cfg["mel_frames"])
+
+    def fresh():
+        model = Convofusion(cfg, dtype="float32", device=device, seed=seed)
+        gen = torch.Generator(device=model.device)
+        return model, Trainer(model), gen
+
+    model, trainer, gen = fresh()
+    batch = train_batch(model, raw)
+    straight = trainer.fit_steps([batch] * (n + m), gen.manual_seed(94),
+                                 log_every=1)
+    del model, trainer
+    model, trainer, gen = fresh()
+    first = trainer.fit_steps([batch] * n, gen.manual_seed(94), log_every=1)
+    t0 = time.perf_counter()
+    path = ckpt_lib.save_checkpoint(os.path.join(tmp, "resume"), n, model,
+                                    trainer, gen)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    del model, trainer
+    model, trainer, gen = fresh()
+    t0 = time.perf_counter()
+    ckpt_lib.load_checkpoint(path, model, trainer, gen)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    resumed = first + trainer.fit_steps([batch] * m, gen, log_every=1)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    log(f"# checkpoint: resume, fp32 stage 2 batch {CKPT_RESUME_BATCH}, "
+        f"dropout 0.1: {n} steps + save ({save_ms:.1f} ms, "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB with the trainer) + load "
+        f"({load_ms:.1f} ms) + {m} steps {[round(x, 7) for x in resumed]} "
+        f"against {n + m} straight {[round(x, 7) for x in straight]}: "
+        f"relative gap {gap:.3g} (tolerance {CKPT_RESUME_RTOL})")
+    if not (np.isfinite(resumed).all() and gap <= CKPT_RESUME_RTOL):
+        raise RuntimeError(f"resume: losses {resumed} against {straight}")
 
 
 def phase_main(smi):
@@ -1331,35 +1665,75 @@ def kernel_in_path_us(kernels, expected) -> float:
     return sum(_device_us(e) for e in rows) / count
 
 
-def main():
+PHASES = {4: "parity", 5: "main", 6: "weg_parity", 7: "serve",
+          8: "rollout_parity", 9: "rollout", 10: "dpmpp",
+          11: "train_parity", 12: "train", 13: "checkpoint"}
+# the phases whose runs launch the step kernel (the others must not)
+PATH_PHASES = {5, 6, 7, 8, 9, 13}
+
+
+def parse_phases(spec: str):
+    """'1-3,13' -> {1, 2, 3, 13}; phases 1-3 always run."""
+    chosen = {1, 2, 3}
+    for part in spec.split(","):
+        lo, _, hi = part.partition("-")
+        chosen.update(range(int(lo), int(hi or lo) + 1))
+    unknown = chosen - {1, 2, 3} - set(PHASES)
+    if unknown:
+        raise ValueError(f"no phase {sorted(unknown)}")
+    if not chosen & PATH_PHASES:
+        raise ValueError(f"choose at least one phase of {sorted(PATH_PHASES)}"
+                         f": the JSON line counts the main path's launches")
+    return chosen
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--phases", default="1-13", type=parse_phases,
+                    help="e.g. '1-3,13' (default every phase; 1-3 always "
+                         "run)")
+    chosen = ap.parse_args(argv).phases
     smi = phase_device()
     phase_build()
     rows, max_err = phase_kernel()
-    phase_parity()
+    in_path_us = None
+
+    def run_main():
+        nonlocal in_path_us
+        launches, in_path_us = phase_main(smi)
+        return launches
+
+    def run_dpmpp():
+        dpmpp_case = phase_dpmpp(smi)
+        launches = gs_mod.guided_step.launches
+        dpmpp_against_ddim(*dpmpp_case)
+        return launches
+
+    # a phase that returns its count returns what its path launched before
+    # its extra measurements (profiles, comparisons); otherwise the count
+    # is read after it
+    runs = {4: phase_parity, 5: run_main, 6: phase_weg_parity,
+            7: lambda: phase_serve(smi), 8: phase_rollout_parity,
+            9: lambda: phase_rollout(smi), 10: run_dpmpp,
+            11: phase_train_parity, 12: lambda: phase_train(smi),
+            13: lambda: phase_checkpoint(smi)}
     by_phase = {}
-    by_phase["main"], in_path_us = phase_main(smi)
-    gs_mod.guided_step.launches = 0
-    phase_weg_parity()
-    by_phase["weg_parity"] = gs_mod.guided_step.launches
-    by_phase["serve"] = phase_serve(smi)
-    for name, phase in (("rollout_parity", phase_rollout_parity),
-                        ("rollout", lambda: phase_rollout(smi))):
+    for number in sorted(chosen - {1, 2, 3}):
         gs_mod.guided_step.launches = 0
-        phase()
-        by_phase[name] = gs_mod.guided_step.launches
-    gs_mod.guided_step.launches = 0
-    dpmpp_case = phase_dpmpp(smi)
-    by_phase["dpmpp"] = gs_mod.guided_step.launches
-    dpmpp_against_ddim(*dpmpp_case)
-    del dpmpp_case
-    for name, phase in (("train_parity", phase_train_parity),
-                        ("train", lambda: phase_train(smi))):
-        gs_mod.guided_step.launches = 0
-        phase()
-        by_phase[name] = gs_mod.guided_step.launches
-        if by_phase[name]:
+        t0 = time.perf_counter()
+        launches = runs[number]()
+        log(f"# phase {number} {PHASES[number]}: "
+            f"{time.perf_counter() - t0:.1f} s")
+        if number == 4:
+            continue       # a parity check, not the main path
+        name = PHASES[number]
+        by_phase[name] = (launches if isinstance(launches, int)
+                          else gs_mod.guided_step.launches)
+        if number not in PATH_PHASES and by_phase[name]:
             raise RuntimeError(f"{name} launched the step kernel "
                                f"{by_phase[name]} times")
+    if not sum(by_phase.values()):
+        raise RuntimeError("the main path never launched the step kernel")
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{

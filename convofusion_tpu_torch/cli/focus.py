@@ -11,28 +11,53 @@ draws what ``random.seed(s); random.sample`` draws in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import random
+import threading
 from typing import List, Optional
 
 _STOP = set("the a an and or of to in is are was were be been i you he she "
             "it we they this that with for on at by from as but not".split())
 
 
+@functools.lru_cache(maxsize=None)
+def _nltk_tagger():
+    """nltk's ``(word_tokenize, pos_tag)``, or None where nltk or its data
+    is missing.  Probed once, on a thread of its own: nltk's first import
+    leaves cyclic garbage that holds the importing frames, and on the
+    caller's thread those would keep every caller's locals (a model among
+    them) until the garbage collector runs."""
+    found = []
+
+    def probe():
+        try:
+            import nltk
+            from nltk.tokenize import word_tokenize
+
+            nltk.pos_tag(word_tokenize("a probe"))
+            found.append((word_tokenize, nltk.pos_tag))
+        except (ImportError, LookupError):
+            pass
+
+    th = threading.Thread(target=probe, name="nltk-probe")
+    th.start()
+    th.join()
+    return found[0] if found else None
+
+
 def _pos_focus_words(text: str, rng: random.Random) -> List[str]:
     tokens = text.split()
-    try:
-        import nltk
-        from nltk.tokenize import word_tokenize
-
-        tt = word_tokenize(text)
-        tags = nltk.pos_tag(tt)
+    tagger = _nltk_tagger()
+    if tagger is None:
+        fwords = [w for w in tokens if w.lower() not in _STOP and len(w) > 3]
+    else:
+        word_tokenize, pos_tag = tagger
+        tokens = word_tokenize(text)
+        tags = pos_tag(tokens)
         fwords = [w for w, t in tags if "JJ" in t or "RB" in t]
         if not fwords:
             fwords = [w for w, t in tags
                       if "NN" in t or "VB" in t or "IN" in t]
-        tokens = tt
-    except (ImportError, LookupError):
-        fwords = [w for w in tokens if w.lower() not in _STOP and len(w) > 3]
     if not fwords:
         return []
     if len(fwords) > 3:

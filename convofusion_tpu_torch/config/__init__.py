@@ -11,10 +11,20 @@ Sub-dicts are the constructor arguments of the port's modules;
 ``weg_parameters``, ``serve`` and ``fps`` are read by the sampler, the
 service and the long-form rollout, ``train`` by the training losses and
 the trainer.
+
+The YAML side is a copy of ``convofusion_tpu/config/__init__.py:44-138``
+(``ablation_flag``, ``get_module_config``, ``load_config``, ``parse_args``)
+over copies of its ``defaults/**.yaml`` files and of ``config/omega.py``;
+``from_cfg`` maps a merged config onto the dicts above and ``tiny_config``
+is ``convofusion_tpu/config/testing.py:10-36`` (``config/from_yaml.py``).
 """
 from __future__ import annotations
 
 import copy
+import os
+from argparse import ArgumentParser
+
+from convofusion_tpu_torch.config.omega import DictConfig, OmegaConf
 
 # the BEAT/DnD skeleton's (parent, child) bones: assets.yaml:12
 BONES = (
@@ -200,3 +210,100 @@ def _tiny():
 
 TINY = _tiny()
 TINY_VAE = _with_train(TINY, TRAIN_VAE)
+
+
+# ------------------------------------------------------------- YAML configs
+DEFAULTS_DIR = os.path.join(os.path.dirname(__file__), "defaults")
+
+
+def ablation_flag(cfg, key: str, default: str = "no") -> str:
+    """Read a TRAIN.ABLATION string flag, normalizing the YAML-1.1 footgun.
+
+    The flags' most natural spelling is the bare word ``no``, which YAML 1.1
+    parses as boolean False; ``str(False)`` is ``"False"``, which silently
+    flips `== "no"` gates the wrong way.  Map False back to ``"no"`` (and
+    True to ``"yes"``) before stringifying
+    (convofusion_tpu/config/__init__.py:44-60)."""
+    try:
+        v = cfg.TRAIN.ABLATION.get(key, default)
+    except (KeyError, AttributeError):
+        v = default
+    if v is False:
+        return "no"
+    if v is True:
+        return "yes"
+    return str(v)
+
+
+def get_module_config(cfg_model, modules_dir: str) -> DictConfig:
+    """Merge every ``modules/*.yaml`` into ``cfg_model``, in name order."""
+    for fname in sorted(os.listdir(modules_dir)):
+        if fname.endswith(".yaml"):
+            cfg_model.merge_with(
+                OmegaConf.load(os.path.join(modules_dir, fname)))
+    return cfg_model
+
+
+def load_config(
+    cfg_path: str,
+    assets_path: str | None = None,
+    modules_dir: str | None = None,
+    base_path: str | None = None,
+    overrides: list[str] | None = None,
+    phase: str = "train",
+) -> DictConfig:
+    """The 4-way merge base.yaml <- experiment yaml <- modules/*.yaml <-
+    assets.yaml, then dotlist ``overrides``
+    (convofusion_tpu/config/__init__.py:88-114)."""
+    base_path = base_path or os.path.join(DEFAULTS_DIR, "base.yaml")
+    assets_path = assets_path or os.path.join(DEFAULTS_DIR, "assets.yaml")
+    modules_dir = modules_dir or os.path.join(DEFAULTS_DIR, "modules")
+
+    cfg_exp = OmegaConf.merge(
+        OmegaConf.load(base_path), OmegaConf.load(cfg_path))
+    cfg_model = get_module_config(cfg_exp.model, modules_dir)
+    cfg = OmegaConf.merge(cfg_exp, cfg_model, OmegaConf.load(assets_path))
+    if overrides:
+        cfg = OmegaConf.merge(cfg, OmegaConf.from_dotlist(overrides))
+
+    if phase == "test":
+        cfg.DEBUG = False
+        cfg.DEVICE = [0]
+    if cfg.get("DEBUG"):
+        cfg.NAME = "debug--" + str(cfg.NAME)
+        cfg.LOGGER.VAL_EVERY_STEPS = 1
+    return cfg
+
+
+def parse_args(phase: str = "train", argv=None) -> DictConfig:
+    """``--cfg``, ``--cfg_assets``, ``--batch_size``, ``--nodebug``,
+    ``--dir`` and dotlist overrides (convofusion_tpu/config/__init__.py:
+    117-138)."""
+    parser = ArgumentParser()
+    parser.add_argument("--cfg", type=str,
+                        default=os.path.join(DEFAULTS_DIR,
+                                             "config_cf_beatdnd.yaml"))
+    parser.add_argument("--cfg_assets", type=str, default=None)
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--nodebug", action="store_true")
+    parser.add_argument("--dir", type=str, default=None)
+    parser.add_argument("overrides", nargs="*",
+                        help="dotlist overrides key=value")
+    params = parser.parse_args(argv)
+
+    cfg = load_config(params.cfg, params.cfg_assets,
+                      overrides=params.overrides, phase=phase)
+    if params.batch_size:
+        cfg.TRAIN.BATCH_SIZE = params.batch_size
+    if params.nodebug:
+        cfg.DEBUG = False
+    if params.dir:
+        cfg.TEST.TEST_DIR = params.dir
+    return cfg
+
+
+# the merged config -> the dicts above (imports the names defined here)
+from convofusion_tpu_torch.config.from_yaml import (  # noqa: E402
+    from_cfg,
+    tiny_config,
+)

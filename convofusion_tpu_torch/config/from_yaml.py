@@ -1,0 +1,315 @@
+"""A merged YAML config mapped onto the port's config dict, and the tiny
+test config.
+
+``from_cfg`` reads every key the JAX model reads
+(``convofusion_tpu/models/convofusion.py:60-183``, ``models/factory.py:
+46-179``, ``train/trainer.py:43-77``, ``serving.py:469-532``) and returns a
+dict shaped like ``config.PRODUCTION``.  A knob the port does not implement
+raises ``NotImplementedError`` naming its key; none is ignored.  Keys the
+JAX model never reads (``TRAIN.ABLATION.PE_TYPE``, ``LOSS.LAMBDA_CROSS``,
+the dataset roots, ...) are not read here either.
+
+``tiny_config`` is ``convofusion_tpu/config/testing.py:10-36`` over the
+port's loader.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+from convofusion_tpu_torch.config import (
+    DEFAULTS_DIR,
+    _OPTIM_DEFAULTS,
+    ablation_flag,
+    load_config,
+)
+
+
+def _unsupported(key: str, value, why: str = "") -> NotImplementedError:
+    return NotImplementedError(
+        f"{key}={value!r} is not ported{': ' + why if why else ''} "
+        f"(ROADMAP Queue 1, remaining features)")
+
+
+def _params(block) -> Dict:
+    """A module block's ``params`` as a plain dict (interpolations
+    resolved)."""
+    params = block.get("params", {}) if block is not None else {}
+    return params.to_container() if hasattr(params, "to_container") \
+        else dict(params)
+
+
+def _check_transformer(name: str, params: Dict, arch: str) -> None:
+    """Knobs of the VAE and the denoiser the port builds one way only."""
+    if str(params.get("arch", arch)) != arch:
+        raise _unsupported(f"model.{name}.params.arch", params["arch"])
+    pe = params.get("position_embedding", "sine")
+    if str(pe) != "sine":
+        raise _unsupported(f"model.{name}.params.position_embedding", pe,
+                           "learned or other position embeddings")
+    if not bool(params.get("normalize_before", True)):
+        raise _unsupported(f"model.{name}.params.normalize_before", False,
+                           "post-norm layers")
+    if "compute_dtype" in params:
+        raise _unsupported(f"model.{name}.params.compute_dtype",
+                           params["compute_dtype"],
+                           "pass dtype= to the port's entry point")
+
+
+def _transformer(params: Dict, keys) -> Dict:
+    return {k: params[k] for k in keys}
+
+
+def _scheduler(block, predict_epsilon: bool, key: str,
+               with_inference: bool) -> Dict:
+    """A scheduler block: ``variant`` from the block or its params (JAX
+    :156-167), ``variance_type`` fixed_small only (factory.py:176-179)."""
+    params = _params(block)
+    vt = params.pop("variance_type", "fixed_small")
+    if vt != "fixed_small":
+        raise _unsupported(f"model.{key}.params.variance_type", vt)
+    pt = params.pop("prediction_type", None)
+    if pt is not None and pt != ("epsilon" if predict_epsilon else "sample"):
+        raise _unsupported(f"model.{key}.params.prediction_type", pt,
+                           "it follows TRAIN.ABLATION.PREDICT_EPSILON")
+    variant = block.get("variant", params.pop("variant", "ddpm"))
+    unknown = set(params) - {"num_train_timesteps", "beta_start", "beta_end",
+                             "beta_schedule", "clip_sample"}
+    if unknown:
+        raise _unsupported(f"model.{key}.params", sorted(unknown))
+    out = {
+        "num_train_timesteps": int(params.get("num_train_timesteps", 1000)),
+        "beta_start": float(params.get("beta_start", 0.00085)),
+        "beta_end": float(params.get("beta_end", 0.012)),
+        "beta_schedule": str(params.get("beta_schedule", "scaled_linear")),
+        "clip_sample": bool(params.get("clip_sample", True)),
+    }
+    if with_inference:
+        out = {"variant": str(variant), "eta": float(block.get("eta", 0.0)),
+               "num_inference_timesteps": int(
+                   block.get("num_inference_timesteps", 1000)), **out}
+    elif str(variant) != "ddpm":
+        raise _unsupported(f"model.{key}.variant", variant,
+                           "the training scheduler is DDPM")
+    return out
+
+
+def _check_tpu(cfg) -> None:
+    """The ``TPU`` block's knobs beyond TEXT_PAD_LEN (base.yaml:115-125,
+    convofusion.py:149-182)."""
+    tpu = cfg.get("TPU", {})
+    if bool(tpu.get("REMAT", False)):
+        raise _unsupported("TPU.REMAT", True, "per-layer rematerialisation")
+    if not bool(tpu.get("PALLAS_STEP", True)):
+        raise _unsupported("TPU.PALLAS_STEP", False,
+                           "the port always runs its fused step kernel")
+    if int(tpu.get("SCAN_UNROLL", 1)) != 1:
+        raise _unsupported("TPU.SCAN_UNROLL", tpu.get("SCAN_UNROLL"))
+    mesh = tpu.get("MESH", {})
+    if int(mesh.get("MODEL", 1)) != 1:
+        raise _unsupported("TPU.MESH.MODEL", mesh.get("MODEL"),
+                           "tensor parallelism")
+
+
+def _train(cfg, vae_params: Dict, ds) -> Dict:
+    """``train``: TRAIN.BATCH_SIZE, TRAIN.OPTIM (trainer.py:43-77), the LOSS
+    weights (convofusion.py:302-304,524-527), the Laplace filter size and
+    the dataset's bones."""
+    optim = cfg.TRAIN.OPTIM
+    loss = cfg.LOSS
+    try:
+        bones = tuple(tuple(int(j) for j in b) for b in ds.BONES)
+    except (KeyError, AttributeError):
+        bones = None
+    return {
+        "batch_size": int(cfg.TRAIN.BATCH_SIZE),
+        "optim": {
+            "type": str(optim.TYPE).lower(),
+            "weight_decay": float(optim.get(
+                "WEIGHT_DECAY", _OPTIM_DEFAULTS["weight_decay"])),
+            "schedule": str(optim.get("SCHEDULE", "constant")).lower(),
+            "warmup_steps": int(optim.get("WARMUP_STEPS", 0)),
+            "decay_steps": int(optim.get("DECAY_STEPS", 10_000)),
+            "end_lr_factor": float(optim.get("END_LR_FACTOR", 0.0)),
+            "grad_clip": float(optim.get("GRAD_CLIP", 0.0)),
+            "lr": float(optim.LR),
+        },
+        "loss": {
+            "lambda_latent": float(loss.LAMBDA_LATENT),
+            "lambda_kl": float(loss.LAMBDA_KL),
+            "lambda_rec": float(loss.LAMBDA_REC),
+            "lambda_prior": float(loss.get("LAMBDA_PRIOR", 0.0)),
+            "lambda_guided_attention": float(
+                loss.get("LAMBDA_GUIDED_ATTENTION", 0.0)),
+            "lambda_bl": float(loss.get("LAMBDA_BL", 0.0)),
+        },
+        "laplace_kernel_size": int(vae_params.get("laplace_kernel_size", 0)),
+        "bones": bones,
+    }
+
+
+def _serve(cfg) -> Dict:
+    """The service's knobs as ``_serve_opt`` resolves them
+    (convofusion_tpu/serving.py:469-532)."""
+    serve = cfg.get("SERVE", {})
+
+    def opt(key, default):
+        return serve.get(key, default) if hasattr(serve, "get") else default
+
+    max_queue = int(opt("MAX_QUEUE", -1))
+    return {
+        "batch_size": int(opt("BATCH_SIZE", cfg.TEST.get("BATCH_SIZE", 8))),
+        "max_wait_ms": float(opt("MAX_WAIT_MS", 25.0)),
+        "max_queue": max_queue if max_queue >= 0 else None,
+        "seed": int(cfg.get("SEED_VALUE", 0)),
+        "weg_max_focus": 8,                 # serving.py:121, no config key
+        "host": str(opt("HOST", "127.0.0.1")),
+        "port": int(opt("PORT", 8476)),
+    }
+
+
+def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
+    """A merged config (``load_config``) as the port's config dict.
+
+    ``stage`` (default ``TRAIN.STAGE``) names the modules built: the knobs
+    of the denoiser and the encoders are checked unless it is 'vae', which
+    builds the VAE alone.  The compute dtype is not part of the dict: the
+    entry points take it."""
+    stage = str(stage or cfg.TRAIN.STAGE)
+    model = cfg.model
+    predict_epsilon = bool(cfg.TRAIN.ABLATION.PREDICT_EPSILON)
+
+    # the VAE type (convofusion.py:92-103): 'no' diffuses raw motion
+    vae_type = model.get("vae_type")
+    if vae_type is None:
+        try:
+            vae_type = cfg.TRAIN.ABLATION.get("VAE_TYPE")
+        except (KeyError, AttributeError):
+            pass
+    if vae_type is False or str(vae_type) == "no":
+        raise _unsupported("TRAIN.ABLATION.VAE_TYPE", "no",
+                           "diffusion on raw motion")
+    if bool(cfg.TRAIN.ABLATION.get("MLP_DIST", False)):
+        raise _unsupported("TRAIN.ABLATION.MLP_DIST", True)
+    _check_tpu(cfg)
+
+    vae = _params(model.motion_vae)
+    _check_transformer("motion_vae", vae, "encoder_decoder")
+    ds = cfg.DATASET[str(cfg.TRAIN.DATASETS[0]).upper()]
+    out = {
+        "latent_dim": [int(v) for v in model.latent_dim],
+        # serving injects the production geometry when no dataset filled
+        # it in (serving.py:497-499)
+        "nfeats": int(cfg.DATASET.get("NFEATS") or 189),
+        "max_len": int(cfg.DATASET.SAMPLER.MAX_LEN),
+        "text_pad_len": int(cfg.get("TPU", {}).get("TEXT_PAD_LEN", 64)),
+        "guidance_scale": float(model.guidance_scale),
+        "guidance_uncondp": float(model.guidance_uncondp),
+        "fps": int(ds.FPS),
+        "predict_epsilon": predict_epsilon,
+        "motion_vae": _transformer(vae, (
+            "arch", "ff_size", "num_layers", "num_heads", "normalize_before",
+            "activation", "position_embedding", "dropout")),
+    }
+
+    den = _params(model.denoiser)
+    te = _params(model.text_encoder)
+    ae = _params(model.audio_encoder)
+    if stage != "vae":
+        _check_transformer("denoiser", den, "trans_dec")
+        if bool(cfg.TRAIN.ABLATION.get("CAUSAL_ATTN", False)):
+            raise _unsupported("TRAIN.ABLATION.CAUSAL_ATTN", True,
+                               "the reference raises on it (factory.py:"
+                               "106-116)")
+        for key in ("fuse_streams", "remat"):
+            if bool(den.get(key, False)):
+                raise _unsupported(f"model.denoiser.params.{key}", True)
+        if str(den.get("condition", "text+audio")) != "text+audio":
+            raise _unsupported("model.condition", den["condition"],
+                               "only the five text+audio streams")
+        for key in ("finetune", "last_hidden_state"):
+            if bool(te.get(key, False)):
+                raise _unsupported(f"model.text_encoder.params.{key}", True)
+        if float(te.get("dropout", 0.0)) != 0.0:
+            raise _unsupported("model.text_encoder.params.dropout",
+                               te["dropout"], "the T5 trunk has no dropout")
+        # the audio MLP keeps the module's rate: the JAX factory passes none
+        # (factory.py:164-173)
+        if float(ae.get("dropout", 0.1)) != 0.1:
+            raise _unsupported("model.audio_encoder.params.dropout",
+                               ae["dropout"])
+        for name, params in (("text_encoder", te), ("audio_encoder", ae)):
+            if "compute_dtype" in params:
+                raise _unsupported(f"model.{name}.params.compute_dtype",
+                                   params["compute_dtype"],
+                                   "pass dtype= to the port's entry point")
+    # audioenc.audio_num_frames (convofusion_tpu/models/audioenc.py:14-17)
+    out["mel_frames"] = int(
+        (int(ae.get("max_seq_len", 128)) / int(ae.get("fps", 25)))
+        * int(ae.get("sample_rate", 16000))
+        // int(ae.get("hop_length", 512)) + 1)
+    out["denoiser"] = {
+        **_transformer(den, (
+            "text_encoded_dim", "ff_size", "num_layers", "num_heads",
+            "normalize_before", "activation", "flip_sin_to_cos",
+            "position_embedding", "dropout")),
+        "freq_shift": float(den.get("freq_shift", 0.0)),
+    }
+    # the t5-base dims are the factory's defaults (factory.py:141-161)
+    out["text_encoder"] = {
+        "latent_dim": int(te.get("latent_dim", 512)),
+        "vocab_size": int(te.get("vocab_size", 32128)),
+        "d_model": int(te.get("d_model", 768)),
+        "d_ff": int(te.get("d_ff", 3072)),
+        "num_layers": int(te.get("num_layers", 12)),
+        "num_heads": int(te.get("num_heads", 12)),
+        "d_kv": int(te.get("d_kv", 64)),
+    }
+    out["audio_encoder"] = {
+        "input_size": int(ae.get("input_size", 80)),
+        "hidden_size": int(ae.get("hidden_size", 256)),
+        "latent_dim": int(ae.get("latent_dim", 512)),
+        "dropout": 0.1,
+    }
+    out["scheduler"] = _scheduler(model.scheduler, predict_epsilon,
+                                  "scheduler", True)
+    out["noise_scheduler"] = _scheduler(model.noise_scheduler,
+                                        predict_epsilon, "noise_scheduler",
+                                        False)
+    out["weg_type"] = ablation_flag(cfg, "WEG_TYPE")
+    wp = model.get("weg_parameters", {})
+    out["weg_parameters"] = wp.to_container() if hasattr(
+        wp, "to_container") else dict(wp)
+    out["serve"] = _serve(cfg)
+    out["train"] = _train(cfg, vae, ds)
+    return out
+
+
+def tiny_config(stage: str = "diffusion", latent_dim: int = 32,
+                text_dim: int = 64, num_layers: int = 3,
+                text_pad_len: int = 16):
+    """Small-dimension merged config with the production topology
+    (convofusion_tpu/config/testing.py:10-36)."""
+    cfg_file = ("config_cf_beatdnd.yaml" if stage != "vae"
+                else "config_vae_beatdnd.yaml")
+    cfg = load_config(os.path.join(DEFAULTS_DIR, cfg_file))
+    cfg.TRAIN.STAGE = stage
+    cfg.DEBUG = False
+    cfg.model.latent_dim = [1, latent_dim]
+    cfg.DATASET.NFEATS = 189
+    cfg.DATASET.NJOINTS = 63
+    cfg.model.motion_vae.params.num_layers = num_layers
+    cfg.model.motion_vae.params.ff_size = 64
+    cfg.model.motion_vae.params.dropout = 0.0
+    cfg.model.denoiser.params.num_layers = num_layers
+    cfg.model.denoiser.params.ff_size = 64
+    cfg.model.denoiser.params.dropout = 0.0
+    cfg.model.denoiser.params.text_encoded_dim = text_dim
+    cfg.model.denoiser.params.audio_encoded_dim = text_dim
+    cfg.model.text_encoder.params.latent_dim = text_dim
+    cfg.model.audio_encoder.params.latent_dim = text_dim
+    for k, v in dict(d_model=32, d_ff=64, num_layers=2, num_heads=4,
+                     d_kv=8, vocab_size=1000).items():
+        cfg.model.text_encoder.params[k] = v
+    cfg.TPU.TEXT_PAD_LEN = text_pad_len
+    return cfg

@@ -15,8 +15,9 @@ carries a JAX parameter tree across.
 A training loss draws its randomness (the VAE's reparameterisation noise,
 the modality-dropout groups, the diffusion noise and timesteps) on the
 model's device from a ``torch.Generator``, or takes each from ``draws``;
-dropout masks come from PyTorch's default generator.  A step reads nothing
-back to the host.
+dropout masks come from the same generator (``ops/layers.dropout_generator``
+scopes it around the loss), so a step repeats from its generator's state.
+A step reads nothing back to the host.
 
 Per ``sample()``: the conditions are encoded once (T5 x2, the mel MLP and
 the fuser; the uncond branch at batch 1), then each of the N reverse steps
@@ -33,6 +34,8 @@ JAX's gate does.
 from __future__ import annotations
 
 import contextlib
+import functools
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -63,7 +66,7 @@ from convofusion_tpu_torch.models.vae import (
     ConvoFusionVae,
 )
 from convofusion_tpu_torch.ops.guided_step import guided_step
-from convofusion_tpu_torch.ops.layers import init_weights
+from convofusion_tpu_torch.ops.layers import dropout_generator, init_weights
 from convofusion_tpu_torch.ops.smoothing import (
     laplace_filter_time,
     laplacian_1d_kernel,
@@ -118,6 +121,19 @@ def _draw(draws: Optional[Dict], name: str, make, device):
             value = torch.from_numpy(np.array(value))
         return value.to(device)
     return make()
+
+
+def _masks_from_generator(loss):
+    """A training loss whose ``Dropout`` masks draw from its ``generator``
+    argument (JAX splits the dropout key off the step's key,
+    convofusion_tpu/models/convofusion.py:288-291,501-507)."""
+
+    @functools.wraps(loss)
+    def wrapped(self, batch, generator=None, draws=None):
+        with dropout_generator(generator):
+            return loss(self, batch, generator, draws)
+
+    return wrapped
 
 
 def uncond_melspec(shape, dtype=torch.float32, device=None):
@@ -319,6 +335,7 @@ class Convofusion(nn.Module):
         return (mu.transpose(0, 1).contiguous(),
                 logvar.transpose(0, 1).contiguous())
 
+    @_masks_from_generator
     def train_vae_loss(self, batch, generator: Optional[torch.Generator]
                        = None, draws: Optional[Dict] = None):
         """Stage-1 loss on ``batch['motion']`` (B, T, nfeats) (JAX
@@ -412,6 +429,7 @@ class Convofusion(nn.Module):
                                            batch["uncond_trunk"])
         return out
 
+    @_masks_from_generator
     def train_diffusion_loss(self, batch, generator: Optional[
             torch.Generator] = None, draws: Optional[Dict] = None):
         """Stage-2 loss (JAX :464-567) on a ``prepare_arrays`` batch, or on
@@ -717,17 +735,29 @@ class CachedSampler:
     geometry at batch 1.  The cache is keyed on the model's
     ``weights_version``, which ``load_state_dict`` bumps.  ``weg_params``
     overrides the model's WEG parameters in every call (the rollout's
-    constants).  (The JAX ``CachedSampler`` also caches compiled
+    constants).  The sampler holds its model by a weak reference: the
+    model keeps its samplers, and a strong reference back would be a cycle
+    that keeps a dropped model's weights on the card until the garbage
+    collector runs.  (The JAX ``CachedSampler`` also caches compiled
     executables; eager PyTorch has none.)"""
 
     def __init__(self, model: Convofusion,
                  num_inference_steps: Optional[int] = None,
                  weg_params: Optional[Dict] = None):
-        self.model = model
+        self._model = weakref.ref(model)
         self.num_inference_steps = num_inference_steps
         self.weg_params = weg_params
         self._uncond = {}
         self._version = None
+
+    @property
+    def model(self) -> Convofusion:
+        model = self._model()
+        if model is None:
+            raise RuntimeError("the CachedSampler's model was deleted: get "
+                               "a sampler from a live model's "
+                               "cached_sampler()")
+        return model
 
     def uncond_for(self, arrays):
         if self._version != self.model.weights_version:

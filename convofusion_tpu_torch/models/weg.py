@@ -13,9 +13,13 @@ on its sliced map.  The refinement is a Python loop with the JAX
 
 Only the latents carry a graph: ``value_and_grad`` differentiates the loss
 with ``torch.autograd.grad`` under ``torch.enable_grad``, inside callers
-that run under ``torch.no_grad``.  The gather's backward is a scatter-add,
-which uses atomics on CUDA, so gradients on the card are not
-bit-reproducible from run to run.
+that run under ``torch.no_grad``.  Every op on that graph has a
+deterministic backward on the card, so one request gives the same motion
+from run to run, as JAX's does: the column gathers are products with one-hot
+selection matrices (a gather's backward is a scatter-add with atomics), the
+reflect padding is a concatenation of flipped slices (``F.pad``'s reflect
+backward adds with atomics) and the 3x3 smoothing is nine weighted shifted
+slices (no cuDNN convolution, whose backward algorithm may not be).
 """
 from __future__ import annotations
 
@@ -30,6 +34,16 @@ from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
 _BIG_NEG = -1e9
 
 
+def select_columns(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``p[b, :, idx[b, k]]`` for p (B, Tq, Tk) and idx (B, K): a product
+    with the (B, Tk, K) one-hot selection matrix.  Each output sums one
+    value and zeros, so it equals the gather exactly, and its backward is a
+    second product, with no scatter-add."""
+    cols = torch.arange(p.shape[2], device=p.device)
+    onehot = idx.long()[:, None, :] == cols[None, :, None]
+    return torch.bmm(p, onehot.to(p.dtype))
+
+
 def sliced_reflect_smooth(p: torch.Tensor, eot_idx: torch.Tensor,
                           kernel_size: int = 3,
                           sigma: float = 0.5) -> torch.Tensor:
@@ -37,23 +51,28 @@ def sliced_reflect_smooth(p: torch.Tensor, eot_idx: torch.Tensor,
     reflect padding at the slice boundary.
 
     The reflect ring is one column each side of the slice (3x3 kernel):
-    column 2 is gathered into column 0 and column eot-2 into column eot,
-    the rows are reflect-padded, the columns zero-padded, and one valid
-    conv runs over the full map; columns outside [1, eot) are zeroed."""
-    b, tq, tk = p.shape
+    column 2 is selected into column 0 and column eot-2 into column eot,
+    the rows are reflect-padded, the columns zero-padded, and the kernel's
+    weighted shifted slices are summed over the full map; columns outside
+    [1, eot) are zeroed."""
+    _, tq, tk = p.shape
     j = torch.arange(tk, device=p.device)[None, :]
     eot = eot_idx[:, None].long()
     src = torch.where(j == 0, 2, torch.where(j == eot, eot - 2, j))
-    src = src.clamp(0, tk - 1)
-    p_ext = torch.gather(p, 2, src[:, None, :].expand(b, tq, tk))
-    k = torch.as_tensor(gaussian_kernel_2d(kernel_size, sigma),
-                        dtype=p.dtype, device=p.device)
+    p_ext = select_columns(p, src.clamp(0, tk - 1))
     pad = kernel_size // 2
-    x = F.pad(p_ext, (0, 0, pad, pad), mode="reflect")
-    x = F.pad(x, (pad, pad))
-    out = F.conv2d(x[:, None], k[None, None])[:, 0]
+    x = torch.cat([p_ext[:, 1:pad + 1].flip(1), p_ext,
+                   p_ext[:, tq - pad - 1:tq - 1].flip(1)], dim=1)
+    # the sum in fp32, rounded once, as a bf16 convolution accumulates
+    x = F.pad(x.float(), (pad, pad))
+    k = gaussian_kernel_2d(kernel_size, sigma)
+    out = None
+    for di in range(kernel_size):
+        for dj in range(kernel_size):
+            term = float(k[di, dj]) * x[:, di:di + tq, dj:dj + tk]
+            out = term if out is None else out + term
     region = (j >= 1) & (j < eot)
-    return out * region[:, None, :]
+    return out.to(p.dtype) * region[:, None, :]
 
 
 def aggregate_attentions(att_mats: torch.Tensor) -> torch.Tensor:
@@ -69,15 +88,14 @@ def max_attention_at_indices(att: torch.Tensor, focus_idx: torch.Tensor,
     columns; eot_idx (B,) index of the <eos> token.  Softmax over the
     [1, eot) region, optional smoothing, then the max over motion tokens
     at each focus column.  Returns (max_att (B, K), focus_valid)."""
-    b, tq, tk = att.shape
+    tk = att.shape[2]
     pos = torch.arange(tk, device=att.device)
     region = (pos[None, :] >= 1) & (pos[None, :] < eot_idx[:, None])
     p = torch.softmax(att.masked_fill(~region[:, None, :], _BIG_NEG), dim=-1)
     p = p * region[:, None, :]
     if smooth:
         p = sliced_reflect_smooth(p, eot_idx, kernel_size=3, sigma=0.5)
-    idx = focus_idx.long()
-    cols = torch.gather(p, 2, idx[:, None, :].expand(b, tq, idx.shape[1]))
+    cols = select_columns(p, focus_idx)
     # amax splits the gradient between tied maxima, as jnp.max does
     return cols.amax(dim=1), focus_valid
 

@@ -8,10 +8,14 @@ promotes a bf16 input against its fp32 scale and returns fp32
 (``convofusion_tpu/ops/transformer.py:291-302``).  Here a ``Linear`` or an
 ``nn.Embedding`` stores its weight in the compute dtype (rounding once what
 flax rounds at every use) and a ``LayerNorm`` keeps fp32 weights and
-computes and returns fp32.
+computes and returns fp32.  Dropout masks come from the generator that
+``dropout_generator`` scopes around a forward pass (the training losses set
+the step's generator).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -26,10 +30,32 @@ class Linear(nn.Linear):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
+# the generator dropout masks draw from, set by `dropout_generator` for the
+# extent of one forward pass (a context variable: per thread, and reset when
+# the block exits)
+_DROPOUT_GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
+    "dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(generator):
+    """Inside the block, every training :class:`Dropout` draws its mask from
+    ``generator`` (as JAX splits each step's dropout key off the step's
+    key, convofusion_tpu/train/trainer.py:159-161); None leaves the default
+    generator of the input's device."""
+    token = _DROPOUT_GENERATOR.set(generator)
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR.reset(token)
+
+
 class Dropout(nn.Module):
     """``nn.Dropout(rate)(x, deterministic=not training)``: the identity,
-    with no op launched, unless the module trains and ``p > 0``.  Masks
-    come from PyTorch's default generator of the input's device."""
+    with no op launched, unless the module trains and ``p > 0``.  The mask
+    is a Bernoulli(1 - p) draw from the generator of the enclosing
+    :func:`dropout_generator` block, and the kept values are scaled by
+    1 / (1 - p)."""
 
     def __init__(self, p: float = 0.0):
         super().__init__()
@@ -37,7 +63,10 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         if self.training and self.p > 0.0:
-            return F.dropout(x, self.p, True)
+            keep = 1.0 - self.p
+            mask = torch.empty_like(x).bernoulli_(
+                keep, generator=_DROPOUT_GENERATOR.get())
+            return (x * mask).mul_(1.0 / keep)
         return x
 
     def extra_repr(self) -> str:

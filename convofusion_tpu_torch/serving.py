@@ -12,7 +12,8 @@ Port of ``convofusion_tpu/serving.py:55-565``.
 * :func:`serve_http` wraps a service in a ``ThreadingHTTPServer``
   (``POST /generate``, ``GET /stats``, ``GET /healthz``).
 * :func:`build_service` and :func:`main` (``python -m
-  convofusion_tpu_torch.serving``) stand one up from a port config dict.
+  convofusion_tpu_torch.serving``) stand one up from a merged YAML config
+  or a port config dict, with a checkpoint's weights or random ones.
 
 The service is a three-stage pipeline with bounded queues between stages:
 
@@ -38,18 +39,30 @@ import copy
 import dataclasses
 import json
 import logging
+import os
 import queue
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from convofusion_tpu_torch.config import (
+    PRODUCTION,
+    TINY,
+    from_cfg,
+    load_config,
+)
 from convofusion_tpu_torch.models.convofusion import Convofusion, to_tensors
 from convofusion_tpu_torch.models.tokenizer import focus_word_indices
+from convofusion_tpu_torch.train.checkpoint import (
+    load_torch_full_model,
+    maybe_load_t5_assets,
+)
 
 
 def _resolve(fut: Future, value=None, exc=None) -> None:
@@ -418,79 +431,93 @@ def _copy_to_host(motion: torch.Tensor):
 
 
 # ------------------------------------------------------------------- HTTP
+class _Handler(BaseHTTPRequestHandler):
+    """The JSON endpoints of :func:`serve_http`.  The service is the
+    server's attribute, not a closure variable: a class made per call sits
+    in a reference cycle of its own, and through the closure it would hold
+    the service and its model's weights until the garbage collector ran."""
+
+    def _send(self, code: int, obj: Dict, headers=()) -> None:
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in headers:
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        if self.path == "/healthz":
+            self._send(200, {"ok": True})
+        elif self.path == "/stats":
+            self._send(200, self.server.service.stats())
+        else:
+            self._send(404, {"error": "not found"})
+
+    def do_POST(self):
+        if self.path != "/generate":
+            self._send(404, {"error": "not found"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            obj = json.loads(self.rfile.read(length) or b"{}")
+            req = GestureRequest.from_json(obj)
+            t0 = time.perf_counter()
+            motion = self.server.service.generate(req)
+            self._send(200, {
+                "motion": np.asarray(motion, np.float64).tolist(),
+                "latency_ms": (time.perf_counter() - t0) * 1e3,
+            })
+        except ServiceOverloaded as e:
+            # advise one batch window before retrying
+            self._send(503, {"error": str(e)}, [("Retry-After", "1")])
+        except ValueError as e:
+            self._send(400, {"error": str(e)})
+        except Exception as e:
+            self._send(500, {"error": repr(e)})
+
+    def log_message(self, *a):  # quiet by default
+        pass
+
+
 def serve_http(service: GestureService, host: str = "127.0.0.1",
-               port: int = 8476):
+               port: int = 8476) -> ThreadingHTTPServer:
     """Wrap a service in a stdlib JSON HTTP server (returns the server;
     call ``.serve_forever()`` or run it from a thread; ``.shutdown()`` to
     stop).  ``POST /generate`` with a :meth:`GestureRequest.from_json`
     body returns ``{"motion": [[...]], "latency_ms": t}``; an overloaded
     service answers 503 with ``Retry-After``."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-    class Handler(BaseHTTPRequestHandler):
-        def _send(self, code: int, obj: Dict, headers=()) -> None:
-            body = json.dumps(obj).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            for k, v in headers:
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(body)
-
-        def do_GET(self):
-            if self.path == "/healthz":
-                self._send(200, {"ok": True})
-            elif self.path == "/stats":
-                self._send(200, service.stats())
-            else:
-                self._send(404, {"error": "not found"})
-
-        def do_POST(self):
-            if self.path != "/generate":
-                self._send(404, {"error": "not found"})
-                return
-            try:
-                length = int(self.headers.get("Content-Length", "0"))
-                obj = json.loads(self.rfile.read(length) or b"{}")
-                req = GestureRequest.from_json(obj)
-                t0 = time.perf_counter()
-                motion = service.generate(req)
-                self._send(200, {
-                    "motion": np.asarray(motion, np.float64).tolist(),
-                    "latency_ms": (time.perf_counter() - t0) * 1e3,
-                })
-            except ServiceOverloaded as e:
-                # advise one batch window before retrying
-                self._send(503, {"error": str(e)}, [("Retry-After", "1")])
-            except ValueError as e:
-                self._send(400, {"error": str(e)})
-            except Exception as e:
-                self._send(500, {"error": repr(e)})
-
-        def log_message(self, *a):  # quiet by default
-            pass
-
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), _Handler)
+    server.service = service
+    return server
 
 
 # ------------------------------------------------------------------- CLI
-def build_service(cfg: Dict, dtype="float32", device=None,
+def build_service(cfg, dtype="float32", device=None,
                   checkpoint: Optional[str] = None) -> GestureService:
-    """A :class:`GestureService` from a port config dict
+    """A :class:`GestureService` from a merged YAML config (``config.
+    load_config``, mapped by ``config.from_cfg``) or a port config dict
     (``config.PRODUCTION`` or ``config.TINY``, possibly changed): the
     ``serve`` block's knobs, the scheduler's ``num_inference_timesteps`` as
     the step count, and WEG when ``weg_type`` is not ``'no'``
-    (convofusion_tpu/serving.py:480-532).  The weights are random, drawn
-    from the ``serve`` seed, which also seeds the service's generator.
-    ``device`` None means the card, and raises without one."""
-    if checkpoint:
-        raise NotImplementedError(
-            f"checkpoint {checkpoint!r}: loading checkpoints into the port "
-            f"is not ported yet (ROADMAP Queue 1 item 8)")
+    (convofusion_tpu/serving.py:480-532).  The weights are drawn from the
+    ``serve`` seed, which also seeds the service's generator; the T5 trunk
+    then comes from the asset drop where there is one, and everything from
+    ``checkpoint`` (a port or reference ``.ckpt``; a merged config's
+    ``TEST.CHECKPOINTS`` when not given, :500-519).  ``device`` None means
+    the card, and raises without one."""
+    if not isinstance(cfg, dict):
+        checkpoint = checkpoint or str(cfg.TEST.get("CHECKPOINTS", "") or "")
+        cfg = from_cfg(cfg, stage="diffusion")
+    if checkpoint and not os.path.isfile(checkpoint):
+        raise FileNotFoundError(f"checkpoint {checkpoint!r} not found")
     serve = cfg["serve"]
     seed = int(serve["seed"])
     model = Convofusion(cfg, dtype=dtype, device=device, seed=seed)
+    maybe_load_t5_assets(model)
+    if checkpoint:
+        load_torch_full_model(checkpoint, model)
     return GestureService(
         model, batch_size=int(serve["batch_size"]),
         max_wait_ms=float(serve["max_wait_ms"]),
@@ -500,11 +527,17 @@ def build_service(cfg: Dict, dtype="float32", device=None,
         max_queue=serve["max_queue"])
 
 
-def _config(args) -> Dict:
-    from convofusion_tpu_torch.config import PRODUCTION, TINY
-
-    cfg = copy.deepcopy(PRODUCTION if args.geometry == "production"
-                        else TINY)
+def _config(args):
+    """The port config dict of the CLI's arguments, and the checkpoint."""
+    checkpoint = args.checkpoint
+    if args.cfg:
+        merged = load_config(args.cfg, args.cfg_assets,
+                             overrides=args.overrides, phase="test")
+        checkpoint = checkpoint or str(
+            merged.TEST.get("CHECKPOINTS", "") or "")
+        cfg = from_cfg(merged, stage="diffusion")
+    else:
+        cfg = copy.deepcopy(PRODUCTION if args.geometry != "tiny" else TINY)
     serve = cfg["serve"]
     for key in ("batch_size", "max_wait_ms", "host", "port"):
         if getattr(args, key) is not None:
@@ -516,19 +549,26 @@ def _config(args) -> Dict:
         cfg["scheduler"]["num_inference_timesteps"] = args.steps
     if args.weg is not None:
         cfg["weg_type"] = "semantic" if args.weg == "on" else "no"
-    return cfg
+    return cfg, checkpoint
 
 
 def main(argv=None):
-    """``python -m convofusion_tpu_torch.serving [--geometry tiny --device
-    cpu ...]``: the micro-batching service behind the JSON HTTP endpoint
-    (``POST /generate``, ``GET /stats``, ``GET /healthz``), until
-    interrupted."""
+    """``python -m convofusion_tpu_torch.serving [--cfg <yaml> [key=value
+    ...] | --geometry tiny] [--device cpu --checkpoint <ckpt> ...]``: the
+    micro-batching service behind the JSON HTTP endpoint (``POST
+    /generate``, ``GET /stats``, ``GET /healthz``), until interrupted.  The
+    flags override the config's ``SERVE`` block and step count."""
     p = argparse.ArgumentParser(
         prog="python -m convofusion_tpu_torch.serving",
-        description="Serve gesture generation over HTTP (random weights).")
+        description="Serve gesture generation over HTTP.")
+    p.add_argument("--cfg", help="experiment YAML, merged as "
+                                 "convofusion_tpu.serving --cfg merges it")
+    p.add_argument("--cfg_assets", help="assets YAML (with --cfg)")
+    p.add_argument("overrides", nargs="*",
+                   help="dotlist overrides key=value (with --cfg)")
     p.add_argument("--geometry", choices=("production", "tiny"),
-                   default="production")
+                   help="a built-in config instead of --cfg (default "
+                        "production)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32")
     p.add_argument("--device", default=None,
@@ -543,17 +583,25 @@ def main(argv=None):
                    help="word-excitation guidance (default: the config's)")
     p.add_argument("--host")
     p.add_argument("--port", type=int, help="0 picks a free port")
-    p.add_argument("--checkpoint", help="not ported yet: raises")
-    args = p.parse_args(argv)
-    cfg = _config(args)
-    service = build_service(cfg, args.dtype, args.device, args.checkpoint)
+    p.add_argument("--checkpoint",
+                   help="a port or reference .ckpt (default: the config's "
+                        "TEST.CHECKPOINTS; else random weights)")
+    args = p.parse_intermixed_args(argv)
+    if args.cfg and args.geometry:
+        p.error("--cfg and --geometry exclude each other")
+    if not args.cfg and (args.overrides or args.cfg_assets):
+        p.error("overrides and --cfg_assets need --cfg")
+    cfg, checkpoint = _config(args)
+    service = build_service(cfg, args.dtype, args.device, checkpoint)
     server = serve_http(service, host=str(cfg["serve"]["host"]),
                         port=int(cfg["serve"]["port"]))
     host, port = server.server_address[:2]
-    print(f"serving on http://{host}:{port} ({args.geometry}, random "
-          f"weights, {args.dtype} on {service.model.device}, batch="
-          f"{service.batch_size}, wait={service.max_wait * 1e3:.0f}ms, "
-          f"weg={service.weg})", flush=True)
+    print(f"serving on http://{host}:{port} ("
+          f"{args.cfg or args.geometry or 'production'}, "
+          f"{checkpoint or 'random weights'}, {args.dtype} on "
+          f"{service.model.device}, batch={service.batch_size}, "
+          f"wait={service.max_wait * 1e3:.0f}ms, weg={service.weg})",
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

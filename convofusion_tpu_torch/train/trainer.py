@@ -166,9 +166,50 @@ class Trainer:
         self.cfg = model.cfg if cfg is None else cfg
         self.stage = model.stage
         self.optimizer = make_optimizer(self.cfg)
-        self.params = [p for _, p in trainable_parameters(model, self.stage)]
+        named = trainable_parameters(model, self.stage)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.masters: Optional[List[torch.Tensor]] = None
         self.state: Optional[AdamWState] = None
+
+    def state_dict(self) -> Dict:
+        """The optimizer's state by parameter name: the fp32 masters, the
+        moments ``mu`` and ``nu``, and the step ``count``."""
+        if self.state is None:
+            raise RuntimeError("no optimizer state yet: call init_state()")
+        return {"masters": dict(zip(self.names, self.masters)),
+                "mu": dict(zip(self.names, self.state.mu)),
+                "nu": dict(zip(self.names, self.state.nu)),
+                "count": self.state.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s output: the masters, the moments and
+        the count, then the model's lower-precision weights rounded from the
+        masters.  Raises ``KeyError`` or ``ValueError``, and changes
+        nothing, when the names or shapes differ from this trainer's."""
+        for part in ("masters", "mu", "nu"):
+            got = set(state[part])
+            if got != set(self.names):
+                raise KeyError(
+                    f"trainer state '{part}' names differ: "
+                    f"{sorted(got ^ set(self.names))[:4]}")
+            for n, p in zip(self.names, self.params):
+                if tuple(state[part][n].shape) != tuple(p.shape):
+                    raise ValueError(f"trainer state '{part}' {n}: shape "
+                                     f"{tuple(state[part][n].shape)}, the "
+                                     f"parameter's {tuple(p.shape)}")
+        if self.state is None:
+            self.init_state()
+        with torch.no_grad():
+            for part, dst in (("masters", self.masters),
+                              ("mu", self.state.mu), ("nu", self.state.nu)):
+                torch._foreach_copy_(dst, [state[part][n].to(d.device)
+                                           for n, d in zip(self.names, dst)])
+            if self._lowp:
+                torch._foreach_copy_([p for p, _ in self._lowp],
+                                     [m for _, m in self._lowp])
+        self.state.count = int(state["count"])
+        self.model.weights_version += 1
 
     def loss_fn(self):
         m = self.model

@@ -1,0 +1,188 @@
+"""The port's YAML config system against the JAX package's.
+
+- the nine YAML copies are byte-equal to their sources;
+- the port's ``load_config`` / ``tiny_config`` give the containers of
+  ``convofusion_tpu.config`` (whose config modules import no JAX) on the
+  same files and overrides;
+- ``from_cfg`` of the experiment files equals ``config.PRODUCTION`` /
+  ``PRODUCTION_VAE`` / ``TINY`` / ``TINY_VAE``, the dicts whose comments
+  cite the same YAML lines; the exceptions are named in each test;
+- ``ablation_flag`` maps YAML's bare ``no`` (boolean False) to ``'no'``;
+- a knob the port does not implement raises and names its key.
+No JAX model is built: the comparisons are of config containers.
+"""
+import copy
+import os
+
+import pytest
+
+from convofusion_tpu import config as jax_config
+from convofusion_tpu.config import testing as jax_testing
+from convofusion_tpu_torch import config as C
+
+EXPERIMENTS = ("config_cf_beatdnd.yaml", "config_vae_beatdnd.yaml")
+YAMLS = ("base.yaml", "assets.yaml") + EXPERIMENTS + tuple(
+    f"modules/{m}.yaml" for m in ("audio_encoder", "denoiser", "motion_vae",
+                                  "scheduler", "text_encoder"))
+DDIM_50 = ["model.scheduler.variant=ddim",
+           "model.scheduler.num_inference_timesteps=50"]
+
+
+def _load(name, overrides=None, **kw):
+    return C.load_config(os.path.join(C.DEFAULTS_DIR, name),
+                         overrides=overrides, **kw)
+
+
+@pytest.mark.parametrize("rel", YAMLS)
+def test_yaml_copies_are_byte_equal(rel):
+    with open(os.path.join(jax_config.DEFAULTS_DIR, rel), "rb") as f:
+        want = f.read()
+    with open(os.path.join(C.DEFAULTS_DIR, rel), "rb") as f:
+        assert f.read() == want
+
+
+def test_the_copies_are_every_yaml_of_the_source():
+    found = sorted(os.path.relpath(os.path.join(d, f), jax_config.DEFAULTS_DIR)
+                   for d, _, files in os.walk(jax_config.DEFAULTS_DIR)
+                   for f in files if f.endswith(".yaml"))
+    assert found == sorted(YAMLS)
+
+
+@pytest.mark.parametrize("name", EXPERIMENTS)
+@pytest.mark.parametrize("overrides,phase", [
+    (None, "train"),
+    (DDIM_50 + ["TEST.CHECKPOINTS=/x/epoch=3.ckpt", "SERVE.PORT=0",
+                "TRAIN.ABLATION.WEG_TYPE=no", "DEBUG=true"], "test"),
+    (["DEBUG=true", "model.weg_parameters.thresholds.0=0.5"], "train"),
+])
+def test_load_config_matches_jax(name, overrides, phase):
+    path = os.path.join(C.DEFAULTS_DIR, name)
+    got = C.load_config(path, overrides=overrides, phase=phase)
+    want = jax_config.load_config(path, overrides=overrides, phase=phase)
+    assert got.to_container() == want.to_container()
+    assert got.to_container(resolve=False) == want.to_container(resolve=False)
+
+
+@pytest.mark.parametrize("stage", ["diffusion", "vae"])
+def test_tiny_config_matches_jax(stage):
+    assert (C.tiny_config(stage).to_container()
+            == jax_testing.tiny_config(stage).to_container())
+
+
+def test_parse_args_matches_jax():
+    argv = ["--cfg", os.path.join(C.DEFAULTS_DIR, EXPERIMENTS[1]),
+            "--batch_size", "8", "--nodebug", "--dir", "out",
+            "LOSS.LAMBDA_KL=0.5"]
+    got = C.parse_args("test", argv)
+    assert got.to_container() == jax_config.parse_args(
+        "test", argv).to_container()
+    assert got.TRAIN.BATCH_SIZE == 8 and got.LOSS.LAMBDA_KL == 0.5
+
+
+def _without(cfg, *keys):
+    cfg = copy.deepcopy(cfg)
+    for k in keys:
+        block, _, key = k.partition(".")
+        if key:
+            del cfg[block][key]
+        else:
+            del cfg[block]
+    return cfg
+
+
+def test_from_cfg_is_production():
+    """The YAML's scheduler is DDPM-1000 (modules/scheduler.yaml:1-11);
+    PRODUCTION takes bench.py's DDIM-50, which the overrides give."""
+    got = C.from_cfg(_load(EXPERIMENTS[0]))
+    assert got["scheduler"]["variant"] == "ddpm"
+    assert got["scheduler"]["num_inference_timesteps"] == 1000
+    keys = ("scheduler.variant", "scheduler.num_inference_timesteps")
+    assert _without(got, *keys) == _without(C.PRODUCTION, *keys)
+    assert C.from_cfg(_load(EXPERIMENTS[0], DDIM_50)) == C.PRODUCTION
+
+
+def test_from_cfg_is_production_vae():
+    """Stage 1: PRODUCTION_VAE copies PRODUCTION's stage-2 sampling keys,
+    the stage-1 experiment leaves WEG_TYPE at base.yaml's 'no'
+    (a flag that stage never reads)."""
+    got = C.from_cfg(_load(EXPERIMENTS[1], DDIM_50))
+    assert got["weg_type"] == "no"
+    assert _without(got, "weg_type") == _without(C.PRODUCTION_VAE,
+                                                  "weg_type")
+    assert got["train"] == C.TRAIN_VAE
+
+
+@pytest.mark.parametrize("stage,want", [("diffusion", C.TINY),
+                                        ("vae", C.TINY_VAE)])
+def test_from_cfg_of_tiny_config_is_tiny(stage, want):
+    """TINY turns WEG off; tiny_config keeps the stage-2 experiment's
+    'semantic' (the stage-1 one has base.yaml's 'no')."""
+    got = C.from_cfg(C.tiny_config(stage))
+    assert got["weg_type"] == ("semantic" if stage == "diffusion" else "no")
+    assert _without(got, "weg_type") == _without(want, "weg_type")
+
+
+def test_ablation_flag_maps_yaml_no():
+    cfg = C.OmegaConf.create({"TRAIN": {"ABLATION": {"WEG_TYPE": False,
+                                                     "OTHER": True}}})
+    assert C.ablation_flag(cfg, "WEG_TYPE") == "no"
+    assert C.ablation_flag(cfg, "OTHER") == "yes"
+    assert C.ablation_flag(cfg, "MISSING") == "no"
+    loaded = C.OmegaConf.from_dotlist(["TRAIN.ABLATION.WEG_TYPE=no"])
+    assert loaded.TRAIN.ABLATION.WEG_TYPE is False      # the YAML-1.1 trap
+    assert C.ablation_flag(loaded, "WEG_TYPE") == "no"
+    got = C.from_cfg(_load(EXPERIMENTS[0], ["TRAIN.ABLATION.WEG_TYPE=no"]))
+    assert got["weg_type"] == "no"
+
+
+def test_serve_block_and_optimizer_knobs():
+    got = C.from_cfg(_load(EXPERIMENTS[0], [
+        "SERVE.BATCH_SIZE=4", "SERVE.MAX_WAIT_MS=7", "SERVE.MAX_QUEUE=0",
+        "SERVE.HOST=0.0.0.0", "SERVE.PORT=9", "SEED_VALUE=5",
+        "TRAIN.OPTIM.SCHEDULE=cosine", "TRAIN.OPTIM.WARMUP_STEPS=3",
+        "TRAIN.OPTIM.GRAD_CLIP=1.0", "LOSS.LAMBDA_PRIOR=0.5",
+        "TPU.TEXT_PAD_LEN=32", "DATASET.NFEATS=0"]))
+    assert got["serve"] == {"batch_size": 4, "max_wait_ms": 7.0,
+                            "max_queue": 0, "seed": 5, "weg_max_focus": 8,
+                            "host": "0.0.0.0", "port": 9}
+    assert got["train"]["optim"]["schedule"] == "cosine"
+    assert got["train"]["optim"]["warmup_steps"] == 3
+    assert got["train"]["optim"]["grad_clip"] == 1.0
+    assert got["train"]["loss"]["lambda_prior"] == 0.5
+    assert got["text_pad_len"] == 32
+    assert got["nfeats"] == 189       # serving's default (serving.py:497)
+
+
+@pytest.mark.parametrize("override,key", [
+    ("TRAIN.ABLATION.VAE_TYPE=no", "VAE_TYPE"),
+    ("TRAIN.ABLATION.MLP_DIST=true", "MLP_DIST"),
+    ("TRAIN.ABLATION.CAUSAL_ATTN=true", "CAUSAL_ATTN"),
+    ("model.motion_vae.params.position_embedding=learned",
+     "motion_vae.params.position_embedding"),
+    ("model.denoiser.params.position_embedding=learned",
+     "denoiser.params.position_embedding"),
+    ("model.denoiser.params.normalize_before=false", "normalize_before"),
+    ("model.motion_vae.params.arch=all_encoder", "motion_vae.params.arch"),
+    ("model.denoiser.params.arch=trans_enc", "denoiser.params.arch"),
+    ("model.denoiser.params.fuse_streams=true", "fuse_streams"),
+    ("TPU.REMAT=true", "TPU.REMAT"),
+    ("TPU.MESH.MODEL=2", "TPU.MESH.MODEL"),
+    ("model.condition=text", "model.condition"),
+    ("model.scheduler.params.variance_type=fixed_large", "variance_type"),
+    ("model.text_encoder.params.finetune=true", "finetune"),
+])
+def test_unsupported_knob_raises(override, key):
+    with pytest.raises(NotImplementedError, match=key):
+        C.from_cfg(_load(EXPERIMENTS[0], [override]))
+
+
+def test_stage_one_skips_the_denoiser_knobs():
+    """A stage-1 config builds the VAE alone: the denoiser's knobs are not
+    its business; the VAE's still are."""
+    cfg = _load(EXPERIMENTS[1], ["model.denoiser.params.fuse_streams=true"])
+    assert C.from_cfg(cfg)["motion_vae"] == C.PRODUCTION_VAE["motion_vae"]
+    with pytest.raises(NotImplementedError, match="normalize_before"):
+        C.from_cfg(_load(EXPERIMENTS[1], [
+            "model.motion_vae.params.normalize_before=false"]))
+    with pytest.raises(NotImplementedError, match="fuse_streams"):
+        C.from_cfg(cfg, stage="diffusion")

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from convofusion_tpu_torch.config import TINY
+from convofusion_tpu_torch.config import TINY, from_cfg, tiny_config
+from convofusion_tpu_torch.config.omega import OmegaConf
 from convofusion_tpu_torch.models.convofusion import Convofusion, to_tensors
 from convofusion_tpu_torch.serving import (
     GestureRequest,
@@ -28,10 +29,22 @@ from convofusion_tpu_torch.serving import (
     build_service,
     serve_http,
 )
+from convofusion_tpu_torch.train.checkpoint import TRUNK, save_checkpoint
 
 STEPS = 3
 WAIT = 120          # seconds, any single blocking wait
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """This file's tiny shapes on one intra-op thread: beside the other
+    test workers, OpenMP teams as wide as the machine wait on each other,
+    and these steps took ~50x longer than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -378,8 +391,8 @@ def _tiny_cfg(**serve):
 
 def test_build_service_from_config():
     """build_service wires the serve block, the step count and the WEG
-    flag; a checkpoint raises and names the queue item; with no device it
-    wants the card."""
+    flag; a checkpoint that is not there raises and names it; with no
+    device it wants the card."""
     svc = build_service(_tiny_cfg(batch_size=2, max_wait_ms=30.0),
                         device="cpu")
     try:
@@ -390,7 +403,7 @@ def test_build_service_from_config():
         _check_motion(svc.generate(_req(0), timeout=WAIT))
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(FileNotFoundError, match="model.ckpt"):
         build_service(_tiny_cfg(), device="cpu", checkpoint="model.ckpt")
     if torch.cuda.is_available():
         return      # the default device exists here
@@ -401,7 +414,7 @@ def test_build_service_from_config():
 def test_cli_serves_http():
     """python -m convofusion_tpu_torch.serving on the CPU: it prints where
     it listens, answers POST /generate and GET /stats, and exits 0 on
-    SIGINT; a checkpoint argument makes it fail."""
+    SIGINT; a checkpoint that is not there makes it fail."""
     cmd = [sys.executable, "-m", "convofusion_tpu_torch.serving",
            "--geometry", "tiny", "--device", "cpu", "--steps", "2",
            "--batch-size", "1", "--weg", "on", "--port", "0"]
@@ -435,4 +448,97 @@ def test_cli_serves_http():
                          env=env, capture_output=True, text=True,
                          timeout=WAIT)
     assert res.returncode != 0
-    assert "Queue 1 item 8" in res.stderr
+    assert "model.ckpt" in res.stderr and "not found" in res.stderr
+
+
+def _tiny_merged(**overrides):
+    """tiny_config('diffusion') at STEPS DDIM steps, WEG as the experiment
+    file has it ('semantic'), plus dotlist ``overrides``."""
+    cfg = tiny_config("diffusion")
+    extra = {"model.scheduler.variant": "ddim",
+             "model.scheduler.num_inference_timesteps": STEPS, **overrides}
+    return OmegaConf.merge(cfg, OmegaConf.from_dotlist(
+        [f"{k}={v}" for k, v in extra.items()]))
+
+
+@pytest.fixture(scope="module")
+def saved(tmp_path_factory):
+    """The model of ``_tiny_merged()`` at seed 5 and its checkpoint."""
+    source = Convofusion(from_cfg(_tiny_merged()), device="cpu", seed=5)
+    path = save_checkpoint(str(tmp_path_factory.mktemp("ckpt")), 3, source)
+    return source, path
+
+
+def test_build_service_from_a_checkpoint(saved):
+    """A merged YAML config and a checkpoint: the service serves the
+    checkpoint's weights (its live trunk drawn from its seed, 7) and a
+    micro-batch equals sample() on the source model with the service's
+    generator seed, once the source takes the service's trunk."""
+    source, path = saved
+    cfg = _tiny_merged(**{"SERVE.BATCH_SIZE": 2, "SERVE.MAX_WAIT_MS": 2000,
+                          "SEED_VALUE": 7, "TEST.CHECKPOINTS": path})
+    svc = build_service(cfg, device="cpu")
+    reqs = [_req(0, focus_words=("dragons",)), _req(1)]
+    try:
+        assert svc.batch_size == 2 and svc.weg
+        assert svc._sampler.num_inference_steps == STEPS
+        live = Convofusion(from_cfg(cfg), device="cpu", seed=7)
+        for k, v in svc.model.state_dict().items():
+            want = live if k.startswith(TRUNK) else source
+            assert torch.equal(v, want.state_dict()[k]), k
+        futs = [svc.submit(r) for r in reqs]
+        served = np.stack([f.result(timeout=WAIT) for f in futs])
+    finally:
+        svc.close()
+    arrays, focus = svc._build(reqs)
+    source.text_encoder.text_model.load_state_dict(
+        live.text_encoder.text_model.state_dict())
+    motion, _ = source.sample(to_tensors(arrays, "cpu"),
+                              torch.Generator().manual_seed(7), STEPS,
+                              focus=focus)
+    np.testing.assert_array_equal(served, motion.numpy())
+    # checkpoint= wins over TEST.CHECKPOINTS; a missing file raises
+    with pytest.raises(FileNotFoundError, match="absent.ckpt"):
+        build_service(cfg, device="cpu", checkpoint="absent.ckpt")
+
+
+def test_cli_serves_from_cfg_and_checkpoint(tmp_path, saved):
+    """python -m convofusion_tpu_torch.serving --cfg <tiny yaml> --device cpu
+    --port 0 TEST.CHECKPOINTS=<path> starts and answers POST /generate."""
+    _, path = saved
+    tiny = tmp_path / "tiny.yaml"
+    # the modules' YAMLs merge after the experiment file, so the same
+    # file also goes in as the assets file, which merges last
+    OmegaConf.save(tiny_config("diffusion"), str(tiny))
+    cmd = [sys.executable, "-m", "convofusion_tpu_torch.serving",
+           "--cfg", str(tiny), "--cfg_assets", str(tiny), "--device", "cpu",
+           "--port", "0", "--batch-size", "1", "SERVE.MAX_WAIT_MS=5",
+           "model.scheduler.variant=ddim",
+           f"model.scheduler.num_inference_timesteps={STEPS}",
+           f"TEST.CHECKPOINTS={path}"]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://"), (
+            line + proc.stderr.read() if proc.poll() is not None else line)
+        assert path in line and "weg=True" in line
+        url = line.split()[2]
+        data = json.dumps({"text": "a nod about dragons",
+                           "focus_words": ["dragons"]}).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{url}/generate", data=data), timeout=WAIT) as resp:
+            _check_motion(np.asarray(json.loads(resp.read())["motion"],
+                                     np.float32))
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=WAIT) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=WAIT)
+        proc.stdout.close()
+        proc.stderr.close()
+    res = subprocess.run(cmd[:5] + ["--geometry", "tiny"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=WAIT)
+    assert res.returncode != 0 and "exclude each other" in res.stderr

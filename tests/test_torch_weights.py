@@ -123,14 +123,21 @@ def _flatten_shapes(tree, prefix):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imported: neither JAX
+    nor the JAX package comes along, the config system, the checkpoints
+    and the asset drop included (each keeps its own copy)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import convofusion_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "need = ['convofusion_tpu_torch.' + m for m in ('config', "
+        "'config.omega', 'config.from_yaml', 'train.checkpoint', "
+        "'utils.assets', 'serving')]\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'convofusion_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'convofusion_tpu')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
