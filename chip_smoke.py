@@ -40,8 +40,8 @@ step kernel must be among them):
                (128, 189) finite motion for every request, exactly 50
                kernel launches per micro-batch; batch ms, requests/s,
                latency p50/p95, occupancy, peak memory, WEG counts per
-               batch; then direct sample() calls on one assembled batch
-               with and without focus, for WEG's own cost and the
+               batch; then one direct sample() call on one assembled batch
+               with focus and one without, for WEG's own cost and the
                pipeline's
   8. rollout_parity - production geometry, fp32, the long-form rollout
                (cli/unbounded.rollout) of a 2-part batch of 2 (3 windows),
@@ -53,14 +53,14 @@ step kernel must be among them):
                equal WEG counts on both sides
   9. rollout - production geometry, bf16, batch 96, 3 parts (5 windows),
                DDIM-50 (bench.py --mode rollout's defaults): one warm-up
-               and two timed rollouts without WEG, one with 'random' WEG;
+               and one timed rollout without WEG, one with 'random' WEG;
                finite (96, 128, 189) motion for every window, exactly 250
                kernel launches a rollout, one uncond encode a sampler (the
                first window of its first rollout); windows/s, ms a window,
                the host's ms a window (window text, tokenization, focus
                words, stitching) against the sampler's, peak memory; then
                the last window's sample() alone, with and without its
-               preseq, in turns
+               preseq
  10. dpmpp    - production geometry, DPM-Solver++ 2M at 20 steps: fp32
                batch 2 on the card against the CPU, then bf16 batch 96,
                one warm-up and three timed calls (clips/s, ms/call); the
@@ -91,15 +91,31 @@ step kernel must be among them):
                finite motion, 50 kernel launches); then resume: fp32 batch
                4 stage 2, dropout 0.1, 2 steps + save + load + 2 steps
                against 4 straight steps, losses within 1e-6 relative
-Then a JSON line of per-kernel numbers (launches summed over phases 5-13
-that ran, and each phase's count under launches_by_phase; the dpmpp and
-training phases launch no step kernel) and, last, the result line
-{"ok": true, "device": {...}}.
+ 14. test_cli - the test CLI (cli/test.main) on real-format inputs: BEAT and
+               DnD fixture trees (data/fixture.py) with 36 test items, a
+               synthesized 32k t5-geometry spiece.model in the asset drop
+               (the model must pick the SentencePiece tokenizer),
+               config_cf_beatdnd.yaml with the DDIM-50 overrides, bf16,
+               SAVE_PREDICTIONS and 'semantic' WEG, the weights a checkpoint
+               of a seeded model: dataset build time, the mel path (native,
+               or it fails), loader / tokenize / sample ms per batch,
+               exactly 50 kernel launches per batch, the result
+               directories and attention-map files, peak memory; then the
+               CLI in fp32 at DDIM-10 on one batch of 4 on the card and on
+               the CPU (the refinement capped at 3 iterations; phase 6 runs
+               the config's): the same files, byte-equal texts and semantic
+               CSVs, motion within 1e-3 and latents within 2e-3; then the
+               batch mel on the card against the host's
+Then the whole run's wall time, a JSON line of per-kernel numbers
+(launches summed over phases 5-14 that ran, and each phase's count under
+launches_by_phase; the dpmpp and training phases launch no step kernel)
+and, last, the result line {"ok": true, "device": {...}}.
 """
 import argparse
 import contextlib
 import copy
 import dataclasses
+import glob
 import json
 import os
 import random
@@ -118,6 +134,8 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from convofusion_tpu_torch import native
+from convofusion_tpu_torch.cli import test as cli_test
 from convofusion_tpu_torch.cli.unbounded import rollout
 from convofusion_tpu_torch.config import (
     DEFAULTS_DIR,
@@ -125,9 +143,12 @@ from convofusion_tpu_torch.config import (
     PRODUCTION_VAE,
     from_cfg,
     load_config,
+    parse_args,
 )
 from convofusion_tpu_torch.config.omega import OmegaConf
 from convofusion_tpu_torch.diffusion.schedulers import DiffusionScheduler
+from convofusion_tpu_torch.data import audio
+from convofusion_tpu_torch.data.fixture import make_fixture_pair
 from convofusion_tpu_torch.data.synthetic import (
     prepare_arrays,
     synthetic_long_batch,
@@ -139,7 +160,11 @@ from convofusion_tpu_torch.models.convofusion import (
     to_tensors,
 )
 from convofusion_tpu_torch.models import weg as weg_lib
-from convofusion_tpu_torch.models.tokenizer import focus_word_indices
+from convofusion_tpu_torch.models.sentencepiece import write_synthetic_spiece
+from convofusion_tpu_torch.models.tokenizer import (
+    SentencePieceTokenizer,
+    focus_word_indices,
+)
 from convofusion_tpu_torch.ops import guided_step as gs_mod
 from convofusion_tpu_torch.ops import layers
 from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
@@ -185,7 +210,7 @@ NO_FOCUS_EVERY = 5
 ROLLOUT_PARITY_STEPS, ROLLOUT_PARITY_PARTS = 10, 2
 ROLLOUT_MOTION_ATOL, ROLLOUT_LATENT_ATOL = 1e-3, 2e-3
 # phase 9: bench.py --mode rollout's parts (batch and steps as phase 5)
-ROLLOUT_PARTS, ROLLOUT_TIMED = 3, 2
+ROLLOUT_PARTS, ROLLOUT_TIMED = 3, 1
 # phase 10: DPM-Solver++ 2M steps (bench.py --sampler dpmpp_2m --steps 20)
 DPMPP_STEPS = 20
 DPMPP_ATOL, DPMPP_LATENT_ATOL = 1e-3, 2e-3
@@ -207,6 +232,17 @@ DDIM_OVERRIDES = ["model.scheduler.variant=ddim",
 # the resume check: batch, (N, M) steps, and the loss tolerance argued in
 # resume_check
 CKPT_RESUME_BATCH, CKPT_RESUME_STEPS, CKPT_RESUME_RTOL = 4, (2, 2), 1e-6
+# phase 14: the test CLI on fixture trees; 2 BEAT speakers x 8 files x 2
+# chunks fill one TEST.BATCH_SIZE batch of 32 (config_cf_beatdnd.yaml:36),
+# the DnD sets a second; the card-vs-CPU run is fp32 DDIM-10 on one batch
+# of 4 BEAT items (phases 6, 8 and 10's tolerances); the batch mel against
+# the host's within 1e-4 of the largest power and 1e-2 dB
+CLI_BEAT_FILES, CLI_PARITY_BATCH, CLI_PARITY_STEPS = 8, 4, 10
+# the parity run's WEG refinement bound: the config's 300 iterations take
+# ~55 s on 8 CPU cores at this width; phase 6 holds the full loop
+CLI_PARITY_REFINE = 3
+CLI_MOTION_ATOL, CLI_LATENT_ATOL = 1e-3, 2e-3
+MEL_POWER_RTOL, MEL_DB_ATOL = 1e-4, 1e-2
 
 
 def log(*args):
@@ -685,7 +721,7 @@ def _post(url, req):
 def phase_serve(smi, device=None):
     """The production service with WEG at batch 96 through its own entry
     points.  Returns the step-kernel launches after the warm-up batch:
-    the service's batches and the 4 direct calls."""
+    the service's batches and the 2 direct calls."""
     cfg = copy.deepcopy(PRODUCTION)
     cfg["serve"].update(batch_size=BATCH, max_wait_ms=1000.0)
     cfg["scheduler"]["num_inference_timesteps"] = STEPS
@@ -770,8 +806,7 @@ def phase_serve(smi, device=None):
         gen.manual_seed(43)
         sampler = model.cached_sampler(num_inference_steps=STEPS)
         direct = {}
-        for name, f in (("with focus", focus), ("without focus", None),
-                        ("with focus", focus), ("without focus", None)):
+        for name, f in (("with focus", focus), ("without focus", None)):
             t0 = time.perf_counter()
             motion, _ = sampler(to_tensors(arrays, model.device), gen,
                                 focus=f)
@@ -781,9 +816,9 @@ def phase_serve(smi, device=None):
                 (time.perf_counter() - t0) * 1e3)
             _check_served(list(motion.float().cpu().numpy()), "direct")
         launches = gs_mod.guided_step.launches
-        if on_card and launches != STEPS * (http_st["batches"] + 4):
+        if on_card and launches != STEPS * (http_st["batches"] + 2):
             raise RuntimeError(f"serve: {launches} kernel launches over "
-                               f"{http_st['batches']} service batches and 4 "
+                               f"{http_st['batches']} service batches and 2 "
                                f"direct calls")
         log(f"# serve: direct sample() of one assembled batch: with focus "
             f"{direct['with focus']} ms, without {direct['without focus']} "
@@ -983,11 +1018,11 @@ def phase_rollout(smi, device=None):
             last_window = calls[-1]["call"]
     model.encode_uncond = encode
 
-    # the last window's sampler call again, with and without its preseq,
-    # in turns: what inpainting adds to a window's sample()
+    # the last window's sampler call again, with and without its preseq:
+    # what inpainting adds to a window's sample()
     sampler, args, kwargs = last_window
     direct = {}
-    for name in ("with preseq", "without preseq") * 2:
+    for name in ("with preseq", "without preseq"):
         t0 = time.perf_counter()
         sampler(*args, **{**kwargs, "preseq": kwargs["preseq"]
                           if name == "with preseq" else None})
@@ -1566,6 +1601,237 @@ def resume_check(cfg, seed, device, tmp):
         raise RuntimeError(f"resume: losses {resumed} against {straight}")
 
 
+def _cli_argv(tmp, roots, name, overrides):
+    """The test CLI's argv: config_cf_beatdnd.yaml, an assets file (merged
+    last) pointing the dataset roots and the output folders into ``tmp``,
+    and dotlist overrides."""
+    assets = OmegaConf.load(os.path.join(DEFAULTS_DIR, "assets.yaml"))
+    assets.DATASET.BEATDND.ROOT = list(roots)
+    assets.DATASET.BEATDND.SPLIT_ROOT = list(roots)
+    assets.FOLDER = os.path.join(tmp, "experiments")
+    assets.TEST = {"FOLDER": os.path.join(tmp, "results")}
+    path = os.path.join(tmp, f"assets_{name}.yaml")
+    OmegaConf.save(assets, path)
+    return ["--cfg", os.path.join(DEFAULTS_DIR, "config_cf_beatdnd.yaml"),
+            "--cfg_assets", path, f"NAME={name}", *overrides]
+
+
+def _result_files(out_dir):
+    return sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                  for d, _, fs in os.walk(out_dir) for f in fs)
+
+
+@contextlib.contextmanager
+def launches_per_sample(calls):
+    """While open, the step-kernel launches of every Convofusion.sample
+    call are appended to ``calls``."""
+    original = Convofusion.sample
+
+    def counted(self, *args, **kwargs):
+        before = gs_mod.guided_step.launches
+        out = original(self, *args, **kwargs)
+        calls.append(gs_mod.guided_step.launches - before)
+        return out
+
+    Convofusion.sample = counted
+    try:
+        yield calls
+    finally:
+        Convofusion.sample = original
+
+
+@contextlib.contextmanager
+def asset_root(path):
+    """CONVOFUSION_TPU_ASSETS set to ``path`` while open."""
+    saved = os.environ.get("CONVOFUSION_TPU_ASSETS")
+    os.environ["CONVOFUSION_TPU_ASSETS"] = path
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CONVOFUSION_TPU_ASSETS"]
+        else:
+            os.environ["CONVOFUSION_TPU_ASSETS"] = saved
+
+
+def phase_test_cli(smi, device=None):
+    """The test CLI (cli/test.main) on real-format inputs: BEAT/DnD fixture
+    trees, a synthesized 32k t5-geometry spiece.model in the asset drop,
+    config_cf_beatdnd.yaml with the DDIM-50 overrides, bf16 (TPU.
+    COMPUTE_DTYPE), SAVE_PREDICTIONS and the config's 'semantic' WEG, the
+    weights a checkpoint of a seeded model.  Then the same CLI in fp32 at
+    DDIM-10 on one batch of 4 on the card and on the CPU, and the batch mel
+    on the card against the host's.  Returns the timed run's launches."""
+    dev_arg = ["--device", device] if device else []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli") as tmp, \
+            asset_root(os.path.join(tmp, "assets")):
+        t0 = time.perf_counter()
+        write_synthetic_spiece(os.path.join(tmp, "assets", "t5-base",
+                                            "spiece.model"))
+        spiece_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        roots = make_fixture_pair(os.path.join(tmp, "data"),
+                                  n_files=CLI_BEAT_FILES)
+        fixture_s = time.perf_counter() - t0
+        argv = _cli_argv(tmp, roots, "cli",
+                         DDIM_OVERRIDES + ["TEST.SAVE_PREDICTIONS=true"])
+        merged = parse_args("test", argv)
+        seed = int(merged.SEED_VALUE)
+        model = Convofusion(from_cfg(merged), dtype="bfloat16",
+                            device=device, seed=seed)
+        tokenizer = type(model.tokenizer).__name__
+        t0 = time.perf_counter()
+        tb = model.tokenize(["hello there friend this is a story"] * 32)
+        tok_ms = (time.perf_counter() - t0) * 1e3
+        log(f"# test_cli: spiece.model synthesized in {spiece_s:.2f} s; the "
+            f"model's tokenizer: {tokenizer} (vocab "
+            f"{model.tokenizer.vocab_size}, {tok_ms:.1f} ms for 32 texts, "
+            f"ids up to {int(tb.input_ids.max())}); fixture trees in "
+            f"{fixture_s:.2f} s")
+        if not isinstance(model.tokenizer, SentencePieceTokenizer):
+            raise RuntimeError(f"the model picked {tokenizer}, not the "
+                               f"SentencePiece tokenizer")
+        ckpt = ckpt_lib.save_checkpoint(os.path.join(tmp, "ckpt"), 0, model)
+        on_card = model.device.type == "cuda"
+        del model
+        mel_before = dict(audio.MEL_PATHS)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        calls = []
+        with launches_per_sample(calls):
+            gs_mod.guided_step.launches = 0
+            t0 = time.perf_counter()
+            run = cli_test.main(argv + [f"TEST.CHECKPOINTS={ckpt}"]
+                                + dev_arg)
+            wall = time.perf_counter() - t0
+            launches = gs_mod.guided_step.launches
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        mels = {k: audio.MEL_PATHS[k] - mel_before.get(k, 0)
+                for k in ("native", "numpy")}
+        files = _result_files(run.out_dir)
+        dirs = {os.path.dirname(f) for f in files if f.endswith("pred.npy")}
+        att = [f for f in files if "/att_" in f]
+        log(f"# test_cli: bf16 DDIM-{STEPS} semantic WEG on {smi}: "
+            f"{sum(run.batch_sizes)} test items in batches "
+            f"{run.batch_sizes}, {wall:.1f} s in all; datasets built in "
+            f"{run.build_s:.2f} s, mels {mels} ({native.status()}); per "
+            f"batch: loader {_ms(run.loader_ms)} ms, tokenize "
+            f"{_ms(run.tokenize_ms)} ms, sample {_ms(run.sample_ms)} ms "
+            f"({[round(b / t * 1e3, 2) for b, t in zip(run.batch_sizes, run.sample_ms)]}"
+            f" clips/s), step-kernel launches {calls}; {len(dirs)} result "
+            f"directories, {len(att)} attention-map files; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        if len(dirs) != sum(run.batch_sizes) or run.batch_sizes[0] != 32 \
+                or len(att) != len(dirs) * 5 * STEPS:
+            raise RuntimeError(f"test_cli: {len(dirs)} result directories, "
+                               f"{len(att)} attention maps for batches "
+                               f"{run.batch_sizes}")
+        if on_card and (calls != [STEPS] * len(run.batch_sizes)
+                        or mels["numpy"] or not mels["native"]):
+            raise RuntimeError(f"test_cli: launches {calls} a batch, mel "
+                               f"paths {mels} ({native.status()})")
+        if not all(np.isfinite(lat).all() for lat in run.latents):
+            raise RuntimeError("test_cli: non-finite latents")
+        cli_parity(tmp, ckpt, dev_arg)
+        batch_mel_check(roots[0], on_card)
+    return launches
+
+
+def _ms(values):
+    return [round(v, 1) for v in values]
+
+
+def cli_parity(tmp, ckpt, dev_arg):
+    """The CLI in fp32 at DDIM-10 on one batch of 4 BEAT items, on the
+    device and on the CPU, from one checkpoint and the CLI's host-drawn
+    noise, semantic WEG with the refinement capped at CLI_PARITY_REFINE:
+    the same result files, byte-equal semantic CSVs and texts, motion
+    (pred.npy) within 1e-3 and latents within 2e-3."""
+    roots = make_fixture_pair(os.path.join(tmp, "parity"), n_files=1)
+    over = ["model.scheduler.variant=ddim",
+            f"model.scheduler.num_inference_timesteps={CLI_PARITY_STEPS}",
+            "TPU.COMPUTE_DTYPE=float32", "DATASET.BEATDND.SELECT=beat",
+            f"TEST.BATCH_SIZE={CLI_PARITY_BATCH}",
+            f"TEST.CHECKPOINTS={ckpt}",
+            f"model.weg_parameters.max_refinement_steps={CLI_PARITY_REFINE}"]
+    runs = {}
+    for side, extra in (("card", dev_arg), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        runs[side] = (cli_test.main(_cli_argv(tmp, roots, f"parity_{side}",
+                                              over) + extra),
+                      time.perf_counter() - t0)
+    (card, card_s), (cpu, cpu_s) = runs["card"], runs["cpu"]
+    files = _result_files(card.out_dir)
+    same_files = files == _result_files(cpu.out_dir)
+    byte_equal, motion_gap = [], 0.0
+    for rel in files if same_files else []:
+        a = os.path.join(card.out_dir, rel)
+        b = os.path.join(cpu.out_dir, rel)
+        if rel.endswith((".csv", ".txt")):
+            with open(a, "rb") as f, open(b, "rb") as g:
+                byte_equal.append(f.read() == g.read())
+        elif rel.endswith("pred.npy"):
+            motion_gap = max(motion_gap, float(np.abs(
+                np.load(a) - np.load(b)).max()))
+    latent_gap = max(float(np.abs(x - y).max())
+                     for x, y in zip(card.latents, cpu.latents))
+    n_csv = sum(f.endswith(".csv") for f in files)
+    log(f"# test_cli: fp32 DDIM-{CLI_PARITY_STEPS} batch "
+        f"{card.batch_sizes} card ({card_s:.1f} s) vs CPU ({cpu_s:.1f} s): "
+        f"{len(files)} files each, same names {same_files}, "
+        f"{sum(byte_equal)}/{len(byte_equal)} text and CSV files "
+        f"byte-equal ({n_csv} semantic CSVs), |motion| gap "
+        f"{motion_gap:.3g} (tol {CLI_MOTION_ATOL}), |latents| gap "
+        f"{latent_gap:.3g} (tol {CLI_LATENT_ATOL})")
+    if not (same_files and all(byte_equal) and n_csv
+            and card.batch_sizes == [CLI_PARITY_BATCH]
+            and motion_gap <= CLI_MOTION_ATOL
+            and latent_gap <= CLI_LATENT_ATOL):
+        raise RuntimeError("test_cli: the card's run differs from the CPU's")
+
+
+def batch_mel_check(beat_root, on_card):
+    """melspectrogram_batch on the device against the host
+    melspectrogram, over the fixture's 5.12 s BEAT windows."""
+    sr, win = 16000, int(128 / 25 * 16000)
+    clips = []
+    for path in sorted(glob.glob(os.path.join(beat_root, "*", "*.wav"))):
+        y, _ = audio.load_wav(path, sr)
+        clips += [audio.normalize(y[i * win:(i + 1) * win])
+                  for i in range(len(y) // win)]
+    y = np.stack(clips)
+    t0 = time.perf_counter()
+    host = np.stack([audio.melspectrogram(c) for c in clips])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dev = "cuda" if on_card else "cpu"
+    yt = torch.from_numpy(y).to(dev)
+    for _ in range(3):
+        power = audio.melspectrogram_batch(yt)
+    if on_card:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        power = audio.melspectrogram_batch(yt)
+        db = audio.power_to_db_batch(power)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms = start.elapsed_time(end)
+    else:
+        db = audio.power_to_db_batch(power)
+        dev_ms = float("nan")
+    power, db = power.cpu().numpy(), db.cpu().numpy()
+    power_gap = float(np.abs(power - host).max() / host.max())
+    db_gap = float(max(np.abs(db[i] - audio.power_to_db(host[i])).max()
+                       for i in range(len(clips))))
+    log(f"# test_cli: batch mel of {len(clips)} clips of {win} samples on "
+        f"{dev}: {dev_ms:.3f} ms (power + dB, CUDA events) against "
+        f"{host_ms:.1f} ms on the host ({native.status()}); power gap "
+        f"{power_gap:.3g} of the max (tol {MEL_POWER_RTOL}), dB gap "
+        f"{db_gap:.3g} (tol {MEL_DB_ATOL})")
+    if not (power_gap <= MEL_POWER_RTOL and db_gap <= MEL_DB_ATOL):
+        raise RuntimeError("test_cli: the batch mel disagrees with the host")
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -1667,9 +1933,9 @@ def kernel_in_path_us(kernels, expected) -> float:
 
 PHASES = {4: "parity", 5: "main", 6: "weg_parity", 7: "serve",
           8: "rollout_parity", 9: "rollout", 10: "dpmpp",
-          11: "train_parity", 12: "train", 13: "checkpoint"}
+          11: "train_parity", 12: "train", 13: "checkpoint", 14: "test_cli"}
 # the phases whose runs launch the step kernel (the others must not)
-PATH_PHASES = {5, 6, 7, 8, 9, 13}
+PATH_PHASES = {5, 6, 7, 8, 9, 13, 14}
 
 
 def parse_phases(spec: str):
@@ -1689,10 +1955,11 @@ def parse_phases(spec: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1-13", type=parse_phases,
+    ap.add_argument("--phases", default="1-14", type=parse_phases,
                     help="e.g. '1-3,13' (default every phase; 1-3 always "
                          "run)")
     chosen = ap.parse_args(argv).phases
+    t_run = time.perf_counter()
     smi = phase_device()
     phase_build()
     rows, max_err = phase_kernel()
@@ -1716,7 +1983,8 @@ def main(argv=None):
             7: lambda: phase_serve(smi), 8: phase_rollout_parity,
             9: lambda: phase_rollout(smi), 10: run_dpmpp,
             11: phase_train_parity, 12: lambda: phase_train(smi),
-            13: lambda: phase_checkpoint(smi)}
+            13: lambda: phase_checkpoint(smi),
+            14: lambda: phase_test_cli(smi)}
     by_phase = {}
     for number in sorted(chosen - {1, 2, 3}):
         gs_mod.guided_step.launches = 0
@@ -1751,6 +2019,8 @@ def main(argv=None):
         "library_ms": None,
         "in_path_us": in_path_us,
     }]
+    log(f"# whole run: {time.perf_counter() - t_run:.1f} s, phases "
+        f"{sorted(chosen)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,15 @@ path in ``convofusion_tpu/``):
 
   serving.py              GestureService (micro-batching, three threads),
                           serve_http, build_service, the CLI
+  cli/test.py             the test CLI: config -> test split -> sample()
+                          -> result directories with attention maps
   cli/unbounded.py        rollout: long-form synthesis in half-overlapping
                           windows (cli/focus.py: WEG focus words)
   models/convofusion.py   Convofusion.sample: encode -> reverse -> decode,
                           with preseq inpainting; CachedSampler
   models/results.py       per-sample result dumps
+  models/tokenizer.py, sentencepiece.py
+                          t5-base SentencePiece (pure Python), word hash
   models/weg.py           word-excitation guidance (loss, refinement)
   models/t5.py, audioenc.py, condfuser.py
                           condition encoders (T5 trunk x2, mel MLP, fuser)
@@ -21,8 +25,11 @@ path in ``convofusion_tpu/``):
                           fused step kernel
   csrc/                   hand-written CUDA kernels (sm_90a)
   compat/from_jax.py      JAX parameter tree -> port state_dict
+  data/                   BEAT/DnD datasets, collates, loader, fixture
+                          trees, TextGrid, wav and mel (host and batch)
+  native/                 the host C++ mel kernel (g++, ctypes)
+  utils/                  quaternions, geometry, logger, SampleTimer
   data/synthetic.py       seeded synthetic batches (also long-form)
-  data/audio.py           save_wav
 
 The package imports torch and numpy only.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; with no card and no device given

@@ -94,6 +94,9 @@ PRODUCTION = {
     "guidance_uncondp": 0.1,       # config_cf_beatdnd.yaml:77
     "fps": 25,                     # DATASET.BEATDND.FPS (base.yaml:101)
     "predict_epsilon": True,       # config_cf_beatdnd.yaml:23
+    # the tokenizer's model (modules/text_encoder.yaml:5, assets.yaml:16):
+    # a spiece.model is looked up for it (models/tokenizer.find_spiece)
+    "t5_path": "t5-base",
     "denoiser": {                  # modules/denoiser.yaml
         "text_encoded_dim": 512,
         "ff_size": 1024,

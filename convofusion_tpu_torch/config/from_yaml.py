@@ -276,6 +276,7 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
     out["noise_scheduler"] = _scheduler(model.noise_scheduler,
                                         predict_epsilon, "noise_scheduler",
                                         False)
+    out["t5_path"] = str(te.get("modelpath", "t5-base"))
     out["weg_type"] = ablation_flag(cfg, "WEG_TYPE")
     wp = model.get("weg_parameters", {})
     out["weg_parameters"] = wp.to_container() if hasattr(

@@ -59,6 +59,7 @@ from convofusion_tpu_torch.models.t5 import T5TextEncoder
 from convofusion_tpu_torch.models.tokenizer import (
     UNCOND_TEXT,
     WordHashTokenizer,
+    make_tokenizer,
 )
 from convofusion_tpu_torch.models.vae import (
     BODY_NFEATS,
@@ -81,6 +82,8 @@ STAGES = ("vae", "diffusion", "vae_diffusion")
 # modality-dropout groups a training batch is cut into, besides the rows
 # that keep every condition (convofusion_tpu/models/convofusion.py:75)
 CLF_GUIDANCE_DROPS = 6
+# t5-base's embedding rows: the vocab that takes the real tokenizer
+T5_VOCAB_SIZE = 32128
 
 
 def to_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
@@ -163,10 +166,18 @@ class Convofusion(nn.Module):
     init (None keeps PyTorch's default init, for weights loaded after);
     ``stage`` 'vae' builds the motion VAE alone (stage 1), 'diffusion'
     (the default, stage 2, and generation) and 'vae_diffusion' build the
-    whole model (convofusion_tpu/models/convofusion.py:142)."""
+    whole model (convofusion_tpu/models/convofusion.py:142).
+
+    The tokenizer, as JAX picks it (:120-139): ``tokenizer`` if given; the
+    word-hash tokenizer for a vocab other than t5-base's 32128 (real t5
+    ids would fall outside a smaller embedding); otherwise
+    ``make_tokenizer(cfg['t5_path'])``, the exact t5-base tokenizer where a
+    ``spiece.model`` is on disk, the word-hash one with a warning where
+    none is."""
 
     def __init__(self, cfg: Dict, dtype="float32", device=None,
-                 seed: Optional[int] = 0, stage: str = "diffusion"):
+                 seed: Optional[int] = 0, stage: str = "diffusion",
+                 tokenizer=None):
         super().__init__()
         if stage not in STAGES:
             raise ValueError(f"stage {stage!r}, not one of {STAGES}")
@@ -186,8 +197,16 @@ class Convofusion(nn.Module):
             raise ValueError(f"nfeats {cfg['nfeats']}: the VAE decodes "
                              f"{BODY_NFEATS} + {HANDS_NFEATS} features")
         te = cfg["text_encoder"]
-        self.tokenizer = WordHashTokenizer(vocab_size=int(te["vocab_size"]),
-                                           max_length=self.text_pad_len)
+        vocab_size = int(te["vocab_size"])
+        if tokenizer is not None:
+            self.tokenizer = tokenizer
+        elif vocab_size != T5_VOCAB_SIZE:
+            self.tokenizer = WordHashTokenizer(vocab_size=vocab_size,
+                                               max_length=self.text_pad_len)
+        else:
+            self.tokenizer = make_tokenizer(
+                str(cfg.get("t5_path", "t5-base")),
+                max_length=self.text_pad_len, vocab_size=vocab_size)
         d = int(cfg["denoiser"]["text_encoded_dim"])
 
         self.vae = ConvoFusionVae(latent_dim=self.latent_dim,
@@ -540,7 +559,8 @@ class Convofusion(nn.Module):
                           step_noise: Optional[torch.Tensor] = None,
                           weg: Optional[Dict] = None,
                           weg_params: Optional[Dict] = None,
-                          preseq: Optional[torch.Tensor] = None):
+                          preseq: Optional[torch.Tensor] = None,
+                          capture_attention: str = "none"):
         """Guided reverse process.  ``init_noise`` (B, 16, D) and
         ``step_noise`` (n_steps, B, 16, D) replace the draws from
         ``generator`` (a test feeds JAX's own sequence; DPM-Solver++ draws
@@ -548,10 +568,18 @@ class Convofusion(nn.Module):
         guidance on; ``weg_params`` overrides ``cfg['weg_parameters']``.
         ``preseq`` (B, L <= 16, D): the previous window's latent tokens,
         inpainted over the first L tokens at every step.  Latents stay fp32
-        whatever the compute dtype.  Returns the final latents."""
+        whatever the compute dtype.  Returns the final latents; with
+        ``capture_attention='all'``, (latents, att_seq): the full-condition
+        branch's attention maps of every step, stream -> (steps, B,
+        layers, Tq, Tk), kept on the device and stacked once at the end
+        (JAX :614,805-856)."""
         if not self.do_classifier_free_guidance:
             raise NotImplementedError(
                 "only guided sampling (guidance_scale > 1) is ported")
+        if capture_attention not in ("none", "all"):
+            raise ValueError(f"capture_attention {capture_attention!r}, not "
+                             f"'none' or 'all'")
+        captured = [] if capture_attention == "all" else None
         variant = self.scheduler.variant
         if variant not in ("ddpm", "ddim", "dpmpp_2m"):
             raise NotImplementedError(
@@ -594,8 +622,10 @@ class Convofusion(nn.Module):
                 latents = torch.cat([noised, latents[:, n_pre:]], dim=1)
             if refine is not None:
                 latents = refine(latents, i, t)
-            noise_pred7, _ = self.denoiser.guided(
+            noise_pred7, att = self.denoiser.guided(
                 latents, t, cond_real, cond_unc, masks_real, masks_unc)
+            if captured is not None:
+                captured.append(att)
             if is_dpmpp:
                 latents, _, prev_d, prev_lambda = \
                     self.scheduler.dpmpp_2m_step(
@@ -613,7 +643,10 @@ class Convofusion(nn.Module):
                 eps = self.guidance_combine_branches(noise_pred7)
                 latents, _ = self.scheduler.step(eps, t, pt, latents,
                                                  noise=noise)
-        return latents
+        if captured is None:
+            return latents
+        return latents, {s: torch.stack([a[s] for a in captured])
+                         for s in captured[0]}
 
     def _weg_refiner(self, weg: Dict, n_steps: int, wp: Dict):
         """refine(latents, i, t) for reverse step i: one loss + gradient
@@ -684,7 +717,8 @@ class Convofusion(nn.Module):
                step_noise: Optional[torch.Tensor] = None,
                uncond_cache=None, focus: Optional[Dict] = None,
                weg_params: Optional[Dict] = None,
-               preseq: Optional[torch.Tensor] = None):
+               preseq: Optional[torch.Tensor] = None,
+               capture_attention: str = "none"):
         """End-to-end generation for a ``prepare_arrays`` batch.
         ``uncond_cache``: optional (cond_unc, masks_unc) from
         :meth:`encode_uncond`.  ``focus``: optional dict(focus_idx,
@@ -694,7 +728,10 @@ class Convofusion(nn.Module):
         :meth:`diffusion_reverse`).  Runs
         under ``no_grad``, not ``inference_mode``: WEG builds a graph
         through the latents from conditions encoded here.  Returns (motion
-        (B, 128, nfeats), latents (B, 16, D))."""
+        (B, 128, nfeats), latents (B, 16, D)); with
+        ``capture_attention='all'`` (motion, latents, att_seq), att_seq the
+        full-condition attention maps of every step (see
+        :meth:`diffusion_reverse`)."""
         b = batch["lsn_ids"].shape[0]
         cond_real, masks_real = self.encode_conditions(
             batch["spk_ids"], batch["spk_tmask"], batch["lsn_ids"],
@@ -704,26 +741,31 @@ class Convofusion(nn.Module):
                                else self.encode_uncond(batch))
         weg = (None if focus is None else self.weg_inputs(
             focus, cond_real, masks_real, cond_unc, masks_unc))
-        latents = self.diffusion_reverse(
+        out = self.diffusion_reverse(
             cond_real, masks_real, cond_unc, masks_unc, b,
             num_inference_steps, generator, init_noise, step_noise, weg,
-            weg_params, preseq)
+            weg_params, preseq, capture_attention)
+        latents = out if capture_attention == "none" else out[0]
         # (B, 16, D) -> (2, B, 8, D): tokens alternate body, hands per chunk
         z = latents.reshape(b, self.n_chunks, 2, self.latent_dim)
         z = torch.stack([z[:, :, 0], z[:, :, 1]], dim=0)
-        return self.vae.decode(z, self.max_len), latents
+        motion = self.vae.decode(z, self.max_len)
+        if capture_attention == "none":
+            return motion, latents
+        return motion, latents, out[1]
 
     def cached_sampler(self, num_inference_steps: Optional[int] = None,
-                       weg_params: Optional[Dict] = None
+                       weg_params: Optional[Dict] = None,
+                       capture_attention: str = "none"
                        ) -> "CachedSampler":
         """The model's :class:`CachedSampler` for these settings, shared by
-        every caller with the same step count and WEG parameters (the
-        rollout's windows and calls, the service)."""
+        every caller with the same step count, WEG parameters and capture
+        (the rollout's windows and calls, the service, the test CLI)."""
         caches = self.__dict__.setdefault("_sampler_caches", {})
-        key = (num_inference_steps, repr(weg_params))
+        key = (num_inference_steps, repr(weg_params), capture_attention)
         if key not in caches:
             caches[key] = CachedSampler(self, num_inference_steps,
-                                        weg_params)
+                                        weg_params, capture_attention)
         return caches[key]
 
 
@@ -735,7 +777,7 @@ class CachedSampler:
     geometry at batch 1.  The cache is keyed on the model's
     ``weights_version``, which ``load_state_dict`` bumps.  ``weg_params``
     overrides the model's WEG parameters in every call (the rollout's
-    constants).  The sampler holds its model by a weak reference: the
+    constants); ``capture_attention`` is passed to every ``sample``.  The sampler holds its model by a weak reference: the
     model keeps its samplers, and a strong reference back would be a cycle
     that keeps a dropped model's weights on the card until the garbage
     collector runs.  (The JAX ``CachedSampler`` also caches compiled
@@ -743,10 +785,12 @@ class CachedSampler:
 
     def __init__(self, model: Convofusion,
                  num_inference_steps: Optional[int] = None,
-                 weg_params: Optional[Dict] = None):
+                 weg_params: Optional[Dict] = None,
+                 capture_attention: str = "none"):
         self._model = weakref.ref(model)
         self.num_inference_steps = num_inference_steps
         self.weg_params = weg_params
+        self.capture_attention = capture_attention
         self._uncond = {}
         self._version = None
 
@@ -778,11 +822,13 @@ class CachedSampler:
                  init_noise: Optional[torch.Tensor] = None,
                  step_noise: Optional[torch.Tensor] = None,
                  preseq: Optional[torch.Tensor] = None):
-        """Returns (motion, latents), as :meth:`Convofusion.sample`."""
+        """What :meth:`Convofusion.sample` returns: (motion, latents), and
+        att_seq with ``capture_attention='all'``."""
         return self.model.sample(
             arrays, generator, self.num_inference_steps, init_noise,
             step_noise, uncond_cache=self.uncond_for(arrays), focus=focus,
-            weg_params=self.weg_params, preseq=preseq)
+            weg_params=self.weg_params, preseq=preseq,
+            capture_attention=self.capture_attention)
 
 
 def gen_from_latent(model: Convofusion, latent: torch.Tensor,

@@ -1,18 +1,35 @@
-"""Host-side word-hash tokenizer producing static-shape id arrays.
+"""Host-side tokenizers producing static-shape id arrays.
 
-Copy of ``UNCOND_TEXT``, ``TokenBatch`` and ``WordHashTokenizer`` from
-``convofusion_tpu/models/tokenizer.py:34-105``: a deterministic word-level
-tokenizer hashing words into the T5 vocab range; and of
-``focus_word_indices`` (:244-264), the WEG focus-word token columns.  Its ids do NOT match
-t5-base; the SentencePiece tokenizer is still to be ported.
+Port of ``convofusion_tpu/models/tokenizer.py``:
+
+* ``UNCOND_TEXT``, ``TokenBatch`` and ``WordHashTokenizer`` (:34-105): a
+  deterministic word-level tokenizer hashing words into the T5 vocab
+  range; its ids do NOT match t5-base;
+* ``SentencePieceTokenizer`` (:108-160, :163-182): exact t5-base
+  tokenization from a local ``spiece.model``, through the pure-Python
+  pipeline of ``models/sentencepiece.py``;
+* ``find_spiece`` and ``make_tokenizer`` (:185-241);
+* ``focus_word_indices`` (:244-264), the WEG focus-word token columns.
+
+JAX's ``HFTokenizer`` (a cached ``transformers`` tokenizer, :151-160) has
+no counterpart: this package does not depend on ``transformers``.
+``make_tokenizer`` therefore goes from a ``spiece.model`` straight to the
+word-hash fallback; ``find_spiece`` still finds a ``spiece.model`` in the
+HF cache's snapshot layout.
 """
 from __future__ import annotations
 
+import glob
 import hashlib
+import os
+import warnings
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from convofusion_tpu_torch.models.sentencepiece import T5Pipeline, load_spiece
+from convofusion_tpu_torch.utils.assets import assets_root
 
 UNCOND_TEXT = "-" * 10
 
@@ -83,7 +100,104 @@ class WordHashTokenizer:
 
     def wrapped_texts(self, texts: Sequence[str]) -> List[str]:
         """Texts as the word maps see them (bos/eos wrapped)."""
-        return [t if t == UNCOND_TEXT else f"<bos> {t} <eos>" for t in texts]
+        return wrap_texts(texts)
+
+
+def wrap_texts(texts: Sequence[str]) -> List[str]:
+    """``<bos> {text} <eos>``, except the uncond text (reference t5.py:93)."""
+    return [t if t == UNCOND_TEXT else f"<bos> {t} <eos>" for t in texts]
+
+
+class SentencePieceTokenizer:
+    """Exact t5-base tokenization from a local ``spiece.model``: the
+    contract of JAX's ``_FastTokenizerAdapter`` over ``convert_t5_fast``.
+
+    The reference's run-time additions ``<eos>`` / ``<bos>`` / ``<pad>`` /
+    ``<unk>`` (t5.py:30): on t5-base ``<eos>`` lands at 32100 and ``<bos>``
+    at 32101, inside the 32128-row embedding.  Texts are wrapped as
+    ``<bos> {text} <eos>`` (not the uncond text) and get the template's
+    trailing ``</s>``.  With ``pad_to`` a batch is padded (and truncated) to
+    ``pad_to``, otherwise padded to its longest row and truncated to
+    ``max_length``; truncation keeps ``</s>``.  ``word_ids``: ``<bos>`` is
+    word 0, content words follow from 1, a word's subwords share its
+    index, ``</s>`` and padding are None."""
+
+    def __init__(self, spiece_path: str, max_length: int = 200,
+                 extra_ids: int = 100):
+        self.spiece_path = spiece_path
+        self.max_length = max_length
+        self.tok = T5Pipeline(load_spiece(spiece_path), extra_ids=extra_ids)
+        self.tok.add_special_tokens(["<eos>", "<bos>", "<pad>", "<unk>"])
+
+    @property
+    def vocab_size(self) -> int:
+        """The id space with the run-time specials: the fewest embedding
+        rows a text encoder paired with this tokenizer needs."""
+        return len(self.tok)
+
+    def __call__(self, texts: Sequence[str],
+                 pad_to: Optional[int] = None) -> TokenBatch:
+        limit = pad_to if pad_to else self.max_length
+        encs = [self.tok.encode_with_template(t, limit)
+                for t in wrap_texts(texts)]
+        n = pad_to if pad_to else max(len(e.ids) for e in encs)
+        ids = np.full((len(encs), n), self.tok.pad_id, np.int32)
+        mask = np.zeros((len(encs), n), bool)
+        word_ids = []
+        for i, e in enumerate(encs):
+            ids[i, :len(e.ids)] = e.ids
+            mask[i, :len(e.ids)] = True
+            word_ids.append(e.word_ids + [None] * (n - len(e.ids)))
+        return TokenBatch(ids, mask, word_ids)
+
+    def wrapped_texts(self, texts: Sequence[str]) -> List[str]:
+        return wrap_texts(texts)
+
+
+def find_spiece(modelpath: str) -> Optional[str]:
+    """A ``spiece.model`` for ``modelpath``: the file itself, one in the
+    directory, the asset drop's ``<root>/<name>/spiece.model`` for a bare
+    model name (``utils/assets.py``), or the HF cache's
+    ``models--<name>/snapshots/*/spiece.model``."""
+    modelpath = str(modelpath)
+    if os.path.isfile(modelpath) and modelpath.endswith(".model"):
+        return modelpath
+    candidates = []
+    if os.path.isdir(modelpath):
+        candidates.append(os.path.join(modelpath, "spiece.model"))
+    if modelpath.count("/") <= 1:
+        # bare model names ('t5-base', 'google/t5-base')
+        candidates.append(os.path.join(
+            assets_root(), modelpath.split("/")[-1], "spiece.model"))
+    cache = os.environ.get(
+        "HF_HOME", os.path.expanduser("~/.cache/huggingface"))
+    slug = "models--" + modelpath.replace("/", "--")
+    candidates += glob.glob(
+        os.path.join(cache, "hub", slug, "snapshots", "*", "spiece.model"))
+    for c in candidates:
+        if os.path.isfile(c):
+            return c
+    return None
+
+
+def make_tokenizer(modelpath: str = "t5-base", max_length: int = 200,
+                   vocab_size: int = 32128):
+    """The best tokenizer for ``modelpath``: a ``spiece.model``'s
+    ``SentencePieceTokenizer``, else ``WordHashTokenizer`` with a warning
+    (its ids are NOT t5-base, so released checkpoints are not conditioned
+    faithfully)."""
+    spiece = find_spiece(modelpath)
+    if spiece is not None:
+        try:
+            return SentencePieceTokenizer(spiece, max_length=max_length)
+        except Exception as e:  # a corrupt asset: fall through
+            warnings.warn(f"failed to load {spiece}: {e}")
+    warnings.warn(
+        f"no t5 tokenizer assets found for {modelpath!r}; falling back to "
+        "WordHashTokenizer — token ids will NOT match t5-base, so text "
+        "conditioning under released checkpoints is not faithful. Place "
+        "spiece.model next to the checkpoint or set model.t5_path.")
+    return WordHashTokenizer(vocab_size=vocab_size, max_length=max_length)
 
 
 def focus_word_indices(

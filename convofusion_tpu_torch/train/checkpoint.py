@@ -197,11 +197,11 @@ def load_checkpoint(path: str, model, trainer=None,
     With ``trainer``, its masters, moments and count come back from the
     file; a trainer state whose names or shapes differ from the trainer's
     warns and resumes with the parameters only (fresh moments), as JAX
-    does.  With ``generator``, its state comes back where the file has
-    one."""
+    does, its fp32 masters then the file's fp32 weights.  With
+    ``generator``, its state comes back where the file has one."""
     obj = _read(path)
-    _load_weights(model, _from_reference_names(_tensors(obj["state_dict"])),
-                  str(path))
+    weights = _from_reference_names(_tensors(obj["state_dict"]))
+    _load_weights(model, weights, str(path))
     if trainer is not None:
         state = obj.get("trainer")
         try:
@@ -211,7 +211,7 @@ def load_checkpoint(path: str, model, trainer=None,
         except (KeyError, ValueError) as e:
             warnings.warn(f"optimizer state in {path} does not match the "
                           f"trainer ({e!r}); resuming with params only")
-            trainer.init_state()
+            trainer.init_state(weights)
     if generator is not None and "generator" in obj:
         generator.set_state(obj["generator"])
 

@@ -217,12 +217,41 @@ class Trainer:
                 "vae_diffusion": m.train_vae_diffusion_loss}.get(
                     self.stage, m.train_diffusion_loss)
 
-    def init_state(self) -> AdamWState:
-        """fp32 masters of the trainable parameters and zero moments."""
-        self.masters = [p.detach() if p.dtype == torch.float32
-                        else p.detach().float() for p in self.params]
+    def init_state(self, weights: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> AdamWState:
+        """fp32 masters of the trainable parameters and zero moments.
+
+        A master is the parameter itself in fp32, or, where ``weights`` (a
+        state dict in the model's names) holds the parameter, that tensor
+        in fp32: a bf16 model loaded from fp32 weights then trains from
+        those fp32 values, as JAX's fp32 parameters do, not from their
+        bf16 rounding."""
+        weights = weights or {}
+        masters = []
+        for n, p in zip(self.names, self.params):
+            w = weights.get(n)
+            if w is None:
+                masters.append(p.detach() if p.dtype == torch.float32
+                               else p.detach().float())
+                continue
+            if tuple(w.shape) != tuple(p.shape):
+                raise ValueError(f"init_state: {n} has shape "
+                                 f"{tuple(w.shape)}, the parameter "
+                                 f"{tuple(p.shape)}")
+            w = w.detach().to(p.device, torch.float32)
+            if p.dtype == torch.float32:
+                with torch.no_grad():
+                    p.copy_(w)
+                masters.append(p.detach())
+            else:
+                masters.append(w.clone())
+        self.masters = masters
         self._lowp = [(p, m) for p, m in zip(self.params, self.masters)
                       if p.dtype != torch.float32]
+        if self._lowp:
+            with torch.no_grad():
+                torch._foreach_copy_([p for p, _ in self._lowp],
+                                     [m for _, m in self._lowp])
         self.state = self.optimizer.init(self.masters)
         return self.state
 

@@ -32,6 +32,7 @@ from convofusion_tpu.data import synthetic as jax_synthetic
 from convofusion_tpu.diffusion.schedulers import DiffusionScheduler
 from convofusion_tpu.models import weg as jax_weg
 from convofusion_tpu.models.convofusion import Convofusion as JaxConvofusion
+from convofusion_tpu.train.trainer import Trainer as JaxTrainer
 from convofusion_tpu.ops.pallas_step import fused_guided_step
 from convofusion_tpu_torch.compat.from_jax import state_dict_from_jax
 from convofusion_tpu_torch.config import TINY
@@ -43,7 +44,11 @@ from convofusion_tpu_torch.diffusion.schedulers import (
 )
 from convofusion_tpu_torch.ops.guided_step import guided_step
 from convofusion_tpu_torch.train.trainer import Trainer, trainable_parameters
-from test_torch_train import diffusion_draws
+from test_torch_train import (
+    diffusion_draws,
+    jax_params_from_port,
+    port_config,
+)
 
 B, T, LAT = 3, 16, 32
 TIMESTEP = 620
@@ -88,6 +93,19 @@ WINDOW_DISTANCE_RATIO, WINDOW_MEAN_RATIO = 1.5, 2.0
 # 0.65x) and within TRAIN_GRAD_TENSOR_RATIO of it in each (observed 1.31x)
 TRAIN_LOSS_ULPS = 1
 TRAIN_GRAD_MAX, TRAIN_GRAD_TENSOR_RATIO = 0.125, 2.0
+# a whole DDIM-50 sample: as the window, by mean distances (observed
+# 1.15x and 1.27x on the latents, 1.14x and 1.10x on the motion)
+SAMPLE_STEPS = 50
+SAMPLE_DISTANCE_RATIO, SAMPLE_MEAN_RATIO = 1.5, 2.0
+# three AdamW steps: every loss within TRAIN_LOSS_ULPS of JAX's (observed
+# 0.04, 0.29, 0.46 ulps).  An update moves a weight by at most 1.0035 lr
+# in the first three steps (|m_hat / sqrt(v_hat)| by Cauchy-Schwarz at
+# betas 0.9 / 0.999, weight decay 1e-2 adds ~1e-2 |w| lr), so masters and
+# JAX's parameters, started equal, part by at most ~6.02 lr where
+# near-zero gradients take opposite signs (observed 5.9 lr); the mean
+# distance is the measure: the port's masters from the fp32 port's within
+# FP32_DISTANCE_RATIO of JAX's (observed 0.94x)
+MASTER_MAX_LRS = 6.1
 ACP = DiffusionScheduler().alphas_cumprod
 STEP_CASES = {
     # name: (alpha_t, alpha_prev, is_ddpm, add_noise)
@@ -457,3 +475,110 @@ def test_fp32_master_keeps_updates_below_bf16_spacing():
     assert torch.equal(weight, master.to(torch.bfloat16))
     moved = weight[big] != start[big]
     assert float(moved.float().mean()) > 0.5
+
+
+def _bf16_jax_model(variant=None, audio_dropout=None):
+    cfg = tiny_config("diffusion")
+    for block in ("denoiser", "motion_vae", "text_encoder", "audio_encoder"):
+        cfg.model[block].params["compute_dtype"] = "bfloat16"
+    if variant:
+        cfg.model.scheduler["variant"] = variant
+    jm = JaxConvofusion(cfg)
+    if audio_dropout is not None:
+        jm.audio_encoder = jm.audio_encoder.clone(dropout=audio_dropout)
+    return jm
+
+
+def test_sample_50_steps_matches_jax_bf16(twins):
+    """A whole DDIM-50 sample() in bf16 on both sides (the step kernel's
+    path: JAX's Pallas kernel in interpret mode, the port's plain
+    version), JAX's noise replayed, the fp32 port on the same inputs as
+    the reference.  Rounding compounds over 50 steps and x0 clipping
+    turns it into jumps, so values are compared by their mean distance."""
+    _, params, ports, jbatch, tbatch = twins
+    jm = _bf16_jax_model("ddim")
+    key = jax.random.PRNGKey(12)
+    motion_j, lat_j, _ = jax.jit(lambda p, b, k: jm.sample(
+        p, b, k, num_inference_steps=SAMPLE_STEPS))(params, jbatch, key)
+    k_init, k = jax.random.split(key)
+    init = np.array(jax.random.normal(k_init, (B, T, LAT)))
+    steps = []
+    for _ in range(SAMPLE_STEPS):
+        k, k_step = jax.random.split(k)
+        steps.append(np.array(jax.random.normal(k_step, (B, T, LAT))))
+    out = {}
+    for dtype, port in ports.items():
+        saved = port.scheduler
+        port.scheduler = dataclasses.replace(saved, variant="ddim")
+        try:
+            out[dtype] = port.sample(
+                tbatch, num_inference_steps=SAMPLE_STEPS,
+                init_noise=torch.from_numpy(init),
+                step_noise=torch.from_numpy(np.stack(steps)))
+        finally:
+            port.scheduler = saved
+    for i, want in ((1, lat_j), (0, motion_j)):
+        a, b, ref = _np(want), _np(out["bfloat16"][i]), _np(
+            out["float32"][i])
+        assert np.isfinite(b).all() and b.shape == a.shape
+        jax_dist = np.abs(a - ref).mean()
+        assert np.abs(b - ref).mean() <= SAMPLE_DISTANCE_RATIO * jax_dist
+        assert np.abs(a - b).mean() <= SAMPLE_MEAN_RATIO * jax_dist
+
+
+def test_three_training_steps_match_jax_bf16():
+    """Three stage-2 AdamW steps in bf16 on both sides, on JAX's key
+    splits: JAX keeps fp32 parameters and casts them at each use, the port
+    keeps bf16 weights with fp32 masters, which start from the same fp32
+    weights (``init_state(weights)``: started from their bf16 rounding,
+    the port's step-2 loss was 1.9560 against JAX's 1.9090).  The losses,
+    and the masters against JAX's parameters after the three steps,
+    measured against the fp32 port's run on the same draws."""
+    b = 6
+    f32 = Convofusion(port_config(), device="cpu", seed=2)
+    params = jax_params_from_port(f32)
+    sd = f32.state_dict()
+    bf16 = Convofusion(port_config(), dtype="bfloat16", device="cpu",
+                       seed=None)
+    bf16.load_state_dict(sd)
+    jm = _bf16_jax_model(audio_dropout=0.0)
+    raws = [jax_synthetic.synthetic_raw_batch(40 + i, b) for i in range(3)]
+    jbs = [jax_synthetic.prepare_arrays(jm, r)[0] for r in raws]
+    jt = JaxTrainer(jm, jm.cfg)
+    key = jax.random.PRNGKey(13)
+    params_j, _, loss_j = jt.fit_steps(params, jt.optimizer.init(params),
+                                       jbs, key, log_every=1)
+    draws, k = [], key
+    for _ in range(3):
+        k, sub = jax.random.split(k)
+        draws.append(diffusion_draws(jm, sub, b))
+    runs = {}
+    for name, model in (("bfloat16", bf16), ("float32", f32)):
+        tbs = [torch_synthetic.prepare_arrays(model, r)[0] for r in raws]
+        trainer = Trainer(model)
+        trainer.init_state(sd)
+        losses = trainer.fit_steps(tbs, None, log_every=1, draws=draws)
+        runs[name] = (losses, trainer)
+    loss_b, trainer_b = runs["bfloat16"]
+    loss_f, trainer_f = runs["float32"]
+    assert all(m.dtype == torch.float32 for m in trainer_b.masters)
+    for lj, lb, lf in zip(loss_j, loss_b, loss_f):
+        assert abs(lb - lj) <= TRAIN_LOSS_ULPS * _ulp(np.asarray(lj))
+        assert abs(lb - lf) <= FP32_DISTANCE_RATIO * abs(lj - lf) + \
+            TRAIN_LOSS_ULPS * _ulp(np.asarray(lj))
+    want = state_dict_from_jax(jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32), params_j))
+    names = [n for n, _ in trainable_parameters(bf16, "diffusion")]
+    masters_b = dict(zip(names, trainer_b.masters))
+    masters_f = dict(zip(names, trainer_f.masters))
+    port_dist = jax_dist = 0.0
+    worst = 0.0
+    for n in names:
+        a, m, r = want[n].numpy(), masters_b[n].numpy(), masters_f[n].numpy()
+        worst = max(worst, np.abs(a - m).max())
+        port_dist += np.abs(m - r).mean()
+        jax_dist += np.abs(a - r).mean()
+        param = dict(bf16.named_parameters())[n]
+        assert torch.equal(param, masters_b[n].to(param.dtype)), n
+    assert worst <= MASTER_MAX_LRS * TINY["train"]["optim"]["lr"]
+    assert port_dist <= FP32_DISTANCE_RATIO * jax_dist

@@ -295,3 +295,24 @@ def test_trainer_state_mismatch_resumes_with_params_only(tmp_path, batch):
         again = Trainer(Convofusion(TINY, device="cpu", seed=20))
         ck.load_checkpoint(path, again.model, again)
     assert again.state.count == 1
+
+
+def test_params_only_resume_takes_fp32_masters_from_the_file(tmp_path):
+    """A bf16 trainer resumed from a file without trainer state starts its
+    fp32 masters from the file's fp32 weights, not from their bf16
+    rounding (JAX trains on the fp32 values it loads)."""
+    src = Convofusion(TINY, device="cpu", seed=21)
+    path = ck.save_checkpoint(str(tmp_path), 0, src)
+    model = Convofusion(TINY, dtype="bfloat16", device="cpu", seed=None)
+    trainer = Trainer(model)
+    with pytest.warns(UserWarning, match="params only"):
+        ck.load_checkpoint(path, model, trainer)
+    want = dict(src.named_parameters())
+    got = dict(model.named_parameters())
+    rounded = 0
+    for n, master in zip(trainer.names, trainer.masters):
+        assert master.dtype == torch.float32
+        assert torch.equal(master, want[n].detach()), n
+        assert torch.equal(got[n], master.to(got[n].dtype)), n
+        rounded += int(not torch.equal(got[n].float(), master))
+    assert rounded > 0

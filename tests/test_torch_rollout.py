@@ -284,7 +284,8 @@ def test_rollout_weg_parameters_are_the_reference_constants(weights,
 
     def fake_sample(arrays, generator=None, n=None, init_noise=None,
                     step_noise=None, uncond_cache=None, focus=None,
-                    weg_params=None, preseq=None):
+                    weg_params=None, preseq=None, capture_attention="none"):
+        assert capture_attention == "none"
         seen.append((weg_params, preseq is None))
         b = arrays["lsn_id"].shape[0]
         return torch.zeros(b, 128, 189), torch.zeros(b, T, LAT)

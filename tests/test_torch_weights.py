@@ -124,8 +124,10 @@ def _flatten_shapes(tree, prefix):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imported: neither JAX
-    nor the JAX package comes along, the config system, the checkpoints
-    and the asset drop included (each keeps its own copy)."""
+    nor the JAX package comes along, the config system, the checkpoints,
+    the asset drop, the tokenizers, the data pipeline and the test CLI
+    included (each keeps its own copy), and neither do the tokenizer
+    packages the JAX side uses as its oracle."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import convofusion_tpu_torch as p\n"
@@ -134,10 +136,15 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "need = ['convofusion_tpu_torch.' + m for m in ('config', "
         "'config.omega', 'config.from_yaml', 'train.checkpoint', "
-        "'utils.assets', 'serving')]\n"
+        "'utils.assets', 'serving', 'models.sentencepiece', "
+        "'models.tokenizer', 'data.text', 'data.audio', 'native', "
+        "'data.dataset', 'data.collate', 'data.datamodule', "
+        "'data.fixture', 'utils.quaternion', 'utils.geometry', "
+        "'utils.logger', 'utils.profiling', 'cli.test')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'orbax', 'convofusion_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'convofusion_tpu', "
+        "'tokenizers', 'transformers', 'sentencepiece')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
