@@ -8,17 +8,18 @@ picks some (default all; 1-3 always run, and one phase that launches the
 step kernel must be among them):
   1. device  - require CUDA; print the card's name and power limit; TF32 off
   2. build   - nvcc the hand-written kernels from convofusion_tpu_torch/csrc
-  3. kernel  - at the main path's B=96 shapes, every kernel against its
+  3. kernel  - at the main path's B=96 shapes and at the batches the other
+               path phases give it (PATH_BATCHES), every kernel against its
                plain PyTorch version on the card (DDPM mid, DDPM final,
                DDIM; fp32 and bf16 branch planes), max |diff| <= 1e-5;
-               CUDA-event times of kernel (L2 flushed, and back to back)
+               at B=96 CUDA-event times of kernel (L2 flushed, and back to back)
                and plain version; then the step kernel's tile and block
                size sweep at the main path's case (bf16 planes, DDIM)
   4. parity  - production geometry, fp32, batch 2, DDIM-50, seeded weights,
                numpy-made inputs and noise: sample() on the card (through
                the kernel) against sample() on the CPU (plain version)
   5. main    - production geometry, bf16, batch 96, DDIM-50, 7-way
-               guidance through Convofusion.sample: one warm-up and three
+               guidance through Convofusion.sample: one warm-up and two
                timed calls; (96, 128, 189) finite motion and exactly 50
                kernel launches per call; clips/s, ms/call, peak memory,
                one call split into encode / reverse / decode, and a
@@ -34,7 +35,7 @@ step kernel must be among them):
                gradient); then one WEG step's ms and kernels with the
                deterministic forms and with the earlier gather forms
   7. serve   - production geometry, bf16, batch 96, DDIM-50, WEG on,
-               through build_service and GestureService: 2 x 96 requests
+               through build_service and GestureService: 96 requests
                from client threads (most with 1-3 focus words of their own
                text), a few more through serve_http on a loopback port;
                (128, 189) finite motion for every request, exactly 50
@@ -51,10 +52,10 @@ step kernel must be among them):
                latents within their tolerances, root xz continuity between
                windows, exactly 10 kernel launches a window on the card,
                equal WEG counts on both sides
-  9. rollout - production geometry, bf16, batch 96, 3 parts (5 windows),
-               DDIM-50 (bench.py --mode rollout's defaults): one warm-up
+  9. rollout - production geometry, bf16, batch 96, 2 parts (3 windows;
+               bench.py --mode rollout has 3 parts), DDIM-50: one warm-up
                and one timed rollout without WEG, one with 'random' WEG;
-               finite (96, 128, 189) motion for every window, exactly 250
+               finite (96, 128, 189) motion for every window, exactly 150
                kernel launches a rollout, one uncond encode a sampler (the
                first window of its first rollout); windows/s, ms a window,
                the host's ms a window (window text, tokenization, focus
@@ -63,7 +64,7 @@ step kernel must be among them):
                preseq
  10. dpmpp    - production geometry, DPM-Solver++ 2M at 20 steps: fp32
                batch 2 on the card against the CPU, then bf16 batch 96,
-               one warm-up and three timed calls (clips/s, ms/call); the
+               one warm-up and two timed calls (clips/s, ms/call); the
                fused step kernel is never launched (JAX's gate); after the
                count is read, DDIM-20 and dpmpp_2m-20 in turns on that model
  11. train_parity - production geometry, fp32, batch 4, seeded weights,
@@ -75,7 +76,7 @@ step kernel must be among them):
  12. train    - production geometry, bf16 compute with fp32 master weights:
                stage 2 at batch 64 with token ids, stage 2 at batch 64 with
                the cached T5 trunk and VAE posterior (bench.py --cached-text
-               --cached-vae), stage 1 at batch 128; each 3 warm-up and 20
+               --cached-vae), stage 1 at batch 128; each 3 warm-up and 10
                timed steps (median ms a step, clips/s), peak memory, and 2
                profiled steps (kernels a step, the card's busy share), and
                one profiled step with F.dropout's fused kernel (the kernels
@@ -92,7 +93,7 @@ step kernel must be among them):
                4 stage 2, dropout 0.1, 2 steps + save + load + 2 steps
                against 4 straight steps, losses within 1e-6 relative
  14. test_cli - the test CLI (cli/test.main) on real-format inputs: BEAT and
-               DnD fixture trees (data/fixture.py) with 36 test items, a
+               DnD fixture trees (data/fixture.py) with 32 test items, a
                synthesized 32k t5-geometry spiece.model in the asset drop
                (the model must pick the SentencePiece tokenizer),
                config_cf_beatdnd.yaml with the DDIM-50 overrides, bf16,
@@ -106,8 +107,38 @@ step kernel must be among them):
                the config's): the same files, byte-equal texts and semantic
                CSVs, motion within 1e-3 and latents within 2e-3; then the
                batch mel on the card against the host's
-Then the whole run's wall time, a JSON line of per-kernel numbers
-(launches summed over phases 5-14 that ran, and each phase's count under
+ 15. train_cli - the training and rollout CLIs on fixture trees, with a
+               synthesized spiece.model in the asset drop: stage 1
+               (cli/train.main, config_vae_beatdnd.yaml, bf16, batch 128,
+               3 epochs, validation and a background checkpoint each), then
+               stage 2 (config_cf_beatdnd.yaml, the stage-1 file
+               transplanted, bf16, batch 64, 3 epochs, the T5-trunk and VAE
+               posterior caches, prefetch 2): every logged loss finite,
+               total/train and total/val in metrics.jsonl, the caches' hits
+               and misses (no trunk miss after the first epoch), no host
+               wait inside a step (CUDA sync checker), 0 step-kernel
+               launches, ms a step and clips/s of the steady epochs beside
+               phase 12's Trainer step, the prefetch thread's loader and
+               prepare ms a batch and the step loop's wait, peak memory; a
+               fourth epoch through TRAIN.RESUME from epoch=2.ckpt, its
+               batches prepared inline (TPU.PREFETCH=0); then
+               the stage-2 CLI in fp32, dropout 0, batch 4, 2 epochs on the
+               card and on the CPU: each epoch's loss within 1e-4
+               relative, every step's gradients within phase 11's
+               tolerance, every final weight within 1e-5 + 1e-3 max|w| of
+               its tensor or, for at most 100 elements, equal to a float64
+               AdamW replay of its device's gradients; then
+               cli/unbounded.main from the stage-2 file (bf16, DDIM-50,
+               semantic WEG with the refinement capped at 3 iterations, one
+               test batch of 3-window recordings at MAX_LEN 256, 50
+               launches a window, windows/s); eval/run.main over its dump,
+               dyadic (the FID forward on the card) and monadic (numpy on
+               the host), against --device cpu within 1e-5 relative;
+               unguided sample() (guidance scale 1.0), fp32 batch 2,
+               DDIM-10 and dpmpp_2m-10, card vs CPU, 0 launches
+Then the kernel against its plain version at any other shape the path
+phases launched it with, the whole run's wall time, a JSON line of per-kernel numbers
+(launches summed over phases 5-15 that ran, and each phase's count under
 launches_by_phase; the dpmpp and training phases launch no step kernel)
 and, last, the result line {"ok": true, "device": {...}}.
 """
@@ -116,7 +147,9 @@ import contextlib
 import copy
 import dataclasses
 import glob
+import io
 import json
+import math
 import os
 import random
 import statistics
@@ -136,6 +169,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from convofusion_tpu_torch import native
 from convofusion_tpu_torch.cli import test as cli_test
+from convofusion_tpu_torch.cli import train as cli_train
+from convofusion_tpu_torch.cli import unbounded as cli_unbounded
 from convofusion_tpu_torch.cli.unbounded import rollout
 from convofusion_tpu_torch.config import (
     DEFAULTS_DIR,
@@ -154,6 +189,7 @@ from convofusion_tpu_torch.data.synthetic import (
     synthetic_long_batch,
     synthetic_raw_batch,
 )
+from convofusion_tpu_torch.eval import run as eval_run
 from convofusion_tpu_torch.models.convofusion import (
     CachedSampler,
     Convofusion,
@@ -174,9 +210,15 @@ from convofusion_tpu_torch.serving import (
     serve_http,
 )
 from convofusion_tpu_torch.train import checkpoint as ckpt_lib
-from convofusion_tpu_torch.train.trainer import Trainer, trainable_parameters
+from convofusion_tpu_torch.train.trainer import (
+    Trainer,
+    make_optimizer,
+    trainable_parameters,
+)
 
-BATCH, STEPS, TIMED_CALLS = 96, 50, 3   # bench.py:26-29 (batch, steps)
+# bench.py:26-29 (batch, steps); timed calls of phases 5 and 10 (cut
+# from 3 to keep the whole run in its time)
+BATCH, STEPS, TIMED_CALLS = 96, 50, 2
 KERNEL_TOL = 1e-5
 TIMING_RUNS = 200
 PROFILE_STEPS = 5
@@ -184,6 +226,12 @@ PROFILE_STEPS = 5
 # case: 192, 128 and 96 blocks at B = 96 on the card's 132 SMs
 SWEEP = [(tile, threads) for tile in (1024, 1536, 2048)
          for threads in (128, 256)]
+# the other batches the path phases give the kernel (B * 16 * 128 elements;
+# 20 and 16 end on a short block at the tile of 1536): 2 in phases 6 and 8,
+# 4 in 14's parity run, 32 in 13 and 14, 8-16 in 15's rollout, 20 for a
+# fixture of 4 BEAT files.  main() holds the kernel at any other shape a
+# path phase launched it with as well
+PATH_BATCHES = (2, 4, 8, 16, 20, 32)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # fp32 (non-tensor-core) flop/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -199,18 +247,20 @@ WEG_PARITY_ATOL = 1e-3
 WEG_LATENT_ATOL = 2e-3
 # the refinement forced at step 0: the loop runs to its bound on both sides
 WEG_FORCED = {"thresholds": {0: 0.99}, "max_refinement_steps": 5}
-# timed calls of one WEG step in each form
-WEG_COST_CALLS = 20
-# phase 7: requests a client thread submits, and the HTTP requests
-SERVE_CLIENTS, SERVE_HTTP_REQUESTS = 8, 4
+# timed calls of one WEG step in each form (cut from 20)
+WEG_COST_CALLS = 10
+# phase 7: client threads, timed micro-batches (cut from 2) and the
+# HTTP requests
+SERVE_CLIENTS, SERVE_TIMED_BATCHES, SERVE_HTTP_REQUESTS = 8, 1, 4
 # every Nth service request carries no focus words
 NO_FOCUS_EVERY = 5
 # phase 8: DDIM-10 rollouts of 2 parts (3 windows); tolerances argued in
 # phase_rollout_parity
 ROLLOUT_PARITY_STEPS, ROLLOUT_PARITY_PARTS = 10, 2
 ROLLOUT_MOTION_ATOL, ROLLOUT_LATENT_ATOL = 1e-3, 2e-3
-# phase 9: bench.py --mode rollout's parts (batch and steps as phase 5)
-ROLLOUT_PARTS, ROLLOUT_TIMED = 3, 1
+# phase 9: parts of a rollout (bench.py --mode rollout's 3, cut to 2; 2
+# parts are 3 windows) and timed rollouts (batch and steps as phase 5)
+ROLLOUT_PARTS, ROLLOUT_TIMED = 2, 1
 # phase 10: DPM-Solver++ 2M steps (bench.py --sampler dpmpp_2m --steps 20)
 DPMPP_STEPS = 20
 DPMPP_ATOL, DPMPP_LATENT_ATOL = 1e-3, 2e-3
@@ -220,9 +270,9 @@ TRAIN_PARITY_BATCH, TRAIN_PARITY_STEPS = 4, 3
 TRAIN_LOSS_RTOL, TRAIN_FIT_RTOL = 1e-4, 1e-3
 TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 # phase 12: the production batch sizes (config_cf_beatdnd.yaml:11,
-# config_vae_beatdnd.yaml:17), warm-up, timed and profiled steps, and the
-# stage-1 learning check's steps
-TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 20, 2, 50
+# config_vae_beatdnd.yaml:17), warm-up, timed (cut from 20) and profiled
+# steps, and the stage-1 learning check's steps
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 10, 2, 50
 TRAIN_DIFFUSION_BATCH = PRODUCTION["train"]["batch_size"]
 TRAIN_VAE_BATCH = PRODUCTION_VAE["train"]["batch_size"]
 # phase 13: the YAML scheduler is DDPM-1000 (modules/scheduler.yaml:1-11);
@@ -232,17 +282,47 @@ DDIM_OVERRIDES = ["model.scheduler.variant=ddim",
 # the resume check: batch, (N, M) steps, and the loss tolerance argued in
 # resume_check
 CKPT_RESUME_BATCH, CKPT_RESUME_STEPS, CKPT_RESUME_RTOL = 4, (2, 2), 1e-6
-# phase 14: the test CLI on fixture trees; 2 BEAT speakers x 8 files x 2
-# chunks fill one TEST.BATCH_SIZE batch of 32 (config_cf_beatdnd.yaml:36),
-# the DnD sets a second; the card-vs-CPU run is fp32 DDIM-10 on one batch
-# of 4 BEAT items (phases 6, 8 and 10's tolerances); the batch mel against
-# the host's within 1e-4 of the largest power and 1e-2 dB
-CLI_BEAT_FILES, CLI_PARITY_BATCH, CLI_PARITY_STEPS = 8, 4, 10
+# phase 14: the test CLI on fixture trees; 2 BEAT speakers x 7 files x 2
+# chunks and 4 DnD items make one full TEST.BATCH_SIZE batch of 32
+# (config_cf_beatdnd.yaml:36; the second batch of 8 files is cut);
+# the card-vs-CPU run is fp32 DDIM-10 on one batch of 4 BEAT items
+# (phases 6, 8 and 10's tolerances); the batch mel against the host's
+# within 1e-4 of the largest power and 1e-2 dB
+CLI_BEAT_FILES, CLI_PARITY_BATCH, CLI_PARITY_STEPS = 7, 4, 10
 # the parity run's WEG refinement bound: the config's 300 iterations take
 # ~55 s on 8 CPU cores at this width; phase 6 holds the full loop
 CLI_PARITY_REFINE = 3
 CLI_MOTION_ATOL, CLI_LATENT_ATOL = 1e-3, 2e-3
 MEL_POWER_RTOL, MEL_DB_ATOL = 1e-4, 1e-2
+# phase 15: the training and rollout CLIs, eval and unguided sampling.  2
+# BEAT speakers x 64 files of 11 s (2 chunks each) + the DnD listener
+# items fill stage 1's batch of 128 twice and stage 2's of 64 four times;
+# 3 epochs a stage, then a resumed fourth for stage 2
+TRAIN_CLI_FILES, TRAIN_CLI_EPOCHS = 64, 3
+# card vs CPU through the CLI: fp32, dropout 0, batch 4, 2 stage-2 epochs
+# on a 1-file fixture (2 steps an epoch); tolerances argued in
+# train_cli_parity
+TRAIN_CLI_PARITY_BATCH, TRAIN_CLI_PARITY_EPOCHS = 4, 2
+TRAIN_CLI_LOSS_RTOL = 1e-4
+TRAIN_CLI_WEIGHT_ATOL, TRAIN_CLI_WEIGHT_RTOL = 1e-5, 1e-3
+# an element beyond that bound must be what AdamW makes of the recorded
+# gradients: its final weight within 1e-6 of a float64 AdamW replay on
+# each side; at most this many such elements
+TRAIN_CLI_REPLAY_ATOL, TRAIN_CLI_REPLAY_MAX = 1e-6, 100
+# the rollout CLI at MAX_LEN 256 (3 windows: two 128-frame parts and the
+# stitch between them) on one test batch of 2 speakers x 4 files + the DnD
+# items, the refinement loop of the rollout's fixed WEG parameters
+# (cli/unbounded.ROLLOUT_WEG_PARAMETERS, as the reference's) capped at 3
+# iterations a refined step: at its bound of 300 the random weights never
+# meet the threshold and a window took 28-40 s; phase 6 runs a forced loop
+# to its bound
+UNBOUNDED_FILES, UNBOUNDED_MAX_LEN, UNBOUNDED_REFINE = 4, 256, 3
+# eval/run on the card against --device cpu
+EVAL_RTOL = 1e-5
+# unguided sampling (guidance_scale 1.0), card vs CPU, fp32 batch 2
+UNGUIDED_STEPS = 10
+# what earlier phases of this run measured, for later phases to print
+PHASE_RESULTS = {}
 
 
 def log(*args):
@@ -349,11 +429,12 @@ def kernel_error(args) -> float:
     return err
 
 
-def step_inputs(dtype=torch.bfloat16, batch=BATCH):
-    """Seeded (7, B, 16, 128) branch planes, latents and noise on the card,
-    and the three step cases (alpha_t, alpha_prev, is_ddpm, add_noise)."""
+def step_inputs(dtype=torch.bfloat16, batch=BATCH, shape=None):
+    """Seeded (7, B, 16, 128) branch planes (or (7,) + ``shape``), latents
+    and noise on the card, and the three step cases (alpha_t, alpha_prev,
+    is_ddpm, add_noise)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shape = (batch, 16, PRODUCTION["latent_dim"][1])
+    shape = shape or (batch, 16, PRODUCTION["latent_dim"][1])
     np7 = torch.randn((7,) + shape, generator=gen, device="cuda").to(dtype)
     lat = torch.randn(shape, generator=gen, device="cuda")
     noise = torch.randn(shape, generator=gen, device="cuda")
@@ -369,9 +450,29 @@ def step_inputs(dtype=torch.bfloat16, batch=BATCH):
         for name, (a_t, a_prev, is_ddpm, add_noise) in cases.items()}
 
 
+def kernel_at_shapes(shapes):
+    """The kernel against its plain version in the three step cases at
+    each (latents shape, plane dtype) of ``shapes``; the largest gap."""
+    max_err = 0.0
+    for shape, dtype in sorted(shapes, key=str):
+        np7, lat, noise, cases = step_inputs(dtype, shape=shape)
+        for scalars in cases.values():
+            max_err = max(max_err, kernel_error((np7, lat, noise) + scalars))
+    return max_err
+
+
 def phase_kernel():
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     rows, max_err = {}, 0.0
+    checked = {((b, 16, PRODUCTION["latent_dim"][1]), dtype)
+               for b in PATH_BATCHES + (BATCH,)
+               for dtype in (torch.float32, torch.bfloat16)}
+    err = kernel_at_shapes(checked - {((BATCH, 16, PRODUCTION["latent_dim"][
+        1]), dtype) for dtype in (torch.float32, torch.bfloat16)})
+    max_err = max(max_err, err)
+    log(f"# kernel guided_step at batches {list(PATH_BATCHES)}, fp32 and "
+        f"bf16 planes, the three cases: max|diff| {err:.3g} (tol "
+        f"{KERNEL_TOL})")
     for dtype in (torch.float32, torch.bfloat16):
         np7, lat, noise, cases = step_inputs(dtype)
         for name, scalars in cases.items():
@@ -404,7 +505,7 @@ def phase_kernel():
             f"{threads} ({-(-lat.numel() // tile)} blocks): max|diff| "
             f"{err:.3g}  kernel {ms * 1e3:.2f} us  back to back "
             f"{warm_ms * 1e3:.2f} us")
-    return rows, max_err
+    return rows, max_err, checked
 
 
 def _noise(rng, n_steps, shape):
@@ -738,12 +839,12 @@ def phase_serve(smi, device=None):
         _check_served(warm, "serve warm-up")
         svc.reset_stats()
         gs_mod.guided_step.launches = 0
-        reqs = _serve_requests(2 * BATCH, 41)
+        reqs = _serve_requests(SERVE_TIMED_BATCHES * BATCH, 41)
         motions, wall = _submit_from_clients(svc, reqs, SERVE_CLIENTS)
         _check_served(motions, "serve")
         st = svc.stats()
         launches = gs_mod.guided_step.launches
-        if st["requests"] != 2 * BATCH or \
+        if st["requests"] != SERVE_TIMED_BATCHES * BATCH or \
                 (on_card and launches != STEPS * st["batches"]):
             raise RuntimeError(f"serve: {st['requests']} requests in "
                                f"{st['batches']} batches with {launches} "
@@ -786,7 +887,8 @@ def phase_serve(smi, device=None):
             _check_served(got, "serve over HTTP")
             with urllib.request.urlopen(f"{url}/stats", timeout=60) as resp:
                 http_st = json.loads(resp.read())
-            if http_st["requests"] != 2 * BATCH + SERVE_HTTP_REQUESTS:
+            if http_st["requests"] != \
+                    SERVE_TIMED_BATCHES * BATCH + SERVE_HTTP_REQUESTS:
                 raise RuntimeError(f"GET /stats counts {http_st['requests']}"
                                    f" requests")
         finally:
@@ -969,8 +1071,8 @@ def phase_rollout_parity(device="cuda"):
 
 
 def phase_rollout(smi, device=None):
-    """bench.py --mode rollout on the port: bf16 batch 96, 3 parts,
-    DDIM-50."""
+    """bench.py --mode rollout on the port: bf16 batch 96, DDIM-50, with
+    ROLLOUT_PARTS parts (bench.py's 3, cut to keep the run in its time)."""
     model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=1)
     dev = model.device
     on_card = dev.type == "cuda"
@@ -1601,10 +1703,10 @@ def resume_check(cfg, seed, device, tmp):
         raise RuntimeError(f"resume: losses {resumed} against {straight}")
 
 
-def _cli_argv(tmp, roots, name, overrides):
-    """The test CLI's argv: config_cf_beatdnd.yaml, an assets file (merged
-    last) pointing the dataset roots and the output folders into ``tmp``,
-    and dotlist overrides."""
+def _cli_argv(tmp, roots, name, overrides, cfg="config_cf_beatdnd.yaml"):
+    """A CLI's argv: ``cfg`` (config_cf_beatdnd.yaml by default), an assets
+    file (merged last) pointing the dataset roots and the output folders
+    into ``tmp``, and dotlist overrides."""
     assets = OmegaConf.load(os.path.join(DEFAULTS_DIR, "assets.yaml"))
     assets.DATASET.BEATDND.ROOT = list(roots)
     assets.DATASET.BEATDND.SPLIT_ROOT = list(roots)
@@ -1612,7 +1714,7 @@ def _cli_argv(tmp, roots, name, overrides):
     assets.TEST = {"FOLDER": os.path.join(tmp, "results")}
     path = os.path.join(tmp, f"assets_{name}.yaml")
     OmegaConf.save(assets, path)
-    return ["--cfg", os.path.join(DEFAULTS_DIR, "config_cf_beatdnd.yaml"),
+    return ["--cfg", os.path.join(DEFAULTS_DIR, cfg),
             "--cfg_assets", path, f"NAME={name}", *overrides]
 
 
@@ -1722,7 +1824,7 @@ def phase_test_cli(smi, device=None):
             f" clips/s), step-kernel launches {calls}; {len(dirs)} result "
             f"directories, {len(att)} attention-map files; peak memory "
             f"{peak / 2**30:.2f} GiB")
-        if len(dirs) != sum(run.batch_sizes) or run.batch_sizes[0] != 32 \
+        if len(dirs) != sum(run.batch_sizes) or len(run.batch_sizes) != 1 \
                 or len(att) != len(dirs) * 5 * STEPS:
             raise RuntimeError(f"test_cli: {len(dirs)} result directories, "
                                f"{len(att)} attention maps for batches "
@@ -1832,6 +1934,532 @@ def batch_mel_check(beat_root, on_card):
         raise RuntimeError("test_cli: the batch mel disagrees with the host")
 
 
+@contextlib.contextmanager
+def sync_checked_step(index, found):
+    """While open, Trainer step ``index`` (counted from 0 over every
+    Trainer) runs with the CUDA sync checker on, from its compute_grads to
+    the end of its apply_grads; each synchronising operation of the main
+    thread in it is appended to ``found``.  The prefetch thread's work
+    (cache-miss encodes copied to the host) is not the step's and is not
+    counted."""
+    compute, apply = Trainer.compute_grads, Trainer.apply_grads
+    state = {"step": 0, "ctx": None}
+    main = threading.current_thread()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        text = str(message)
+        if threading.current_thread() is main and \
+                "called a synchronizing CUDA operation" in text:
+            found.append(text)
+
+    def compute_grads(self, *args, **kwargs):
+        if state["step"] == index:
+            state["ctx"] = warnings.catch_warnings()
+            state["ctx"].__enter__()
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+        return compute(self, *args, **kwargs)
+
+    def apply_grads(self):
+        try:
+            return apply(self)
+        finally:
+            if state["ctx"] is not None:
+                torch.cuda.set_sync_debug_mode(0)
+                state["ctx"].__exit__(None, None, None)
+                state["ctx"] = None
+            state["step"] += 1
+
+    Trainer.compute_grads, Trainer.apply_grads = compute_grads, apply_grads
+    try:
+        yield found
+    finally:
+        Trainer.compute_grads, Trainer.apply_grads = compute, apply
+
+
+@contextlib.contextmanager
+def dropout_free_training():
+    """While open, the train CLI's model has every dropout rate at 0 (the
+    mel MLP's 0.1 is not a config knob): card and CPU draw their masks
+    from generators of their own, so only a dropout-free run compares."""
+    build = cli_train.build_model
+
+    def build_model(cfg, dtype, device):
+        model = build(cfg, dtype, device)
+        for m in model.modules():
+            if isinstance(m, (layers.Dropout, torch.nn.Dropout)):
+                m.p = 0.0
+        return model
+
+    cli_train.build_model = build_model
+    try:
+        yield
+    finally:
+        cli_train.build_model = build
+
+
+def _metric_rows(exp_dir, what):
+    """metrics.jsonl's rows; every value finite, total/train and
+    total/val in each."""
+    with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for row in rows:
+        bad = [k for k, v in row.items() if not np.isfinite(v)]
+        if bad or not {"total/train", "total/val"} <= set(row):
+            raise RuntimeError(f"train_cli {what}: epoch {row['step']}: "
+                               f"non-finite {bad}, keys {sorted(row)}")
+    return rows
+
+
+def _cache_deltas(stats, name):
+    """Each epoch's hits and misses of a cache (the stats are running
+    totals)."""
+    out, hits, misses = [], 0, 0
+    for e in stats.epochs:
+        out.append((e[f"{name}_hits"] - hits, e[f"{name}_misses"] - misses))
+        hits, misses = e[f"{name}_hits"], e[f"{name}_misses"]
+    return out
+
+
+def phase_train_cli(smi, device=None):
+    """The training CLI on fixture trees, both stages at the production
+    configs' full width, then the rollout CLI, eval and unguided
+    sampling."""
+    dev_arg = ["--device", device] if device else []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train") as tmp, \
+            asset_root(os.path.join(tmp, "assets")):
+        t0 = time.perf_counter()
+        write_synthetic_spiece(os.path.join(tmp, "assets", "t5-base",
+                                            "spiece.model"))
+        roots = make_fixture_pair(os.path.join(tmp, "data"),
+                                  n_files=TRAIN_CLI_FILES)
+        log(f"# train_cli: spiece.model and fixture trees "
+            f"({TRAIN_CLI_FILES} BEAT files a speaker) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        common = [f"TRAIN.END_EPOCH={TRAIN_CLI_EPOCHS}",
+                  "LOGGER.VAL_EVERY_STEPS=1", "LOGGER.SACE_CHECKPOINT_EPOCH=1",
+                  "TPU.COMPUTE_DTYPE=bfloat16"]
+        exp = os.path.join(tmp, "experiments", "convofusion")
+        before = gs_mod.guided_step.launches
+
+        # stage 1
+        t0 = time.perf_counter()
+        s1 = cli_train.main(_cli_argv(tmp, roots, "vae", common,
+                                      cfg="config_vae_beatdnd.yaml")
+                            + dev_arg)
+        s1_wall = time.perf_counter() - t0
+        b1 = int(s1.cfg["train"]["batch_size"])
+        st1 = s1.train_stats
+        rows1 = _metric_rows(os.path.join(exp, "vae"), "stage 1")
+        log(f"# train_cli: stage 1 (config_vae_beatdnd.yaml), bf16, batch "
+            f"{b1} of {st1.train_items} train items, {TRAIN_CLI_EPOCHS} "
+            f"epochs with validation and a background checkpoint each, on "
+            f"{smi}: {s1_wall:.1f} s in all, data modules {st1.build_s:.2f}"
+            f" s, steps an epoch {[e['steps'] for e in st1.epochs]}, "
+            f"total/train {[round(r['total/train'], 4) for r in rows1]}, "
+            f"total/val {[round(r['total/val'], 4) for r in rows1]}")
+        if st1.train_items < b1 or [e["steps"] for e in st1.epochs] != \
+                [st1.train_items // b1] * TRAIN_CLI_EPOCHS:
+            raise RuntimeError(f"train_cli stage 1: {st1.train_items} items "
+                               f"for batch {b1}: {st1.epochs}")
+        vae_ckpt = ckpt_lib.latest_checkpoint(os.path.join(exp, "vae",
+                                                           "checkpoints"))
+        del s1
+
+        # stage 2 from the stage-1 file, both caches on, prefetch 2
+        over2 = common + [f"TRAIN.PRETRAINED_VAE={vae_ckpt}",
+                          "TPU.CACHE_TEXT_TRUNK=true",
+                          "TPU.CACHE_VAE_POSTERIOR=true", "TPU.PREFETCH=2"]
+        on_card = device != "cpu"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        found = []
+        t0 = time.perf_counter()
+        with sync_checked_step(2, found) if on_card \
+                else contextlib.nullcontext():
+            s2 = cli_train.main(_cli_argv(tmp, roots, "cf", over2) + dev_arg)
+        s2_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        st2 = s2.train_stats
+        b2 = int(s2.cfg["train"]["batch_size"])
+        rows2 = _metric_rows(os.path.join(exp, "cf"), "stage 2")
+        steady = st2.epochs[1:]
+        n_steps = sum(e["steps"] for e in steady)
+        step_s = sum(e["seconds"] for e in steady) / n_steps
+        # without the wait for each epoch's first batch
+        inner_s = sum(e["seconds"] - e["first_batch_s"]
+                      for e in steady) / n_steps
+        # where a steady step's host time goes: the prefetch thread's loader
+        # and prepare a batch, the step loop's wait for a batch after the
+        # first of its epoch
+        loader_ms = sum(e["loader_s"] for e in steady) / n_steps * 1e3
+        prepare_ms = sum(e["prepare_s"] for e in steady) / n_steps * 1e3
+        wait_ms = sum(e["wait_s"] for e in steady) / sum(
+            e["steps"] - 1 for e in steady) * 1e3
+        trunk = _cache_deltas(st2, "trunk")
+        post = _cache_deltas(st2, "posterior")
+        phase12 = PHASE_RESULTS.get("train", {}).get("stage2_cached")
+        beside = (f"phase 12's Trainer step with the cached layout "
+                  f"{phase12['ms']:.2f} ms" if phase12
+                  else "phase 12 did not run")
+        log(f"# train_cli: stage 2 (config_cf_beatdnd.yaml, the stage-1 "
+            f"file transplanted), bf16, batch {b2} of {st2.train_items} "
+            f"train items, trunk and posterior caches, prefetch 2, on {smi}:"
+            f" {s2_wall:.1f} s in all, data modules {st2.build_s:.2f} s; "
+            f"steady epochs {step_s * 1e3:.1f} ms a step, "
+            f"{b2 / step_s:.1f} clips/s, {inner_s * 1e3:.1f} ms a step "
+            f"after each epoch's first batch ({beside}); on the prefetch "
+            f"thread a batch takes {loader_ms:.1f} ms in the loader and "
+            f"{prepare_ms:.1f} ms in prepare, the step loop waits "
+            f"{wait_ms:.1f} ms a step for a batch after the first; seconds "
+            f"an epoch "
+            f"{[round(e['seconds'], 3) for e in st2.epochs]}, of them until "
+            f"the first batch "
+            f"{[round(e['first_batch_s'], 3) for e in st2.epochs]}, steps "
+            f"{[e['steps'] for e in st2.epochs]}; trunk cache (hits, misses)"
+            f" an epoch {trunk}, posterior cache {post}; peak memory "
+            f"{peak / 2**30:.2f} GiB; total/train "
+            f"{[round(r['total/train'], 4) for r in rows2]}, total/val "
+            f"{[round(r['total/val'], 4) for r in rows2]}")
+        if any(miss for _, miss in trunk[1:]):
+            raise RuntimeError(f"train_cli: trunk cache misses after the "
+                               f"first epoch: {trunk}")
+        if on_card:
+            for msg in found[:5]:
+                log(f"# train_cli: host wait: {msg[:300]}")
+            if found:
+                raise RuntimeError(f"train_cli: {len(found)} host waits in "
+                                   f"a stage-2 step")
+            log("# train_cli: no wait for the card inside stage-2 step 2 "
+                "(CUDA sync checker)")
+
+        # a fourth epoch through TRAIN.RESUME, with the batches prepared
+        # inline (TPU.PREFETCH=0): the same work without the thread
+        latest = ckpt_lib.latest_checkpoint(os.path.join(exp, "cf",
+                                                         "checkpoints"))
+        over4 = [o for o in over2 if not o.startswith(
+            ("TRAIN.END_EPOCH", "TPU.PREFETCH"))] + ["TPU.PREFETCH=0"]
+        t0 = time.perf_counter()
+        s3 = cli_train.main(_cli_argv(
+            tmp, roots, "cf", over4 + [f"TRAIN.END_EPOCH="
+                                       f"{TRAIN_CLI_EPOCHS + 1}",
+                                       "TRAIN.RESUME=true"]) + dev_arg)
+        st3 = s3.train_stats
+        e3 = st3.epochs[-1]
+        log(f"# train_cli: resumed from {os.path.basename(latest)} at epoch "
+            f"{st3.start_epoch}: {time.perf_counter() - t0:.1f} s, epochs "
+            f"{[e['epoch'] for e in st3.epochs]}; inline (prefetch 0) "
+            f"{e3['seconds'] / e3['steps'] * 1e3:.1f} ms a step, of it "
+            f"{e3['loader_s'] / e3['steps'] * 1e3:.1f} ms in the loader and "
+            f"{e3['prepare_s'] / e3['steps'] * 1e3:.1f} ms in prepare, "
+            f"against {step_s * 1e3:.1f} ms with prefetch 2")
+        if os.path.basename(latest) != f"epoch={TRAIN_CLI_EPOCHS - 1}.ckpt" \
+                or st3.start_epoch != TRAIN_CLI_EPOCHS or \
+                [e["epoch"] for e in st3.epochs] != [TRAIN_CLI_EPOCHS]:
+            raise RuntimeError(f"train_cli: resume from {latest} started at "
+                               f"{st3.start_epoch}: {st3.epochs}")
+        _metric_rows(os.path.join(exp, "cf"), "resume")
+        train_launches = gs_mod.guided_step.launches - before
+        if train_launches:
+            raise RuntimeError(f"train_cli: training launched the step "
+                               f"kernel {train_launches} times")
+        del s2, s3
+
+        train_cli_parity(tmp, vae_ckpt, dev_arg)
+        ckpt2 = ckpt_lib.latest_checkpoint(os.path.join(exp, "cf",
+                                                        "checkpoints"))
+        out_dir = phase_unbounded_cli(smi, tmp, ckpt2, dev_arg)
+        eval_cli(out_dir, dev_arg)
+    unguided_parity(device)
+    log(f"# train_cli: the phase's parts took {time.perf_counter() - t_phase:.1f} s")
+
+
+@contextlib.contextmanager
+def recorded_updates(record):
+    """While open, each Trainer.apply_grads first appends to ``record``
+    the step's learning rate and its clipped fp32 gradients on the host,
+    by the trainer's parameter names; the first also stores the masters
+    as they were before it ('w0')."""
+    apply = Trainer.apply_grads
+
+    def apply_grads(self):
+        grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
+                 for p, m in zip(self.params, self.masters)]
+        if "w0" not in record:
+            record["w0"] = {n: m.detach().to("cpu", copy=True)
+                            for n, m in zip(self.names, self.masters)}
+        record.setdefault("lr", []).append(
+            float(self.optimizer.schedule(self.state.count)))
+        record.setdefault("grads", []).append(
+            {n: g.detach().to("cpu", copy=True)
+             for n, g in zip(self.names, self.optimizer.clip(grads))})
+        return apply(self)
+
+    Trainer.apply_grads = apply_grads
+    try:
+        yield record
+    finally:
+        Trainer.apply_grads = apply
+
+
+def adamw_replay(opt, w0, grads, lrs):
+    """The weight after AdamW steps over one element's gradients, in
+    float64 (``AdamW.update``'s formula)."""
+    w, m, v = float(w0), 0.0, 0.0
+    for t, (g, lr) in enumerate(zip(grads, lrs), 1):
+        m = opt.b1 * m + (1 - opt.b1) * g
+        v = opt.b2 * v + (1 - opt.b2) * g * g
+        u = (m / (1 - opt.b1 ** t)) / (math.sqrt(v / (1 - opt.b2 ** t))
+                                       + opt.eps)
+        w -= lr * (u + opt.weight_decay * w)
+    return w
+
+
+def train_cli_parity(tmp, vae_ckpt, dev_arg):
+    """The stage-2 CLI on the card and on the CPU: production geometry,
+    fp32, dropout 0, batch 4, 2 epochs from the same stage-1 file, both
+    caches on, no validation.  As phase 11 argues for the Trainer, each
+    epoch's total/train is held to 1e-4 relative and every step's
+    gradients to 1e-5 + 1e-3 max|g| of their tensor.  Every weight of the
+    two final checkpoints must lie within 1e-5 + 1e-3 max|w| of its tensor,
+    except where AdamW explains the gap: its m / sqrt(v) moves an element
+    by about lr a step whatever the gradient's size, so an element whose
+    gradient sits at the rounding noise of its sums can step in opposite
+    directions on the two devices.  Such an element (at most
+    TRAIN_CLI_REPLAY_MAX) must equal, on each device, a float64 AdamW
+    replay of that device's recorded gradients within 1e-6; its gradients
+    are printed."""
+    roots = make_fixture_pair(os.path.join(tmp, "parity"), n_files=1)
+    over = [f"TRAIN.END_EPOCH={TRAIN_CLI_PARITY_EPOCHS}",
+            f"TRAIN.BATCH_SIZE={TRAIN_CLI_PARITY_BATCH}",
+            "TPU.COMPUTE_DTYPE=float32", f"TRAIN.PRETRAINED_VAE={vae_ckpt}",
+            "LOGGER.VAL_EVERY_STEPS=0"]
+    exp = os.path.join(tmp, "experiments", "convofusion")
+    out = {}
+    with dropout_free_training():
+        for side, extra in (("card", dev_arg), ("cpu", ["--device", "cpu"])):
+            t0 = time.perf_counter()
+            with recorded_updates({}) as record:
+                model = cli_train.main(_cli_argv(tmp, roots, f"p_{side}",
+                                                 over) + extra)
+            with open(os.path.join(exp, f"p_{side}", "metrics.jsonl")) as f:
+                losses = [json.loads(line)["total/train"] for line in f]
+            path = ckpt_lib.latest_checkpoint(os.path.join(
+                exp, f"p_{side}", "checkpoints"))
+            out[side] = dict(
+                losses=losses, record=record,
+                weights=torch.load(path, weights_only=True)["state_dict"],
+                seconds=time.perf_counter() - t0,
+                steps=[e["steps"] for e in model.train_stats.epochs])
+            opt = make_optimizer(model.cfg)
+            del model
+    card, cpu = out["card"], out["cpu"]
+    w_card, w_cpu = card["weights"], cpu["weights"]
+    d_loss = max(abs(a - c) / abs(c)
+                 for a, c in zip(card["losses"], cpu["losses"]))
+    n_steps = sum(card["steps"])
+
+    # every step's gradients, card against CPU
+    g_worst, g_name = 0.0, ""
+    for step, (gc, gp) in enumerate(zip(card["record"]["grads"],
+                                        cpu["record"]["grads"])):
+        for name, want in gp.items():
+            tol = TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * float(want.abs().max())
+            r = float((gc[name] - want).abs().max()) / tol
+            if r > g_worst:
+                g_worst, g_name = r, f"{name} (step {step + 1})"
+
+    # the weights; an element beyond the bound must be AdamW's doing
+    port_name = {ref: port for ref, port in
+                 ckpt_lib._from_reference_names({k: k for k in w_cpu}).items()}
+    beyond, n_elems = [], 0
+    for name, want in w_cpu.items():
+        diff = (w_card[name] - want).abs()
+        n_elems += diff.numel()
+        tol = TRAIN_CLI_WEIGHT_ATOL + TRAIN_CLI_WEIGHT_RTOL * float(
+            want.abs().max())
+        for idx in torch.nonzero(diff > tol).tolist():
+            beyond.append((float(diff[tuple(idx)]), name, tuple(idx), tol))
+    beyond.sort(reverse=True)
+    unexplained, shown = [], []
+    for gap, name, idx, tol in beyond[:TRAIN_CLI_REPLAY_MAX]:
+        pname = port_name[name]
+        if pname not in cpu["record"]["w0"]:
+            unexplained.append(f"{name}{list(idx)}: not trained")
+            continue
+        rows = []
+        for side, weights in ((card, w_card), (cpu, w_cpu)):
+            rec = side["record"]
+            gs = [float(g[pname][idx]) for g in rec["grads"]]
+            want = adamw_replay(opt, rec["w0"][pname][idx], gs, rec["lr"])
+            got = float(weights[name][idx])
+            scale = max(float(g[pname].abs().max()) for g in rec["grads"])
+            rows.append((gs, got, want, scale))
+            if not abs(got - want) <= TRAIN_CLI_REPLAY_ATOL:
+                unexplained.append(f"{name}{list(idx)}: {got} against "
+                                   f"AdamW's {want}")
+        if len(shown) < 3:
+            (g_c, got_c, _, scale), (g_p, got_p, _, _) = rows
+            shown.append(
+                f"{name}{list(idx)}: gap {gap:.3g} (tol {tol:.3g}); "
+                f"gradients card {[f'{g:.3g}' for g in g_c]}, CPU "
+                f"{[f'{g:.3g}' for g in g_p]} (the tensor's max|g| "
+                f"{scale:.3g}); weights {got_c:.6g} / {got_p:.6g}, each "
+                f"AdamW's replay of its own gradients")
+    log(f"# train_cli: fp32 stage 2 through the CLI, batch "
+        f"{TRAIN_CLI_PARITY_BATCH}, steps an epoch {card['steps']}, card "
+        f"({card['seconds']:.1f} s) vs CPU ({cpu['seconds']:.1f} s): "
+        f"total/train {[round(x, 6) for x in card['losses']]} / "
+        f"{[round(x, 6) for x in cpu['losses']]}, relative gap {d_loss:.3g} "
+        f"(tol {TRAIN_CLI_LOSS_RTOL}); {n_steps} steps' gradients, the worst "
+        f"at {g_worst:.3g} of 1e-5 + 1e-3 max|g| ({g_name}); {len(w_cpu)} "
+        f"weights, {len(beyond)} of {n_elems} elements beyond 1e-5 + 1e-3 "
+        f"max|w|, each AdamW's replay of its device's gradients within "
+        f"{TRAIN_CLI_REPLAY_ATOL}: {not unexplained}")
+    for line in shown:
+        log(f"#   {line}")
+    for line in unexplained[:5]:
+        log(f"#   unexplained: {line}")
+    if set(w_card) != set(w_cpu) or len(card["losses"]) != \
+            TRAIN_CLI_PARITY_EPOCHS or not d_loss <= TRAIN_CLI_LOSS_RTOL \
+            or not g_worst <= 1.0 or unexplained \
+            or len(beyond) > TRAIN_CLI_REPLAY_MAX \
+            or len(card["record"]["grads"]) != n_steps:
+        raise RuntimeError("train_cli: the card's CLI run differs from the "
+                           "CPU's")
+
+
+def phase_unbounded_cli(smi, tmp, ckpt, dev_arg):
+    """cli/unbounded.main from the stage-2 checkpoint: bf16, DDIM-50, the
+    config's WEG type ('semantic') with the refinement capped at
+    UNBOUNDED_REFINE iterations, one test batch at MAX_LEN
+    UNBOUNDED_MAX_LEN.  Returns the dump directory."""
+    roots = make_fixture_pair(os.path.join(tmp, "long"),
+                              n_files=UNBOUNDED_FILES)
+    over = DDIM_OVERRIDES + [
+        f"DATASET.SAMPLER.MAX_LEN={UNBOUNDED_MAX_LEN}",
+        f"DATASET.SAMPLER.MIN_LEN={UNBOUNDED_MAX_LEN}",
+        f"TEST.CHECKPOINTS={ckpt}"]
+    n_windows = 2 * (UNBOUNDED_MAX_LEN // 128) - 1
+    calls = []
+    fixed = cli_unbounded.ROLLOUT_WEG_PARAMETERS
+    cli_unbounded.ROLLOUT_WEG_PARAMETERS = dict(
+        fixed, max_refinement_steps=UNBOUNDED_REFINE)
+    t0 = time.perf_counter()
+    try:
+        with launches_per_sample(calls):
+            run = cli_unbounded.main(_cli_argv(tmp, roots, "long", over)
+                                     + dev_arg)
+    finally:
+        cli_unbounded.ROLLOUT_WEG_PARAMETERS = fixed
+    wall = time.perf_counter() - t0
+    files = _result_files(run.out_dir)
+    dirs = {os.path.dirname(f) for f in files if f.endswith("pred.npy")}
+    b = sum(run.batch_sizes)
+    log(f"# train_cli: cli/unbounded.main bf16 DDIM-{STEPS} semantic WEG "
+        f"(refinement capped at {UNBOUNDED_REFINE}) on "
+        f"{smi}: batches {run.batch_sizes} of {n_windows} windows, "
+        f"{wall:.1f} s in all (data modules {run.build_s:.2f} s), rollout "
+        f"{[round(x, 2) for x in run.seconds]} s, "
+        f"{b * n_windows / sum(run.seconds):.2f} windows/s; step-kernel "
+        f"launches a window {calls}; {run.weg_counts}; {len(dirs)} result "
+        f"directories, {len(files)} files")
+    wc = run.weg_counts
+    if len(run.batch_sizes) != 1 or len(dirs) != b * n_windows or \
+            wc.refinement_iterations > UNBOUNDED_REFINE * wc.refined_steps:
+        raise RuntimeError(f"unbounded: batches {run.batch_sizes}, "
+                           f"{len(dirs)} result directories, {wc}")
+    if dev_arg != ["--device", "cpu"] and calls != [STEPS] * n_windows:
+        raise RuntimeError(f"unbounded: launches a window {calls}")
+    for outs in run.windows:
+        _check_windows(outs, (b, 128, 189), "unbounded")
+    return run.out_dir
+
+
+def eval_cli(out_dir, dev_arg):
+    """eval/run.main over the rollout's dump, dyadic (random-init FID
+    features) and monadic, on the device and with --device cpu: every key
+    finite, the two within 1e-5 relative.  Only dyadic's FID forward runs
+    on the device; monadic is numpy on the host on both sides, so its
+    comparison checks the run, not the card."""
+    for mode in ("dyadic", "monadic"):
+        res = {}
+        for side, extra in (("card", dev_arg), ("cpu", ["--device", "cpu"])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                res[side] = (eval_run.main(["--result_dir", out_dir, "--mode",
+                                            mode] + extra),
+                             time.perf_counter() - t0)
+        (card, s_card), (cpu, s_cpu) = res["card"], res["cpu"]
+        bad = [k for k, v in card.items()
+               if v is None or not np.isfinite(v)]
+        gap = max(abs(card[k] - v) / max(abs(v), 1e-30)
+                  for k, v in cpu.items() if k not in bad)
+        where = ("the FID forward on the card" if mode == "dyadic"
+                 else "host-only: numpy on both sides")
+        log(f"# train_cli: eval/run.main --mode {mode} ({where}): with the "
+            f"card {s_card:.2f} s, --device cpu {s_cpu:.2f} s; "
+            f"{json.dumps(card, default=float)}; largest relative gap to "
+            f"the CPU's {gap:.3g} (tol {EVAL_RTOL})")
+        if bad or set(card) != set(cpu) or not gap <= EVAL_RTOL:
+            raise RuntimeError(f"eval {mode}: non-finite {bad}, keys "
+                               f"{sorted(card)} / {sorted(cpu)}, gap {gap}")
+
+
+def unguided_parity(device=None):
+    """sample() with guidance_scale 1.0 (one denoiser call a step on the
+    real conditions), fp32 batch 2, DDIM-10 and dpmpp_2m-10, the card
+    against the CPU from numpy-made noise: motion within 1e-3, latents
+    within 2e-3 (phases 6, 8 and 10's tolerances; without the x37.5
+    guidance amplification the gaps are smaller), no step-kernel launch."""
+    cfg = copy.deepcopy(PRODUCTION)
+    cfg["guidance_scale"] = 1.0
+    b, lat = 2, cfg["latent_dim"][1]
+    raw = synthetic_raw_batch(81, b, mel_frames=cfg["mel_frames"])
+    rng = np.random.default_rng(82)
+    init = torch.from_numpy(rng.standard_normal((b, 16, lat)).astype(
+        np.float32))
+    steps = torch.from_numpy(rng.standard_normal(
+        (UNGUIDED_STEPS, b, 16, lat)).astype(np.float32))
+    before = gs_mod.guided_step.launches
+    out = {}
+    for side in (device, "cpu"):
+        model = Convofusion(cfg, dtype="float32", device=side, seed=0)
+        batch, _, _ = prepare_arrays(model, raw)
+        for variant in ("ddim", "dpmpp_2m"):
+            model.scheduler = dataclasses.replace(model.scheduler,
+                                                  variant=variant)
+            motion, latents = model.sample(
+                batch, num_inference_steps=UNGUIDED_STEPS, init_noise=init,
+                step_noise=steps if variant == "ddim" else None)
+            out[side, variant] = (motion.float().cpu(), latents.cpu())
+        del model
+    launches = gs_mod.guided_step.launches - before
+    for variant in ("ddim", "dpmpp_2m"):
+        (m_dev, l_dev), (m_cpu, l_cpu) = out[device, variant], \
+            out["cpu", variant]
+        for t in (m_dev, m_cpu):
+            if t.shape != (b, 128, 189) or not torch.isfinite(t).all():
+                raise RuntimeError(f"unguided {variant}: motion misshapen "
+                                   f"or not finite")
+        dm = float((m_dev - m_cpu).abs().max())
+        dl = float((l_dev - l_cpu).abs().max())
+        log(f"# train_cli: unguided {variant}-{UNGUIDED_STEPS} fp32 batch {b}"
+            f" card vs CPU: max|motion diff| {dm:.3g}, max|latent diff| "
+            f"{dl:.3g}; tolerances {PARITY_ATOL}, {DPMPP_LATENT_ATOL}; "
+            f"{launches} step-kernel launches")
+        if not dm <= PARITY_ATOL or not dl <= DPMPP_LATENT_ATOL:
+            raise RuntimeError(f"unguided {variant}: card vs CPU {dm} / {dl}")
+    if launches:
+        raise RuntimeError(f"unguided sampling launched the step kernel "
+                           f"{launches} times")
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -1933,9 +2561,10 @@ def kernel_in_path_us(kernels, expected) -> float:
 
 PHASES = {4: "parity", 5: "main", 6: "weg_parity", 7: "serve",
           8: "rollout_parity", 9: "rollout", 10: "dpmpp",
-          11: "train_parity", 12: "train", 13: "checkpoint", 14: "test_cli"}
+          11: "train_parity", 12: "train", 13: "checkpoint", 14: "test_cli",
+          15: "train_cli"}
 # the phases whose runs launch the step kernel (the others must not)
-PATH_PHASES = {5, 6, 7, 8, 9, 13, 14}
+PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15}
 
 
 def parse_phases(spec: str):
@@ -1955,14 +2584,14 @@ def parse_phases(spec: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1-14", type=parse_phases,
+    ap.add_argument("--phases", default="1-15", type=parse_phases,
                     help="e.g. '1-3,13' (default every phase; 1-3 always "
                          "run)")
     chosen = ap.parse_args(argv).phases
     t_run = time.perf_counter()
     smi = phase_device()
     phase_build()
-    rows, max_err = phase_kernel()
+    rows, max_err, checked = phase_kernel()
     in_path_us = None
 
     def run_main():
@@ -1982,9 +2611,11 @@ def main(argv=None):
     runs = {4: phase_parity, 5: run_main, 6: phase_weg_parity,
             7: lambda: phase_serve(smi), 8: phase_rollout_parity,
             9: lambda: phase_rollout(smi), 10: run_dpmpp,
-            11: phase_train_parity, 12: lambda: phase_train(smi),
+            11: phase_train_parity,
+            12: lambda: PHASE_RESULTS.setdefault("train", phase_train(smi)),
             13: lambda: phase_checkpoint(smi),
-            14: lambda: phase_test_cli(smi)}
+            14: lambda: phase_test_cli(smi),
+            15: lambda: phase_train_cli(smi)}
     by_phase = {}
     for number in sorted(chosen - {1, 2, 3}):
         gs_mod.guided_step.launches = 0
@@ -2002,6 +2633,14 @@ def main(argv=None):
                                f"{by_phase[name]} times")
     if not sum(by_phase.values()):
         raise RuntimeError("the main path never launched the step kernel")
+    # the kernel against its plain version at every shape the path gave it
+    # that phase 3 did not hold it at
+    unchecked = gs_mod.guided_step.shapes - checked
+    if unchecked:
+        err = kernel_at_shapes(unchecked)
+        max_err = max(max_err, err)
+        log(f"# kernel guided_step at the path's other shapes "
+            f"{sorted(unchecked, key=str)}: max|diff| {err:.3g}")
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{

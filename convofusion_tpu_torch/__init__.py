@@ -5,10 +5,18 @@ path in ``convofusion_tpu/``):
 
   serving.py              GestureService (micro-batching, three threads),
                           serve_http, build_service, the CLI
+  cli/train.py            the training CLI: config -> datasets -> epochs
+                          of Trainer steps (train/prefetch.py, the T5
+                          trunk and VAE posterior caches, validation,
+                          utils/metrics_logger.py, callback/progress.py)
+                          -> epoch=<n>.ckpt files
   cli/test.py             the test CLI: config -> test split -> sample()
                           -> result directories with attention maps
   cli/unbounded.py        rollout: long-form synthesis in half-overlapping
-                          windows (cli/focus.py: WEG focus words)
+                          windows (cli/focus.py: WEG focus words); main,
+                          the rollout CLI
+  eval/                   offline metrics over result dumps (FID net,
+                          alignment, SRGR, L1div, diversity, jitter)
   models/convofusion.py   Convofusion.sample: encode -> reverse -> decode,
                           with preseq inpainting; CachedSampler
   models/results.py       per-sample result dumps
@@ -16,7 +24,8 @@ path in ``convofusion_tpu/``):
                           t5-base SentencePiece (pure Python), word hash
   models/weg.py           word-excitation guidance (loss, refinement)
   models/t5.py, audioenc.py, condfuser.py
-                          condition encoders (T5 trunk x2, mel MLP, fuser)
+                          condition encoders (T5 trunk x2, mel MLP, fuser);
+                          models/text_cache.py: the trunk's host cache
   models/denoiser.py      7-branch guided denoiser
   models/vae.py           chunked body/hands VAE decoder
   diffusion/schedulers.py DDPM / DDIM / DPM-Solver++ 2M tables and steps

@@ -59,17 +59,17 @@ def compute_dtype(cfg) -> str:
     return str(tpu.get("COMPUTE_DTYPE", "float32"))
 
 
-def main(argv: Optional[List[str]] = None) -> TestRun:
-    from convofusion_tpu_torch.cli.focus import select_focus_words
-    from convofusion_tpu_torch.config import ablation_flag, from_cfg, \
-        parse_args
+def setup(argv: Optional[List[str]], log_name: str,
+          max_len: Optional[int] = None, stage: Optional[str] = None):
+    """The generation entry points' start: ``--device`` and
+    ``parse_args('test')``, the logger, the test data module (timed), then
+    the model of ``stage`` (default ``TRAIN.STAGE``) in
+    ``TPU.COMPUTE_DTYPE``, ``max_len`` replacing the config's, with the
+    t5-base asset drop and ``TEST.CHECKPOINTS`` loaded.  Returns (cfg,
+    logger, datamodule, build_s, model)."""
+    from convofusion_tpu_torch.config import from_cfg, parse_args
     from convofusion_tpu_torch.data.datamodule import get_datasets
     from convofusion_tpu_torch.models.convofusion import Convofusion
-    from convofusion_tpu_torch.models.results import (
-        save_generation_results,
-        save_vae_results,
-    )
-    from convofusion_tpu_torch.models.tokenizer import focus_word_indices
     from convofusion_tpu_torch.train.checkpoint import (
         load_checkpoint,
         load_torch_full_model,
@@ -82,18 +82,19 @@ def main(argv: Optional[List[str]] = None) -> TestRun:
                      help="e.g. cpu (default: the card)")
     known, rest = pre.parse_known_args(argv)
     cfg = parse_args("test", rest)
-    logger = create_logger(cfg, "test")
-    seed = int(cfg.SEED_VALUE)
-    stage = str(cfg.TRAIN.STAGE)
+    logger = create_logger(cfg, log_name)
 
     t0 = time.perf_counter()
     datamodule = get_datasets(cfg, phase="test")[0]
     datamodule.dataset("test")
     build_s = time.perf_counter() - t0
 
-    model = Convofusion(from_cfg(cfg), dtype=compute_dtype(cfg),
-                        device=known.device, seed=seed, stage=stage)
-    on_card = model.device.type == "cuda"
+    model_cfg = from_cfg(cfg)
+    if max_len is not None:
+        model_cfg["max_len"] = max_len
+    model = Convofusion(model_cfg, dtype=compute_dtype(cfg),
+                        device=known.device, seed=int(cfg.SEED_VALUE),
+                        stage=stage or str(cfg.TRAIN.STAGE))
     # a checkpoint leaves the frozen T5 trunk out: the asset drop's real
     # t5-base weights go in first (utils/assets.py)
     maybe_load_t5_assets(model)
@@ -104,6 +105,22 @@ def main(argv: Optional[List[str]] = None) -> TestRun:
         else:
             load_checkpoint(ckpt, model)
         logger.info(f"loaded checkpoint {ckpt}")
+    return cfg, logger, datamodule, build_s, model
+
+
+def main(argv: Optional[List[str]] = None) -> TestRun:
+    from convofusion_tpu_torch.cli.focus import select_focus_words
+    from convofusion_tpu_torch.config import ablation_flag
+    from convofusion_tpu_torch.models.results import (
+        save_generation_results,
+        save_vae_results,
+    )
+    from convofusion_tpu_torch.models.tokenizer import focus_word_indices
+
+    cfg, logger, datamodule, build_s, model = setup(argv, "test")
+    seed = int(cfg.SEED_VALUE)
+    stage = str(cfg.TRAIN.STAGE)
+    on_card = model.device.type == "cuda"
 
     out_dir = os.path.join(
         str(cfg.TEST.FOLDER), str(cfg.model.model_type), str(cfg.NAME),

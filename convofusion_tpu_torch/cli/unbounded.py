@@ -12,16 +12,24 @@ decode; then, on the host, the motion's root translation is stitched to
 the previous window's (:461-468).  The uncond branch is encoded once, by
 the first window: every window has the same geometry.
 
-The JAX CLI ``main`` (YAML config, long-clip dataset, checkpoint) and its
-data-parallel sharding are not ported yet.
+``main`` is the entry point (``convofusion_tpu/cli/unbounded.py:206-273``):
+a YAML config's test split, every batch rolled out on one process, each
+window's noise drawn on the host from ``SEED_VALUE`` (JAX's data-parallel
+rollout waits for DDP):
+
+    python -m convofusion_tpu_torch.cli.unbounded --cfg <yaml> \\
+        [--cfg_assets <yaml>] [--device cpu] [key=value ...]
 """
 from __future__ import annotations
 
+import os
 import random
 import time
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 UNCOND = "-" * 10
 
@@ -180,3 +188,78 @@ def rollout(model, batch, generator=None, window_frames: int = 128,
                 apb=np.asarray(apb), melspec_lsn=melspec_lsn,
                 focus_words=focus_words)
     return outputs
+
+
+@dataclass
+class RolloutRun:
+    """What ``main`` did: the dump directory, the data modules' build
+    seconds, per test batch its size, its rollout's seconds (host clock,
+    ending with the last window's motion on the host) and its windows'
+    stitched motion (fp32, on the host), and the model's WEG counts."""
+    out_dir: str
+    build_s: float = 0.0
+    batch_sizes: List[int] = field(default_factory=list)
+    seconds: List[float] = field(default_factory=list)
+    windows: List[List[np.ndarray]] = field(default_factory=list)
+    weg_counts: object = None
+
+
+def window_noise(model, batch_size: int, num_steps: int, n_windows: int,
+                 gen: torch.Generator) -> List[Tuple]:
+    """Each window's (init_noise, step_noise) on the host from ``gen``,
+    copied to the model's device once (``cli/test.py``'s draws, a window
+    at a time)."""
+    from convofusion_tpu_torch.cli.test import _batch_noise
+
+    out = []
+    for _ in range(n_windows):
+        noise = _batch_noise(model, batch_size, num_steps, gen)
+        out.append((noise["init_noise"], noise.get("step_noise")))
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> RolloutRun:
+    """``parse_args('test')`` -> the test data module -> the model with
+    128-frame windows in ``TPU.COMPUTE_DTYPE`` -> the t5-base asset drop
+    and ``TEST.CHECKPOINTS`` -> :func:`rollout` of every test batch into
+    ``<TEST.FOLDER>/<model_type>/<NAME>/unbounded_<TIME>``."""
+    from convofusion_tpu_torch.cli.test import setup
+    from convofusion_tpu_torch.config import ablation_flag
+
+    # the windows are 128 frames (8 chunks, 16 latent tokens) whatever
+    # the dataset's MAX_LEN, which covers the whole recording
+    # (unbounded_synthesis.py:545-550); JAX sets max_len and n_chunks
+    # after construction (:225-227)
+    cfg, logger, datamodule, build_s, model = setup(
+        argv, "unbounded", max_len=128, stage="diffusion")
+    seed = int(cfg.SEED_VALUE)
+
+    out_dir = os.path.join(
+        str(cfg.TEST.FOLDER), str(cfg.model.model_type), str(cfg.NAME),
+        "unbounded_" + cfg.TIME)
+    run = RolloutRun(out_dir, build_s)
+    weg_type = ablation_flag(cfg, "WEG_TYPE")
+    num_steps = int(cfg.model.scheduler.get("num_inference_timesteps",
+                                            1000))
+    noise_gen = torch.Generator().manual_seed(seed)
+    focus_rng = random.Random(seed)
+    for batch in datamodule.test_dataloader():
+        b = len(batch["name"])
+        n_windows = 2 * (batch["motion_lsn"].shape[1] // 128) - 1
+        noise = window_noise(model, b, num_steps, n_windows, noise_gen)
+        t0 = time.perf_counter()
+        outs = rollout(model, batch, num_inference_steps=num_steps,
+                       weg_type=weg_type, save_dir=out_dir, rng=focus_rng,
+                       noise=noise)
+        run.seconds.append(time.perf_counter() - t0)
+        run.batch_sizes.append(b)
+        run.windows.append(outs)
+        logger.info(f"{b} rollouts of {n_windows} windows in "
+                    f"{run.seconds[-1]:.2f}s")
+    run.weg_counts = model.weg_counts
+    print(f"results saved to {out_dir}")
+    return run
+
+
+if __name__ == "__main__":
+    main()

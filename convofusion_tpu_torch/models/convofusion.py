@@ -8,7 +8,7 @@ Port of ``convofusion_tpu/models/convofusion.py``: the training losses
 ``encode_uncond``, ``diffusion_reverse``, ``sample`` (:330-383,604-943),
 with word-excitation guidance (WEG), the long-form rollout's ``preseq``
 inpainting and the DPM-Solver++ 2M sampler, and ``cached_sampler`` /
-``CachedSampler`` / ``gen_from_latent`` (:945-1038); the guided path only.
+``CachedSampler`` / ``gen_from_latent`` (:945-1038).
 Weights live in the modules; ``compat/from_jax.state_dict_from_jax``
 carries a JAX parameter tree across.
 
@@ -29,7 +29,8 @@ moves them (``models/weg.py``); the step kernel is not differentiated.
 With ``preseq`` each step first overwrites the leading latent tokens with
 the previous window's, re-noised to the step's level.  DPM-Solver++ takes
 the plain guidance combine and its own update instead of the kernel, as
-JAX's gate does.
+JAX's gate does.  With ``guidance_scale`` <= 1 a step is one denoiser call on
+the real conditions and the plain update, again without the kernel.
 """
 from __future__ import annotations
 
@@ -113,6 +114,16 @@ def _eval(module: nn.Module):
     finally:
         if was:
             module.train()
+
+
+def vae_posterior(vae: nn.Module, motion: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``vae``'s (mu, logvar) of ``motion`` in eval mode with no grad,
+    batch-leading: (B, 2, n_chunks, D) each."""
+    with torch.no_grad(), _eval(vae):
+        _, (mu, logvar), _ = vae.encode(motion)
+    return (mu.transpose(0, 1).contiguous(),
+            logvar.transpose(0, 1).contiguous())
 
 
 def _draw(draws: Optional[Dict], name: str, make, device):
@@ -349,10 +360,7 @@ class Convofusion(nn.Module):
         """The frozen VAE's (mu, logvar) for the cached-posterior layout,
         in eval mode with no grad, batch-leading: (B, 2, n_chunks, D) each
         (JAX :262-275)."""
-        with torch.no_grad(), _eval(self.vae):
-            _, (mu, logvar), _ = self.vae.encode(motion)
-        return (mu.transpose(0, 1).contiguous(),
-                logvar.transpose(0, 1).contiguous())
+        return vae_posterior(self.vae, motion)
 
     @_masks_from_generator
     def train_vae_loss(self, batch, generator: Optional[torch.Generator]
@@ -543,8 +551,9 @@ class Convofusion(nn.Module):
         return uncond + self.guidance_scale * (single - 5.0 * uncond)
 
     def uses_step_kernel(self) -> bool:
-        """The fused step covers epsilon prediction with clipping under
-        fixed_small DDPM or eta-0 DDIM (convofusion.py:640-649)."""
+        """The fused step covers guided sampling (its 7-branch combine)
+        with epsilon prediction and clipping under fixed_small DDPM or
+        eta-0 DDIM (convofusion.py:640-649)."""
         s = self.scheduler
         return (self.do_classifier_free_guidance and self.predict_epsilon
                 and s.clip_sample
@@ -561,7 +570,10 @@ class Convofusion(nn.Module):
                           weg_params: Optional[Dict] = None,
                           preseq: Optional[torch.Tensor] = None,
                           capture_attention: str = "none"):
-        """Guided reverse process.  ``init_noise`` (B, 16, D) and
+        """The reverse process: 7-branch classifier-free guidance when
+        ``guidance_scale`` > 1, else one denoiser call a step on the real
+        conditions with the plain scheduler update and no step kernel (JAX
+        :640-655).  ``init_noise`` (B, 16, D) and
         ``step_noise`` (n_steps, B, 16, D) replace the draws from
         ``generator`` (a test feeds JAX's own sequence; DPM-Solver++ draws
         no step noise).  ``weg`` (see :meth:`sample`) turns word-excitation
@@ -573,9 +585,6 @@ class Convofusion(nn.Module):
         branch's attention maps of every step, stream -> (steps, B,
         layers, Tq, Tk), kept on the device and stacked once at the end
         (JAX :614,805-856)."""
-        if not self.do_classifier_free_guidance:
-            raise NotImplementedError(
-                "only guided sampling (guidance_scale > 1) is ported")
         if capture_attention not in ("none", "all"):
             raise ValueError(f"capture_attention {capture_attention!r}, not "
                              f"'none' or 'all'")
@@ -584,6 +593,7 @@ class Convofusion(nn.Module):
         if variant not in ("ddpm", "ddim", "dpmpp_2m"):
             raise NotImplementedError(
                 f"scheduler variant {variant!r} is not ported")
+        guided = self.do_classifier_free_guidance
         use_kernel = self.uses_step_kernel()
         is_dpmpp = variant == "dpmpp_2m"
         n_steps = num_inference_steps or self.num_inference_timesteps
@@ -622,15 +632,20 @@ class Convofusion(nn.Module):
                 latents = torch.cat([noised, latents[:, n_pre:]], dim=1)
             if refine is not None:
                 latents = refine(latents, i, t)
-            noise_pred7, att = self.denoiser.guided(
-                latents, t, cond_real, cond_unc, masks_real, masks_unc)
+            if guided:
+                noise_pred7, att = self.denoiser.guided(
+                    latents, t, cond_real, cond_unc, masks_real, masks_unc)
+                if not use_kernel:
+                    eps = self.guidance_combine_branches(noise_pred7)
+            else:
+                # one branch, the real conditions (JAX :654-655,837-839)
+                eps, att = self.denoiser(latents, t, cond_real, masks_real)
             if captured is not None:
                 captured.append(att)
             if is_dpmpp:
                 latents, _, prev_d, prev_lambda = \
                     self.scheduler.dpmpp_2m_step(
-                        self.guidance_combine_branches(noise_pred7), t, pt,
-                        latents, prev_d, prev_lambda, i == 0)
+                        eps, t, pt, latents, prev_d, prev_lambda, i == 0)
                 continue
             noise = (draw() if step_noise is None
                      else step_noise[i].to(dev, torch.float32))
@@ -640,7 +655,6 @@ class Convofusion(nn.Module):
                     noise_pred7, latents, noise, alpha_t, alpha_prev,
                     self.guidance_scale, is_ddpm, 1.0 if t > 0 else 0.0, 1.0)
             else:
-                eps = self.guidance_combine_branches(noise_pred7)
                 latents, _ = self.scheduler.step(eps, t, pt, latents,
                                                  noise=noise)
         if captured is None:

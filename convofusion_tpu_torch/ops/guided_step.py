@@ -281,7 +281,10 @@ def _launch(noise_pred7, latents, noise, coefs, read_noise, geom):
         raise RuntimeError(f"guided_step kernel launch failed: CUDA error "
                            f"{err}")
     guided_step.launches += 1
+    guided_step.shapes.add((tuple(latents.shape), noise_pred7.dtype))
     return out
 
 
+# launches, and the (latents shape, plane dtype) pairs launched with
 guided_step.launches = 0
+guided_step.shapes = set()

@@ -12,6 +12,7 @@ Layout (root defaults to ``<repo>/assets``; override with the
       t5-base/pytorch_model.bin     # T5 encoder weights, HF names
       t5-base/model.safetensors     #   (either format)
       checkpoints/*.ckpt            # released reference checkpoints
+      eval/last_499.bin             # the released FID feature net
 
 ``python -m convofusion_tpu_torch.utils.assets`` prints which slots are
 filled.
@@ -28,6 +29,8 @@ SLOTS = {
     "t5-base/pytorch_model.bin":
         "real t5-base trunk weights (train/checkpoint.maybe_load_t5_assets)",
     "t5-base/model.safetensors": "the same weights, other format",
+    "eval/last_499.bin":
+        "released FID feature net (eval/run.py, paper-comparable FID)",
 }
 
 
