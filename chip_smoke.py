@@ -8,10 +8,12 @@ picks some (default all; 1-3 always run, and one phase that launches the
 step kernel must be among them):
   1. device  - require CUDA; print the card's name and power limit; TF32 off
   2. build   - nvcc the hand-written kernels from convofusion_tpu_torch/csrc
-  3. kernel  - at the main path's B=96 shapes and at the batches the other
-               path phases give it (PATH_BATCHES), every kernel against its
-               plain PyTorch version on the card (DDPM mid, DDPM final,
-               DDIM; fp32 and bf16 branch planes), max |diff| <= 1e-5;
+  3. kernel  - at the main path's B=96 shapes (latents (96, 16, 128) and,
+               for raw motion, (96, 128, 189)) and at the batches the other
+               path phases give it (PATH_BATCHES, RAW_MOTION_BATCHES), every
+               kernel against its plain PyTorch version on the card
+               (DDPM mid, DDPM final, DDIM; fp32 and bf16 branch planes),
+               max |diff| <= 1e-5;
                at B=96 CUDA-event times of kernel (L2 flushed, and back to back)
                and plain version; then the step kernel's tile and block
                size sweep at the main path's case (bf16 planes, DDIM)
@@ -136,10 +138,26 @@ step kernel must be among them):
                the host), against --device cpu within 1e-5 relative;
                unguided sample() (guidance scale 1.0), fp32 batch 2,
                DDIM-10 and dpmpp_2m-10, card vs CPU, 0 launches
+ 16. variants - at the production width: the fused five-stream denoiser
+               (weights from the unfused model through the converter), fp32
+               batch 4 DDIM-10 on the card against the CPU and against the
+               unfused layout (phase 4's bounds), then bf16 batch 96
+               DDIM-50 in turns with the unfused layout: clips/s, kernels a
+               step, 0 step-kernel launches (JAX's gate); TPU.REMAT: a
+               stage-2 fp32 batch-4 step with dropout 0.1 bit-equal to the
+               step without it (loss, gradients, generator state), then
+               bf16 batch 64 with and without it in turns (ms a step, the
+               step's peak memory); vae_type 'no': bf16 batch 96 DDIM-50
+               with 50 launches at (7, 96, 128, 189), fp32 batch 4 DDIM-10
+               card vs CPU, 3 stage-2 steps with the denoiser's gradient
+               finite and nonzero; the learning proof's pipeline
+               (train/overfit.run) at 20 + 20 epochs and DDIM-10: every key
+               of JAX's result, finite
 Then the kernel against its plain version at any other shape the path
 phases launched it with, the whole run's wall time, a JSON line of per-kernel numbers
-(launches summed over phases 5-15 that ran, and each phase's count under
-launches_by_phase; the dpmpp and training phases launch no step kernel)
+(launches summed over phases 5-16 that ran, and each phase's count under
+launches_by_phase, every timed shape under shapes; the dpmpp and training
+phases launch no step kernel)
 and, last, the result line {"ok": true, "device": {...}}.
 """
 import argparse
@@ -203,6 +221,7 @@ from convofusion_tpu_torch.models.tokenizer import (
 )
 from convofusion_tpu_torch.ops import guided_step as gs_mod
 from convofusion_tpu_torch.ops import layers
+from convofusion_tpu_torch.ops.fused_streams import fuse_denoiser_params
 from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
 from convofusion_tpu_torch.serving import (
     GestureRequest,
@@ -210,6 +229,7 @@ from convofusion_tpu_torch.serving import (
     serve_http,
 )
 from convofusion_tpu_torch.train import checkpoint as ckpt_lib
+from convofusion_tpu_torch.train import overfit
 from convofusion_tpu_torch.train.trainer import (
     Trainer,
     make_optimizer,
@@ -321,6 +341,17 @@ UNBOUNDED_FILES, UNBOUNDED_MAX_LEN, UNBOUNDED_REFINE = 4, 256, 3
 EVAL_RTOL = 1e-5
 # unguided sampling (guidance_scale 1.0), card vs CPU, fp32 batch 2
 UNGUIDED_STEPS = 10
+# phase 16: the fused layout, REMAT and raw motion at the production
+# width: card-vs-CPU runs at fp32 batch 4 DDIM-10 (phase 4's motion bound;
+# the latents' as phases 6, 8 and 10), timed runs in turns after a
+# warm-up; the learning proof's pipeline at 20 + 20 epochs
+VARIANT_PARITY_BATCH, VARIANT_PARITY_STEPS = 4, 10
+VARIANT_LATENT_ATOL = 2e-3
+VARIANT_WARMUP, VARIANT_TURNS = 2, 2
+OVERFIT_EPOCHS = 20
+# the raw-motion (vae_type 'no') latents the step kernel takes: (B, 128,
+# 189) at phase 16's batches
+RAW_MOTION_BATCHES = (VARIANT_PARITY_BATCH, BATCH)
 # what earlier phases of this run measured, for later phases to print
 PHASE_RESULTS = {}
 
@@ -464,17 +495,23 @@ def kernel_at_shapes(shapes):
 def phase_kernel():
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")  # 256 MB
     rows, max_err = {}, 0.0
-    checked = {((b, 16, PRODUCTION["latent_dim"][1]), dtype)
-               for b in PATH_BATCHES + (BATCH,)
-               for dtype in (torch.float32, torch.bfloat16)}
-    err = kernel_at_shapes(checked - {((BATCH, 16, PRODUCTION["latent_dim"][
-        1]), dtype) for dtype in (torch.float32, torch.bfloat16)})
+    dtypes = (torch.float32, torch.bfloat16)
+    latent = (16, PRODUCTION["latent_dim"][1])
+    raw = (128, PRODUCTION["nfeats"])        # vae_type 'no': raw motion
+    timed = {(BATCH,) + latent, (BATCH,) + raw}
+    checked = {((b,) + latent, dtype) for b in PATH_BATCHES + (BATCH,)
+               for dtype in dtypes}
+    checked |= {((b,) + raw, dtype) for b in RAW_MOTION_BATCHES
+                for dtype in dtypes}
+    err = kernel_at_shapes({(s, d) for s, d in checked if s not in timed})
     max_err = max(max_err, err)
-    log(f"# kernel guided_step at batches {list(PATH_BATCHES)}, fp32 and "
-        f"bf16 planes, the three cases: max|diff| {err:.3g} (tol "
+    log(f"# kernel guided_step at batches {list(PATH_BATCHES)} of "
+        f"(B, 16, 128) and {list(RAW_MOTION_BATCHES[:-1])} of (B, 128, 189),"
+        f" fp32 and bf16 planes, the three cases: max|diff| {err:.3g} (tol "
         f"{KERNEL_TOL})")
-    for dtype in (torch.float32, torch.bfloat16):
-        np7, lat, noise, cases = step_inputs(dtype)
+    for shape, dtype in sorted(((s, d) for s in timed for d in dtypes),
+                               key=str):
+        np7, lat, noise, cases = step_inputs(dtype, shape=shape)
         for name, scalars in cases.items():
             args = (np7, lat, noise) + scalars
             err = kernel_error(args)
@@ -485,8 +522,10 @@ def phase_kernel():
                 lambda: gs_mod.guided_step_reference(*args), flush)
             bound, bound_by = step_bound_ms(
                 np7, lat, scalars[3] > 0 and scalars[4] > 0)
-            key = f"{name}/{str(dtype).split('.')[-1]}"
-            rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            key = (f"{name}/{str(dtype).split('.')[-1]}"
+                   f"{'/raw' if shape[1:] == raw else ''}")
+            rows[key] = dict(shape=[7, *shape], max_abs_err=err, ms=ms,
+                             warm_ms=warm_ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=bound_by)
             log(f"# kernel guided_step {key}: max|diff| {err:.3g}  kernel "
                 f"{ms * 1e3:.2f} us (back to back, L2 warm {warm_ms * 1e3:.2f} "
@@ -495,6 +534,7 @@ def phase_kernel():
                 f"({bound_by})")
 
     # the sweep, at the main path's case: bf16 planes, DDIM
+    np7, lat, noise, cases = step_inputs(torch.bfloat16)
     args = (np7, lat, noise) + cases["ddim"]
     for tile, threads in SWEEP:
         with step_geometry(tile, threads):
@@ -2460,6 +2500,371 @@ def unguided_parity(device=None):
                            f"{launches} times")
 
 
+def _card_cpu_gap(what, dev_out, cpu_out):
+    """max |motion| and |latent| gaps of two (motion, latents) pairs, held
+    to phase 4's bounds (motion 1e-3, latents 2e-3)."""
+    (m_d, l_d), (m_c, l_c) = dev_out, cpu_out
+    for t in (m_d, m_c):
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"variants {what}: motion not finite")
+    dm = float((m_d - m_c).abs().max())
+    dl = float((l_d - l_c).abs().max())
+    log(f"# variants: {what}: max|motion diff| {dm:.3g}, max|latent diff| "
+        f"{dl:.3g}; tolerances {PARITY_ATOL}, {VARIANT_LATENT_ATOL}")
+    if not dm <= PARITY_ATOL or not dl <= VARIANT_LATENT_ATOL:
+        raise RuntimeError(f"variants {what}: {dm} / {dl} over the bounds")
+
+
+def _fp32_sample(cfg, side, raw, init, steps, state_dict=None):
+    """fp32 ``sample()`` on ``side`` from numpy-made noise: (motion,
+    latents) on the host and the step kernel's launches."""
+    model = Convofusion(cfg, dtype="float32", device=side,
+                        seed=0 if state_dict is None else None)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    batch, _, _ = prepare_arrays(model, raw)
+    before = gs_mod.guided_step.launches
+    motion, latents = model.sample(batch, num_inference_steps=len(steps),
+                                   init_noise=init, step_noise=steps)
+    return ((motion.float().cpu(), latents.cpu()),
+            gs_mod.guided_step.launches - before)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _kernels_a_step(model, batch, gen, n_steps=2):
+    """Device kernels a reverse step, from a profile of ``n_steps`` (0 off
+    the card)."""
+    if model.device.type != "cuda":
+        return 0
+    keys = ("spk_ids", "spk_tmask", "lsn_ids", "lsn_tmask", "melspec_lsn",
+            "active_passive_lsn", "lsn_id")
+    with torch.inference_mode():
+        cond, masks = model.encode_conditions(*(batch[k] for k in keys))
+        unc, umasks = model.encode_uncond(batch)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.diffusion_reverse(cond, masks, unc, umasks,
+                                    batch["lsn_ids"].shape[0],
+                                    num_inference_steps=n_steps,
+                                    generator=gen)
+            torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) // n_steps
+
+
+def fused_variant(smi, device):
+    """The fused five-stream layout at the production width: weights from
+    the unfused model through the converter; fp32 batch 4 DDIM-10 on the
+    card against the CPU and against the unfused layout on the card; then
+    bf16 batch 96 DDIM-50 against the unfused layout, in turns."""
+    cfg = copy.deepcopy(PRODUCTION)
+    cfg["scheduler"].update(variant="ddim", num_inference_timesteps=STEPS)
+    fcfg = copy.deepcopy(cfg)
+    fcfg["denoiser"]["fuse_streams"] = True
+    b, lat = VARIANT_PARITY_BATCH, cfg["latent_dim"][1]
+    raw = synthetic_raw_batch(91, b, mel_frames=cfg["mel_frames"])
+    init, steps = _noise(np.random.default_rng(92), VARIANT_PARITY_STEPS,
+                         (b, 16, lat))
+    unfused = Convofusion(cfg, dtype="float32", device="cpu", seed=0)
+    fused_sd = fuse_denoiser_params(unfused.state_dict())
+    del unfused
+    out, launches = {}, {}
+    for name, c, sd, side in (("unfused card", cfg, None, device),
+                              ("fused card", fcfg, fused_sd, device),
+                              ("fused CPU", fcfg, fused_sd, "cpu")):
+        out[name], launches[name] = _fp32_sample(c, side, raw, init, steps,
+                                                 sd)
+    on_card = torch.device(device).type == "cuda"
+    if launches["fused card"] or on_card and launches["unfused card"] != \
+            VARIANT_PARITY_STEPS:
+        raise RuntimeError(f"variants fused: step-kernel launches {launches}"
+                           f", want 0 fused and {VARIANT_PARITY_STEPS} "
+                           f"unfused")
+    _card_cpu_gap(f"fused fp32 batch {b} DDIM-{VARIANT_PARITY_STEPS} card "
+                  f"vs CPU", out["fused card"], out["fused CPU"])
+    _card_cpu_gap("fused vs unfused on the card", out["fused card"],
+                  out["unfused card"])
+
+    # bf16 batch 96 DDIM-50, in turns
+    models = {"unfused": Convofusion(cfg, dtype="bfloat16", device=device,
+                                     seed=0)}
+    models["fused"] = Convofusion(fcfg, dtype="bfloat16", device=device,
+                                  seed=None)
+    models["fused"].load_state_dict(fuse_denoiser_params(
+        models["unfused"].state_dict()))
+    raw = synthetic_raw_batch(93, BATCH, mel_frames=cfg["mel_frames"])
+    batch, _, _ = prepare_arrays(models["fused"], raw)
+    gen = torch.Generator(device=device).manual_seed(94)
+    times = {k: [] for k in models}
+    counts = {k: 0 for k in models}
+    for turn in range(1 + VARIANT_TURNS):
+        for name, model in models.items():
+            before = gs_mod.guided_step.launches
+            t0 = time.perf_counter()
+            motion, _ = model.sample(batch, gen)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            counts[name] += gs_mod.guided_step.launches - before
+            if tuple(motion.shape) != (BATCH, 128, 189) or \
+                    not torch.isfinite(motion).all():
+                raise RuntimeError(f"variants {name}: motion misshapen or "
+                                   f"not finite")
+            if turn:
+                times[name].append(dt)
+    want = {"unfused": STEPS * (1 + VARIANT_TURNS) if on_card else 0,
+            "fused": 0}
+    if counts != want:
+        raise RuntimeError(f"variants: step-kernel launches {counts}, want "
+                           f"{want}")
+    row = {}
+    for name, model in models.items():
+        med = statistics.median(times[name])
+        row[name] = dict(clips_per_s=BATCH / med, ms=med * 1e3,
+                         kernels=_kernels_a_step(model, batch, gen))
+        log(f"# variants: {name} bf16 batch {BATCH} DDIM-{STEPS} on {smi}: "
+            f"{BATCH / med:.2f} clips/s, {med * 1e3:.1f} ms/call (median of "
+            f"{VARIANT_TURNS}, in turns), {row[name]['kernels']} kernels a "
+            f"step, {counts[name]} step-kernel launches")
+    return row
+
+
+def remat_variant(smi, device):
+    """TPU.REMAT at the production width: stage 2 at batch 4, fp32,
+    dropout 0.1, one step bit-equal to the step without it (loss, every
+    gradient, the generator's state); then bf16 batch 64 with and without
+    it, in turns: ms a step, and the peak memory over the step's start of
+    its forward and backward (what remat trades) and of the whole step
+    (AdamW's temporaries included)."""
+    raw = synthetic_raw_batch(95, VARIANT_PARITY_BATCH,
+                              mel_frames=PRODUCTION["mel_frames"])
+    out = {}
+    for remat in (False, True, False):
+        cfg = copy.deepcopy(PRODUCTION)
+        cfg["denoiser"]["remat"] = remat
+        model = Convofusion(cfg, dtype="float32", device=device, seed=0)
+        batch = train_batch(model, raw)
+        trainer = Trainer(model)
+        gen = torch.Generator(device=device).manual_seed(96)
+        with trainer.training():
+            loss, _ = trainer.compute_grads(batch, gen)
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+        out.setdefault(remat, []).append((loss, grads, gen.get_state()))
+        del model, trainer
+    (l0, g0, s0), (l1, g1, s1) = out[False][0], out[True][0]
+    l2, g2, _ = out[False][1]
+    plain_repeats = torch.equal(l0, l2) and all(
+        torch.equal(g0[k], g2[k]) for k in g0)
+    differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+    log(f"# variants: remat fp32 batch {VARIANT_PARITY_BATCH} dropout "
+        f"{PRODUCTION['denoiser']['dropout']}: loss {float(l0):.6g} / "
+        f"{float(l1):.6g}, {len(g0) - len(differ)} of {len(g0)} gradients "
+        f"bit-equal, generator state equal {torch.equal(s0, s1)}; the plain "
+        f"step repeats bit-equal: {plain_repeats}")
+    if not (torch.equal(l0, l1) and torch.equal(s0, s1) and not differ
+            and set(g0) == set(g1)):
+        raise RuntimeError(f"variants remat: not bit-equal (gradients "
+                           f"{differ[:4]})")
+
+    raw = synthetic_raw_batch(97, TRAIN_DIFFUSION_BATCH,
+                              mel_frames=PRODUCTION["mel_frames"])
+    runs = {}
+    for remat in (False, True):
+        cfg = copy.deepcopy(PRODUCTION)
+        cfg["denoiser"]["remat"] = remat
+        model = Convofusion(cfg, dtype="bfloat16", device=device, seed=0)
+        trainer = Trainer(model)
+        trainer.init_state()
+        runs[remat] = (model, trainer, train_batch(model, raw),
+                       torch.Generator(device=device).manual_seed(98))
+    times = {False: [], True: []}
+    peaks = {}
+    on_card = torch.device(device).type == "cuda"
+    for turn in range(VARIANT_WARMUP + VARIANT_TURNS):
+        for remat, (model, trainer, batch, gen) in runs.items():
+            with trainer.training():
+                _sync(device)
+                if on_card:
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, _ = trainer.compute_grads(batch, gen)
+                if on_card:
+                    backward_peak = torch.cuda.max_memory_allocated() - base
+                trainer.apply_grads()
+                _sync(device)
+                dt = time.perf_counter() - t0
+            if not math.isfinite(float(loss)):
+                raise RuntimeError(f"variants remat={remat}: loss "
+                                   f"{float(loss)}")
+            peaks[remat] = ((backward_peak / 2**30,
+                             (torch.cuda.max_memory_allocated() - base)
+                             / 2**30) if on_card else (0.0, 0.0))
+            if turn >= VARIANT_WARMUP:
+                times[remat].append(dt)
+    row = {}
+    for remat in (False, True):
+        med = statistics.median(times[remat])
+        row["remat" if remat else "plain"] = dict(
+            ms=med * 1e3, backward_peak_gib=peaks[remat][0],
+            step_peak_gib=peaks[remat][1])
+        log(f"# variants: stage 2 bf16 batch {TRAIN_DIFFUSION_BATCH} "
+            f"{'with' if remat else 'without'} remat on {smi}: "
+            f"{med * 1e3:.2f} ms a step (median of {VARIANT_TURNS}, in "
+            f"turns); peak memory over the step's start: forward and "
+            f"backward {peaks[remat][0]:.3f} GiB, the whole step "
+            f"{peaks[remat][1]:.3f} GiB")
+    return row
+
+
+def raw_motion_variant(smi, device):
+    """vae_type 'no' at the production width: bf16 batch 96 DDIM-50 with
+    50 launches at (7, 96, 128, 189); fp32 batch 4 DDIM-10 card against
+    CPU; 3 stage-2 training steps."""
+    cfg = copy.deepcopy(PRODUCTION)
+    cfg["vae_type"] = "no"
+    cfg["scheduler"].update(variant="ddim", num_inference_timesteps=STEPS)
+    model = Convofusion(cfg, dtype="bfloat16", device=device, seed=0)
+    if model.vae is not None or model.latent_tokens != 128:
+        raise RuntimeError("variants raw motion: the model has a VAE")
+    raw = synthetic_raw_batch(101, BATCH, mel_frames=cfg["mel_frames"])
+    batch, _, _ = prepare_arrays(model, raw)
+    gen = torch.Generator(device=device).manual_seed(102)
+    times = []
+    for call in range(2):
+        before = gs_mod.guided_step.launches
+        t0 = time.perf_counter()
+        motion, latents = model.sample(batch, gen)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        n = gs_mod.guided_step.launches - before
+        if torch.device(device).type != "cuda":
+            n = STEPS          # the plain version off the card
+        if n != STEPS or tuple(motion.shape) != (BATCH, 128, 189) or \
+                not torch.equal(motion, latents) or \
+                not torch.isfinite(motion).all():
+            raise RuntimeError(f"variants raw motion call {call}: {n} "
+                               f"launches, motion {tuple(motion.shape)}")
+    shape = ((BATCH, 128, 189), torch.bfloat16)
+    if torch.device(device).type == "cuda" and \
+            shape not in gs_mod.guided_step.shapes:
+        raise RuntimeError("variants raw motion: no launch at (7, 96, 128, "
+                           "189) bf16")
+    row = dict(clips_per_s=BATCH / times[1], ms=times[1] * 1e3,
+               in_path_us=None)
+    if torch.device(device).type == "cuda":
+        # the step kernel's device time a launch inside the reverse loop
+        keys = ("spk_ids", "spk_tmask", "lsn_ids", "lsn_tmask",
+                "melspec_lsn", "active_passive_lsn", "lsn_id")
+        with torch.inference_mode(), profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            cond, masks = model.encode_conditions(*(batch[k] for k in keys))
+            unc, umasks = model.encode_uncond(batch)
+            model.diffusion_reverse(cond, masks, unc, umasks, BATCH,
+                                    num_inference_steps=PROFILE_STEPS,
+                                    generator=gen)
+            torch.cuda.synchronize()
+        row["in_path_us"] = kernel_in_path_us(
+            [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA], PROFILE_STEPS)
+    log(f"# variants: raw motion bf16 batch {BATCH} DDIM-{STEPS} on {smi}: "
+        f"{BATCH / times[1]:.2f} clips/s, {times[1] * 1e3:.1f} ms/call, "
+        f"{STEPS} launches a call at (7, {BATCH}, 128, 189); the step kernel "
+        f"{row['in_path_us']} us a launch in the loop ({PROFILE_STEPS} "
+        f"profiled steps)")
+    del model
+
+    b = VARIANT_PARITY_BATCH
+    raw = synthetic_raw_batch(103, b, mel_frames=cfg["mel_frames"])
+    init, steps = _noise(np.random.default_rng(104), VARIANT_PARITY_STEPS,
+                         (b, 128, 189))
+    (dev_out, n), (cpu_out, _) = (
+        _fp32_sample(cfg, side, raw, init, steps) for side in (device, "cpu"))
+    if torch.device(device).type == "cuda" and n != VARIANT_PARITY_STEPS:
+        raise RuntimeError(f"variants raw motion parity: {n} launches")
+    _card_cpu_gap(f"raw motion fp32 batch {b} DDIM-{VARIANT_PARITY_STEPS} "
+                  f"card vs CPU", dev_out, cpu_out)
+
+    model = Convofusion(cfg, dtype="bfloat16", device=device, seed=0)
+    raw = synthetic_raw_batch(105, TRAIN_DIFFUSION_BATCH,
+                              mel_frames=cfg["mel_frames"])
+    batch = train_batch(model, raw)
+    trainer = Trainer(model)
+    trainer.init_state()
+    gen = torch.Generator(device=device).manual_seed(106)
+    losses, norms = [], []
+    with trainer.training():
+        for _ in range(3):
+            loss, _ = trainer.compute_grads(batch, gen)
+            norms.append(torch.linalg.vector_norm(torch.stack([
+                p.grad.float().norm() for n, p in model.named_parameters()
+                if n.startswith("denoiser.") and p.grad is not None])))
+            trainer.apply_grads()
+            losses.append(loss)
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    log(f"# variants: raw motion stage 2 bf16 batch "
+        f"{TRAIN_DIFFUSION_BATCH}: losses {[round(x, 5) for x in losses]}, "
+        f"the denoiser's gradient norm {[round(x, 4) for x in norms]}")
+    if not all(math.isfinite(x) for x in losses + norms) or \
+            not min(norms) > 0:
+        raise RuntimeError("variants raw motion training: a loss or the "
+                           "denoiser's gradient is not finite or zero")
+    return row
+
+
+def overfit_variant(device):
+    """The learning proof's pipeline (``train/overfit.run``) at a token
+    budget on the card: every key of JAX's committed result, finite."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "docs", "artifacts", "overfit_result.json")) as f:
+        want = json.load(f)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_overfit") as tmp:
+        t0 = time.perf_counter()
+        out = overfit.run(tmp, vae_epochs=OVERFIT_EPOCHS,
+                          diff_epochs=OVERFIT_EPOCHS,
+                          infer_steps=VARIANT_PARITY_STEPS, device=device,
+                          log=lambda *a: None)
+        wall = time.perf_counter() - t0
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+
+    got = dict(leaves(out))
+    missing = [k for k, _ in leaves(want) if k not in got]
+    bad = [k for k, v in leaves(want) if isinstance(v, (int, float))
+           and k in got and not math.isfinite(got[k])]
+    log(f"# variants: overfit.run {OVERFIT_EPOCHS} + {OVERFIT_EPOCHS} epochs,"
+        f" DDIM-{VARIANT_PARITY_STEPS}, on the card in {wall:.1f} s (stages "
+        f"{ {k: round(v, 1) for k, v in out['stage_seconds'].items()} }): "
+        f"vae relRMSE {out['vae_recon_rel_rmse']:.4f}, repro {out['repro']}")
+    if missing or bad:
+        raise RuntimeError(f"variants overfit: keys missing {missing}, not "
+                           f"finite {bad}")
+    return wall
+
+
+def phase_variants(smi, device="cuda"):
+    """Phase 16: the fused layout, REMAT, raw motion and the learning
+    proof's pipeline."""
+    row = {}
+    for name, fn in (("fused", lambda: fused_variant(smi, device)),
+                     ("remat", lambda: remat_variant(smi, device)),
+                     ("raw_motion", lambda: raw_motion_variant(smi, device)),
+                     ("overfit_s", lambda: overfit_variant(device))):
+        t0 = time.perf_counter()
+        row[name] = fn()
+        log(f"# variants: {name} part in {time.perf_counter() - t0:.1f} s")
+    PHASE_RESULTS["variants"] = row
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -2562,9 +2967,9 @@ def kernel_in_path_us(kernels, expected) -> float:
 PHASES = {4: "parity", 5: "main", 6: "weg_parity", 7: "serve",
           8: "rollout_parity", 9: "rollout", 10: "dpmpp",
           11: "train_parity", 12: "train", 13: "checkpoint", 14: "test_cli",
-          15: "train_cli"}
+          15: "train_cli", 16: "variants"}
 # the phases whose runs launch the step kernel (the others must not)
-PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15}
+PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15, 16}
 
 
 def parse_phases(spec: str):
@@ -2584,7 +2989,7 @@ def parse_phases(spec: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1-15", type=parse_phases,
+    ap.add_argument("--phases", default="1-16", type=parse_phases,
                     help="e.g. '1-3,13' (default every phase; 1-3 always "
                          "run)")
     chosen = ap.parse_args(argv).phases
@@ -2615,7 +3020,8 @@ def main(argv=None):
             12: lambda: PHASE_RESULTS.setdefault("train", phase_train(smi)),
             13: lambda: phase_checkpoint(smi),
             14: lambda: phase_test_cli(smi),
-            15: lambda: phase_train_cli(smi)}
+            15: lambda: phase_train_cli(smi),
+            16: lambda: phase_variants(smi)}
     by_phase = {}
     for number in sorted(chosen - {1, 2, 3}):
         gs_mod.guided_step.launches = 0
@@ -2657,6 +3063,11 @@ def main(argv=None):
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "in_path_us": in_path_us,
+        # every shape phase 3 timed: (7, 96, 16, 128) of the latent paths
+        # and (7, 96, 128, 189) of raw motion, each case and plane dtype
+        "shapes": [{"case": key, **row} for key, row in sorted(rows.items())],
+        "in_path_us_raw_motion": PHASE_RESULTS.get("variants", {}).get(
+            "raw_motion", {}).get("in_path_us"),
     }]
     log(f"# whole run: {time.perf_counter() - t_run:.1f} s, phases "
         f"{sorted(chosen)}")

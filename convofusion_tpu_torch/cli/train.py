@@ -95,21 +95,21 @@ def step_draws(model, batch_size: int, nframes: int,
                gen: torch.Generator) -> Dict:
     """One step's draws on the host from ``gen``, in the layout of
     ``Trainer.compute_grads(draws=)``: 'eps' for stage 1; 'eps', 'group',
-    'noise' and 'timesteps' for stage 2; both under 'vae' and 'diffusion'
-    for the joint stage."""
+    'noise' and 'timesteps' for stage 2 ('eps' only with a VAE); both
+    under 'vae' and 'diffusion' for the joint stage."""
     eps = torch.randn(model._posterior_shape(batch_size, nframes),
                       generator=gen)
     if model.stage == "vae":
         return {"eps": eps}
-    diffusion = {
-        "eps": eps,
+    diffusion = {} if model.vae is None else {"eps": eps}
+    diffusion.update({
         "group": model._dropout_groups(batch_size, gen, "cpu"),
         "noise": torch.randn((batch_size, model.latent_tokens,
                               model.latent_dim), generator=gen),
         "timesteps": torch.randint(
             0, model.noise_scheduler.num_train_timesteps, (batch_size,),
             generator=gen),
-    }
+    })
     if model.stage == "vae_diffusion":
         return {"vae": {"eps": torch.randn(eps.shape, generator=gen)},
                 "diffusion": diffusion}
@@ -304,8 +304,10 @@ def main(argv: Optional[List[str]] = None):
         # JAX's third condition
         tcache = TrunkCache(model)
         logger.info("frozen-T5 trunk cache enabled (TPU.CACHE_TEXT_TRUNK)")
-    if stage == "diffusion" and bool(tpu.get("CACHE_VAE_POSTERIOR", True)):
-        # strictly stage 2: in 'vae_diffusion' the VAE trains
+    if stage == "diffusion" and model.vae is not None and \
+            bool(tpu.get("CACHE_VAE_POSTERIOR", True)):
+        # strictly stage 2 with a VAE (JAX :167-170): in 'vae_diffusion'
+        # the VAE trains
         pcache = PosteriorCache(
             model, int(tpu.get("VAE_POSTERIOR_CACHE_CAP", 16384)))
         logger.info(

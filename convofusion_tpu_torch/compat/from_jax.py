@@ -6,9 +6,12 @@
 returns the port ``Convofusion``'s state_dict: flax ``kernel`` (in, out)
 becomes ``weight`` (out, in), LayerNorm ``scale`` becomes ``weight``,
 ``embedding`` becomes ``weight``, and the q/k/v projections pack into
-``in_proj_weight``/``in_proj_bias``.  Every leaf must be consumed: a key it
-does not know raises.  A stage-1 tree (``vae`` alone) gives the state_dict
-of ``Convofusion(..., stage='vae')``; any other tree must hold every
+``in_proj_weight``/``in_proj_bias``; a fused-stream layer's
+``cross_streams`` keeps its stacked layout and names
+(``ops/fused_streams.py``).  Every leaf must be consumed: a key it does not
+know raises.  A stage-1 tree (``vae`` alone) gives the state_dict of
+``Convofusion(..., stage='vae')``; a tree without ``vae`` that of a model
+on raw motion (``vae_type`` 'no'); any other tree must hold every
 module.  The map is linear (transposes and concatenations), so it carries
 a gradient tree as it carries parameters.
 """
@@ -106,10 +109,21 @@ class _Converter:
             self.ffn(lp, lk)
             for n in ("norm1", "norm2", "norm3"):
                 self.layernorm(f"{lp}/{n}", f"{lk}.{n}")
+            if self.has(f"{lp}/cross_streams/ln_scale"):
+                self.cross_streams(f"{lp}/cross_streams",
+                                   f"{lk}.cross_streams")
+                continue
             for s in COND_STREAMS:
                 self.mha(f"{lp}/multihead_attn_{s}",
                          f"{lk}.multihead_attn_{s}")
                 self.layernorm(f"{lp}/{s}_norm", f"{lk}.{s}_norm")
+
+    def cross_streams(self, p, k):
+        """A fused layer's stacked cross-attention weights, as they are."""
+        names = ["ln_scale", "ln_bias"] + [
+            f"{q}_{w}" for q in "qkvo" for w in ("kernel", "bias")]
+        for n in names:
+            self.put(f"{k}.{n}", self.take(f"{p}/{n}"))
 
     def skip_stack(self, p, k, cross: bool):
         """A skip encoder (``cross`` False: self-attention, 2 norms) or
@@ -176,8 +190,9 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     """JAX ``Convofusion`` parameter tree -> port ``Convofusion``
     state_dict (fp32 tensors on the CPU)."""
     conv = _Converter(_flatten(params))
-    conv.vae()
-    if set(params) != {"vae"}:
+    if "vae" in params:
+        conv.vae()
+    if set(params) - {"vae"}:
         conv.denoiser()
         conv.text_encoder()
         conv.audio_encoder()

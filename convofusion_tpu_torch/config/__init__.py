@@ -94,6 +94,8 @@ PRODUCTION = {
     "guidance_uncondp": 0.1,       # config_cf_beatdnd.yaml:77
     "fps": 25,                     # DATASET.BEATDND.FPS (base.yaml:101)
     "predict_epsilon": True,       # config_cf_beatdnd.yaml:23
+    # TRAIN.ABLATION.VAE_TYPE (base.yaml:25); 'no' diffuses raw motion
+    "vae_type": "convofusion",
     # the tokenizer's model (modules/text_encoder.yaml:5, assets.yaml:16):
     # a spiece.model is looked up for it (models/tokenizer.find_spiece)
     "t5_path": "t5-base",
@@ -108,6 +110,8 @@ PRODUCTION = {
         "freq_shift": 0.0,
         "position_embedding": "sine",
         "dropout": 0.1,
+        "fuse_streams": False,     # the five cross-attentions as one
+        "remat": False,            # TPU.REMAT: recompute layers in backward
     },
     "motion_vae": {                # modules/motion_vae.yaml
         "arch": "encoder_decoder",

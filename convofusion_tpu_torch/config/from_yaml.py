@@ -95,11 +95,9 @@ def _scheduler(block, predict_epsilon: bool, key: str,
 
 
 def _check_tpu(cfg) -> None:
-    """The ``TPU`` block's knobs beyond TEXT_PAD_LEN (base.yaml:115-125,
-    convofusion.py:149-182)."""
+    """The ``TPU`` block's knobs beyond TEXT_PAD_LEN and REMAT
+    (base.yaml:115-125, convofusion.py:149-182)."""
     tpu = cfg.get("TPU", {})
-    if bool(tpu.get("REMAT", False)):
-        raise _unsupported("TPU.REMAT", True, "per-layer rematerialisation")
     if not bool(tpu.get("PALLAS_STEP", True)):
         raise _unsupported("TPU.PALLAS_STEP", False,
                            "the port always runs its fused step kernel")
@@ -168,6 +166,24 @@ def _serve(cfg) -> Dict:
     }
 
 
+def _vae_type(model, cfg) -> str:
+    """The VAE type as JAX resolves it (convofusion.py:84-110):
+    ``model.vae_type``, then ``TRAIN.ABLATION.VAE_TYPE``, then the motion
+    VAE's target name; YAML's unquoted ``no`` parses as False and means
+    'no'.  'no' diffuses raw motion; any other value builds the motion
+    VAE of ``model.motion_vae``, as JAX does."""
+    v = model.get("vae_type")
+    if v is None:
+        try:
+            v = cfg.TRAIN.ABLATION.get("VAE_TYPE")
+        except (KeyError, AttributeError):
+            pass
+    if v is None:
+        return str(model.motion_vae.target).split(".")[-1].lower().replace(
+            "vae", "")
+    return "no" if v is False else str(v)
+
+
 def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
     """A merged config (``load_config``) as the port's config dict.
 
@@ -179,22 +195,15 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
     model = cfg.model
     predict_epsilon = bool(cfg.TRAIN.ABLATION.PREDICT_EPSILON)
 
-    # the VAE type (convofusion.py:92-103): 'no' diffuses raw motion
-    vae_type = model.get("vae_type")
-    if vae_type is None:
-        try:
-            vae_type = cfg.TRAIN.ABLATION.get("VAE_TYPE")
-        except (KeyError, AttributeError):
-            pass
-    if vae_type is False or str(vae_type) == "no":
-        raise _unsupported("TRAIN.ABLATION.VAE_TYPE", "no",
-                           "diffusion on raw motion")
+    vae_type = _vae_type(model, cfg)
     if bool(cfg.TRAIN.ABLATION.get("MLP_DIST", False)):
         raise _unsupported("TRAIN.ABLATION.MLP_DIST", True)
     _check_tpu(cfg)
 
     vae = _params(model.motion_vae)
-    _check_transformer("motion_vae", vae, "encoder_decoder")
+    if vae_type != "no":
+        # no VAE is built on raw motion: its knobs are not read
+        _check_transformer("motion_vae", vae, "encoder_decoder")
     ds = cfg.DATASET[str(cfg.TRAIN.DATASETS[0]).upper()]
     out = {
         "latent_dim": [int(v) for v in model.latent_dim],
@@ -207,6 +216,7 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
         "guidance_uncondp": float(model.guidance_uncondp),
         "fps": int(ds.FPS),
         "predict_epsilon": predict_epsilon,
+        "vae_type": vae_type,
         "motion_vae": _transformer(vae, (
             "arch", "ff_size", "num_layers", "num_heads", "normalize_before",
             "activation", "position_embedding", "dropout")),
@@ -221,9 +231,6 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
             raise _unsupported("TRAIN.ABLATION.CAUSAL_ATTN", True,
                                "the reference raises on it (factory.py:"
                                "106-116)")
-        for key in ("fuse_streams", "remat"):
-            if bool(den.get(key, False)):
-                raise _unsupported(f"model.denoiser.params.{key}", True)
         if str(den.get("condition", "text+audio")) != "text+audio":
             raise _unsupported("model.condition", den["condition"],
                                "only the five text+audio streams")
@@ -254,6 +261,11 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
             "normalize_before", "activation", "flip_sin_to_cos",
             "position_embedding", "dropout")),
         "freq_shift": float(den.get("freq_shift", 0.0)),
+        "fuse_streams": bool(den.get("fuse_streams", False)),
+        # per-layer rematerialisation: the denoiser's own flag or TPU.REMAT
+        # (convofusion.py:149-153)
+        "remat": bool(den.get("remat", False))
+        or bool(cfg.get("TPU", {}).get("REMAT", False)),
     }
     # the t5-base dims are the factory's defaults (factory.py:141-161)
     out["text_encoder"] = {

@@ -30,7 +30,16 @@ With ``preseq`` each step first overwrites the leading latent tokens with
 the previous window's, re-noised to the step's level.  DPM-Solver++ takes
 the plain guidance combine and its own update instead of the kernel, as
 JAX's gate does.  With ``guidance_scale`` <= 1 a step is one denoiser call on
-the real conditions and the plain update, again without the kernel.
+the real conditions and the plain update, again without the kernel.  The
+fused-stream denoiser (``fuse_streams``) has no guided path: a step tiles
+the latents over the seven branches' assembled conditions (7B rows), one
+plain forward, and the plain combine and update, without the kernel (JAX
+:640-649, :828-840).
+
+With ``vae_type`` 'no' (JAX :84-110) there is no VAE: the diffusion runs
+on raw motion, (B, max_len, nfeats) latents, encode and decode are the
+identity, and guided DDIM/DDPM steps launch the kernel on (7, B, 128, 189)
+planes.
 """
 from __future__ import annotations
 
@@ -200,6 +209,11 @@ class Convofusion(nn.Module):
         self.max_len = int(cfg["max_len"])
         self.n_chunks = self.max_len // 16
         self.latent_tokens = 2 * self.n_chunks
+        self.vae_type = str(cfg.get("vae_type", "convofusion"))
+        if self.vae_type == "no":
+            # the identity latent space (JAX :98-102): z is the motion
+            self.latent_tokens = self.max_len
+            self.latent_dim = int(cfg["nfeats"])
         self.text_pad_len = int(cfg["text_pad_len"])
         self.guidance_scale = float(cfg["guidance_scale"])
         self.do_classifier_free_guidance = self.guidance_scale > 1.0
@@ -220,9 +234,9 @@ class Convofusion(nn.Module):
                 max_length=self.text_pad_len, vocab_size=vocab_size)
         d = int(cfg["denoiser"]["text_encoded_dim"])
 
-        self.vae = ConvoFusionVae(latent_dim=self.latent_dim,
-                                  latent_size=self.latent_size,
-                                  **cfg["motion_vae"], dtype=dtype)
+        self.vae = None if self.vae_type == "no" else ConvoFusionVae(
+            latent_dim=self.latent_dim, latent_size=self.latent_size,
+            **cfg["motion_vae"], dtype=dtype)
         if stage != "vae":
             self.text_encoder = T5TextEncoder(**te, dtype=dtype)
             self.audio_encoder = AudioConvEncoder(**cfg["audio_encoder"],
@@ -244,7 +258,8 @@ class Convofusion(nn.Module):
         train = cfg.get("train", {})
         self.guidance_uncondp = float(cfg.get("guidance_uncondp", 0.0))
         self.loss_weights = dict(train.get("loss", {}))
-        laplace_size = int(train.get("laplace_kernel_size", 0))
+        laplace_size = (0 if self.vae is None
+                        else int(train.get("laplace_kernel_size", 0)))
         bones = train.get("bones")
         # the losses' constant tables, kept on the model's device
         self.register_buffer(
@@ -280,7 +295,11 @@ class Convofusion(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.vae.body_final_layer.weight.device
+        return self._channel_weights.device
+
+    @property
+    def fuse_streams(self) -> bool:
+        return self.stage != "vae" and self.denoiser.fuse_streams
 
     # ------------------------------------------------------- host-side text
     def tokenize(self, texts):
@@ -360,7 +379,14 @@ class Convofusion(nn.Module):
         """The frozen VAE's (mu, logvar) for the cached-posterior layout,
         in eval mode with no grad, batch-leading: (B, 2, n_chunks, D) each
         (JAX :262-275)."""
+        self._require_vae("encode_vae_posterior")
         return vae_posterior(self.vae, motion)
+
+    def _require_vae(self, what: str) -> None:
+        if self.vae is None:
+            # JAX raises TypeError in the VAE stage (:277-284)
+            raise TypeError(f"{what} needs a motion VAE (vae_type 'no' "
+                            f"diffuses raw motion)")
 
     @_masks_from_generator
     def train_vae_loss(self, batch, generator: Optional[torch.Generator]
@@ -368,6 +394,7 @@ class Convofusion(nn.Module):
         """Stage-1 loss on ``batch['motion']`` (B, T, nfeats) (JAX
         :277-306).  ``draws['eps']`` replaces the reparameterisation draw.
         Returns (total, dict of the terms), 0-dim tensors."""
+        self._require_vae("train_vae_loss")
         motion = batch["motion"]
         b, t, _ = motion.shape
         dev = motion.device
@@ -464,16 +491,20 @@ class Convofusion(nn.Module):
         a one-row ``uncond_trunk``) in place of the token ids, and the
         frozen VAE's posterior (``vae_mu``, ``vae_logvar``, from
         :meth:`encode_vae_posterior`) in place of ``motion_lsn``.  The
-        frozen VAE encodes in eval mode with no grad.  ``draws`` replaces
-        the draws 'eps', 'group', 'noise' and 'timesteps'.  Returns (total,
-        dict of the terms), 0-dim tensors."""
+        frozen VAE encodes in eval mode with no grad; without a VAE the
+        diffusion variables are ``motion_lsn`` itself (JAX :481-492).
+        ``draws`` replaces the draws 'eps', 'group', 'noise' and
+        'timesteps'.  Returns (total, dict of the terms), 0-dim tensors."""
         dev = self.device
+        latent = None
         if "vae_mu" in batch:
             mu = batch["vae_mu"].transpose(0, 1)
             logvar = batch["vae_logvar"].transpose(0, 1)
             eps = _draw(draws, "eps", lambda: torch.randn(
                 mu.shape, generator=generator, device=dev), dev)
             latent = mu + torch.exp(0.5 * logvar) * eps
+        elif self.vae is None:
+            z = batch["motion_lsn"].detach().float()
         else:
             motion = batch["motion_lsn"]
             eps = _draw(draws, "eps", lambda: torch.randn(
@@ -481,9 +512,12 @@ class Convofusion(nn.Module):
                 generator=generator, device=dev), dev)
             with torch.no_grad(), _eval(self.vae):
                 latent, _, _ = self.vae.encode(motion, eps=eps)
-        b = latent.shape[1]
-        # (2, B, 8, D) -> (B, 16, D), body and hands interleaved per chunk
-        z = latent.permute(1, 2, 0, 3).reshape(b, -1, self.latent_dim)
+        if latent is not None:
+            # (2, B, 8, D) -> (B, 16, D), body and hands interleaved per
+            # chunk
+            z = latent.permute(1, 2, 0, 3).reshape(latent.shape[1], -1,
+                                                   self.latent_dim)
+        b = z.shape[0]
 
         dropped = self.apply_modality_dropout(batch, generator, draws)
         if "lsn_trunk" in batch:
@@ -543,6 +577,24 @@ class Convofusion(nn.Module):
         return losses["total"], losses
 
     # ------------------------------------------------------------- sampling
+    def assemble_guidance_cond(self, cond_real, masks_real, cond_unc,
+                               masks_unc):
+        """The seven guidance branches' conditions stacked branch-major into
+        (7B, ...) rows; single uncond rows are tiled to the batch (JAX
+        :570-590)."""
+        def rows(real, unc, s):
+            u = unc[s].expand((real[s].shape[0],) + unc[s].shape[1:])
+            return torch.cat([real[s] if s in GUIDANCE_BRANCHES[g] else u
+                              for g in range(NUM_BRANCHES)])
+
+        return ({s: rows(cond_real, cond_unc, s) for s in cond_real},
+                {s: rows(masks_real, masks_unc, s) for s in masks_real})
+
+    def guidance_combine(self, noise_pred7, batch_size: int):
+        """:meth:`guidance_combine_branches` of flat (7B, ...) rows."""
+        return self.guidance_combine_branches(noise_pred7.reshape(
+            (NUM_BRANCHES, batch_size) + noise_pred7.shape[1:]))
+
     def guidance_combine_branches(self, chunks):
         """uncond + gs * sum(single-modality - uncond), full-cond weight 0.
         chunks (7, B, ...)."""
@@ -551,12 +603,13 @@ class Convofusion(nn.Module):
         return uncond + self.guidance_scale * (single - 5.0 * uncond)
 
     def uses_step_kernel(self) -> bool:
-        """The fused step covers guided sampling (its 7-branch combine)
-        with epsilon prediction and clipping under fixed_small DDPM or
-        eta-0 DDIM (convofusion.py:640-649)."""
+        """The fused step covers guided sampling through ``Denoiser.guided``
+        (its 7-branch planes; not the fused-stream layout) with epsilon
+        prediction and clipping under fixed_small DDPM or eta-0 DDIM
+        (convofusion.py:640-649)."""
         s = self.scheduler
-        return (self.do_classifier_free_guidance and self.predict_epsilon
-                and s.clip_sample
+        return (self.do_classifier_free_guidance and not self.fuse_streams
+                and self.predict_epsilon and s.clip_sample
                 and (s.variant == "ddpm"
                      or (s.variant == "ddim" and s.eta == 0.0)))
 
@@ -594,6 +647,10 @@ class Convofusion(nn.Module):
             raise NotImplementedError(
                 f"scheduler variant {variant!r} is not ported")
         guided = self.do_classifier_free_guidance
+        tiled = guided and self.fuse_streams
+        if tiled:
+            cond7, masks7 = self.assemble_guidance_cond(
+                cond_real, masks_real, cond_unc, masks_unc)
         use_kernel = self.uses_step_kernel()
         is_dpmpp = variant == "dpmpp_2m"
         n_steps = num_inference_steps or self.num_inference_timesteps
@@ -632,7 +689,13 @@ class Convofusion(nn.Module):
                 latents = torch.cat([noised, latents[:, n_pre:]], dim=1)
             if refine is not None:
                 latents = refine(latents, i, t)
-            if guided:
+            if tiled:
+                # the fused layout: every branch's rows in one forward
+                eps, att = self.denoiser(
+                    latents.repeat(NUM_BRANCHES, 1, 1), t, cond7, masks7)
+                eps = self.guidance_combine(eps, batch_size)
+                att = {s: a[-batch_size:] for s, a in att.items()}
+            elif guided:
                 noise_pred7, att = self.denoiser.guided(
                     latents, t, cond_real, cond_unc, masks_real, masks_unc)
                 if not use_kernel:
@@ -742,7 +805,8 @@ class Convofusion(nn.Module):
         :meth:`diffusion_reverse`).  Runs
         under ``no_grad``, not ``inference_mode``: WEG builds a graph
         through the latents from conditions encoded here.  Returns (motion
-        (B, 128, nfeats), latents (B, 16, D)); with
+        (B, 128, nfeats), latents (B, 16, D); without a VAE the motion is
+        the latents); with
         ``capture_attention='all'`` (motion, latents, att_seq), att_seq the
         full-condition attention maps of every step (see
         :meth:`diffusion_reverse`)."""
@@ -760,10 +824,14 @@ class Convofusion(nn.Module):
             num_inference_steps, generator, init_noise, step_noise, weg,
             weg_params, preseq, capture_attention)
         latents = out if capture_attention == "none" else out[0]
-        # (B, 16, D) -> (2, B, 8, D): tokens alternate body, hands per chunk
-        z = latents.reshape(b, self.n_chunks, 2, self.latent_dim)
-        z = torch.stack([z[:, :, 0], z[:, :, 1]], dim=0)
-        motion = self.vae.decode(z, self.max_len)
+        if self.vae is None:
+            motion = latents            # the identity decode (JAX :928-931)
+        else:
+            # (B, 16, D) -> (2, B, 8, D): tokens alternate body, hands per
+            # chunk
+            z = latents.reshape(b, self.n_chunks, 2, self.latent_dim)
+            z = torch.stack([z[:, :, 0], z[:, :, 1]], dim=0)
+            motion = self.vae.decode(z, self.max_len)
         if capture_attention == "none":
             return motion, latents
         return motion, latents, out[1]
@@ -849,4 +917,5 @@ def gen_from_latent(model: Convofusion, latent: torch.Tensor,
                     nframes: Optional[int] = None) -> torch.Tensor:
     """Decode motion straight from a (2, B, n_chunks, D) latent
     (convofusion_tpu/models/convofusion.py:1035-1038)."""
+    model._require_vae("gen_from_latent")
     return model.vae.decode(latent, nframes or model.max_len)

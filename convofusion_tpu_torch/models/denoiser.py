@@ -9,6 +9,12 @@ Port of ``Denoiser._embed_sample``, ``_build_memory``, ``__call__``,
   4. add time embedding + condition-id embedding + sine PE to each of the
      five condition streams
   5. run the 5-stream decoder stack; project back d -> latent_dim
+
+``fuse_streams`` builds the stack with the five cross-attentions batched
+into one (``FusedDenoiserDecoder``; JAX :55-90): ``forward`` and
+``text_only`` run the same math, and the guided and K/V paths, which need
+the per-stream layers, raise (JAX asserts, :270-271).  ``remat``
+recomputes each layer's activations in a training backward pass.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from convofusion_tpu_torch.ops.transformer import (
     COND_STREAMS,
     NUM_BRANCHES,
     DenoiserDecoder,
+    FusedDenoiserDecoder,
 )
 
 
@@ -41,7 +48,8 @@ class Denoiser(nn.Module):
                  num_heads: int = 4, normalize_before: bool = True,
                  activation: str = "gelu", flip_sin_to_cos: bool = True,
                  freq_shift: float = 0.0, position_embedding: str = "sine",
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 fuse_streams: bool = False, remat: bool = False):
         super().__init__()
         if position_embedding != "sine":
             raise NotImplementedError(
@@ -56,10 +64,14 @@ class Denoiser(nn.Module):
         self.bh_embedding = nn.Embedding(2, d, dtype=dtype)
         self.condition_embedding = nn.Embedding(len(COND_STREAMS), d,
                                                 dtype=dtype)
-        self.decoder = DenoiserDecoder(
+        self.fuse_streams = bool(fuse_streams)
+        decoder_cls = (FusedDenoiserDecoder if self.fuse_streams
+                       else DenoiserDecoder)
+        self.decoder = decoder_cls(
             d_model=d, num_layers=num_layers, nhead=num_heads,
             dim_feedforward=ff_size, activation=activation,
-            normalize_before=normalize_before, dtype=dtype, dropout=dropout)
+            normalize_before=normalize_before, dtype=dtype, dropout=dropout,
+            remat=remat)
 
     def _embed_sample(self, sample, timesteps):
         b, t, _ = sample.shape
@@ -97,11 +109,18 @@ class Denoiser(nn.Module):
         out, att = self.decoder(x, mem, time_emb, cond_masks)
         return self.latent_proj(out), att
 
+    def _per_stream(self, what: str) -> None:
+        if self.fuse_streams:
+            raise NotImplementedError(
+                f"{what} runs the per-stream layer layout, not "
+                f"fuse_streams (convofusion_tpu/models/denoiser.py:270-271)")
+
     def text_only(self, sample, timesteps, cond: Dict[str, torch.Tensor],
                   cond_masks: Optional[Dict[str, torch.Tensor]] = None):
         """``forward`` for the WEG text-only condition (guidance branch 1:
         tlsn real, the rest single uncond rows).  Needs a scalar timestep,
-        so those rows stay at batch 1."""
+        so those rows stay at batch 1 (in the fused layout, up to the
+        padded stack, where they are broadcast)."""
         if not _is_scalar(timesteps):
             raise ValueError("text_only takes a scalar timestep")
         return self.forward(sample, timesteps, cond, cond_masks)
@@ -111,6 +130,7 @@ class Denoiser(nn.Module):
         at one scalar timestep: the latent-independent share of a step,
         for :meth:`guided` and :meth:`forward_kv` (``kvs=``).  The time
         embedding is one row, so single-row streams stay at batch 1."""
+        self._per_stream("precompute_step_kv")
         if not _is_scalar(timesteps):
             raise ValueError("precompute_step_kv takes a scalar timestep")
         dev = self.latent_embd.weight.device
@@ -126,6 +146,7 @@ class Denoiser(nn.Module):
         """``forward`` over :meth:`precompute_step_kv`; ``select[stream]``
         in {'real', 'unc'} (the WEG text-only pass: tlsn 'real', the rest
         'unc', guidance branch 1)."""
+        self._per_stream("forward_kv")
         x, time_emb = self._embed_sample(sample, timesteps)
         out, att = self.decoder.forward_kv(x, kvs, select, time_emb,
                                            cond_masks)
@@ -138,6 +159,7 @@ class Denoiser(nn.Module):
         replaces the conditions.  Returns (noise_pred (7, B, T,
         latent_dim), att[stream] (B, L, T, Tk) of the full-condition
         branch)."""
+        self._per_stream("guided")
         x, time_emb = self._embed_sample(sample, timesteps)
         x7 = x[None].expand((NUM_BRANCHES,) + x.shape)
         if kvs is None:

@@ -10,7 +10,8 @@ promotes a bf16 input against its fp32 scale and returns fp32
 flax rounds at every use) and a ``LayerNorm`` keeps fp32 weights and
 computes and returns fp32.  Dropout masks come from the generator that
 ``dropout_generator`` scopes around a forward pass (the training losses set
-the step's generator).
+the step's generator); ``checkpointed`` recomputes a layer in the backward
+pass with the masks of its forward.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -48,6 +50,33 @@ def dropout_generator(generator):
         yield
     finally:
         _DROPOUT_GENERATOR.reset(token)
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), for per-layer
+    rematerialisation.  The recompute's dropout masks come from a copy of
+    the enclosing :func:`dropout_generator`'s generator at the state the
+    forward saw, so they equal the forward's and the generator advances
+    once, as without the checkpoint (flax's ``nn.remat`` redraws the same
+    masks from the key); without one, the checkpoint's
+    ``preserve_rng_state`` replays the default generators."""
+    gen = _DROPOUT_GENERATOR.get()
+    state = None if gen is None else gen.get_state()
+    calls = []
+
+    def run(*a):
+        if not calls:               # the forward: the live generator
+            calls.append(True)
+            return fn(*a)
+        replay = None
+        if gen is not None:
+            replay = torch.Generator(device=gen.device)
+            replay.set_state(state)
+        with dropout_generator(replay):
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 class Dropout(nn.Module):
@@ -84,11 +113,17 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps)
 
 
+# ops/fused_streams.FusedCrossStreams's parameters
+_STACKED_KERNELS = {f"{p}_kernel" for p in "qkvo"}
+_STACKED_BIASES = {f"{p}_bias" for p in "qkvo"} | {"ln_bias"}
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init at the scale of the flax defaults: Dense kernels lecun
     normal (std 1/sqrt(fan_in)), zero biases, Embed rows std
     1/sqrt(features), norms at one (T5LayerNorm starts at one and is left
-    alone), the VAE's global motion tokens std 1 (flax ``normal(1.0)``,
+    alone), the fused cross-attentions' stacked kernels as Dense kernels,
+    the VAE's global motion tokens std 1 (flax ``normal(1.0)``,
     convofusion_tpu/models/vae.py:91-96).  Values are drawn in fp32 on the CPU
     and cast into each parameter, so one seed gives the same weights on
     every device and (up to rounding) in every dtype."""
@@ -114,3 +149,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(p)
             elif name.endswith("_global_motion_token"):
                 fill(p, 1.0)
+            # the fused cross-attentions' stacked (S, D_in, D_out) kernels
+            elif name in _STACKED_KERNELS:
+                fill(p, 1.0 / math.sqrt(p.shape[-2]))
+            elif name in _STACKED_BIASES:
+                nn.init.zeros_(p)
+            elif name == "ln_scale":
+                nn.init.ones_(p)

@@ -7,11 +7,17 @@ Port of ``convofusion_tpu/ops/transformer.py``: ``_FFN``,
 (:38-252), ``TransformerDecoderLayer2Att.__call__`` / ``.cross_kv`` /
 ``.forward_kv`` / ``.forward_mem`` / ``.guided`` (:255-510),
 ``DenoiserDecoder.__call__`` / ``.precompute_kv`` / ``.forward_mem`` /
-``.forward_kv`` / ``.guided`` (:513-627) and the guidance tables
-(:26,732-750); pre-norm only.  ``forward`` here is both ``__call__`` and
-``forward_mem``: its cross-attention broadcasts single-row memories, so one
-body serves full and mixed-batch streams; it and ``forward_kv`` share one
-body over per-stream K/V.  Dropout sits where JAX has it: the attention
+``.forward_kv`` / ``.guided`` (:513-627), the fused-stream layer and stack
+``FusedTransformerDecoderLayer2Att`` / ``FusedDenoiserDecoder``
+(:630-729, the cross-attentions in ``ops/fused_streams.py``) and the
+guidance tables (:26,732-750); pre-norm only.  With ``remat`` a decoder
+stack recomputes each layer's activations in the backward pass of a
+training forward (the module in train mode with grad enabled; JAX
+``nn.remat`` over the layer, :523-546, :700-711): sampling, WEG's gradient
+pass included, runs the same kernels with and without it.  ``forward``
+here is both ``__call__`` and ``forward_mem``: its cross-attention
+broadcasts single-row memories, so one body serves full and mixed-batch
+streams; it and ``forward_kv`` share one body over per-stream K/V.  Dropout sits where JAX has it: the attention
 weights, the FFN after its activation, each residual branch, and the
 TimeBlock after its SiLU; each is the identity unless the module trains.
 No caller passes positional queries inside the layers (``pos`` /
@@ -31,7 +37,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from convofusion_tpu_torch.ops.attention import MultiheadAttention
-from convofusion_tpu_torch.ops.layers import Dropout, LayerNorm, Linear
+from convofusion_tpu_torch.ops.layers import (
+    Dropout,
+    LayerNorm,
+    Linear,
+    checkpointed,
+)
 
 # the five conditioning streams, in fuser concat order
 COND_STREAMS = ("spkemb", "alsn", "tlsn", "apb", "lsnemb")
@@ -347,21 +358,37 @@ class TransformerDecoderLayer2Att(_FFN):
         return tgt7, att
 
 
-class DenoiserDecoder(nn.Module):
-    """Stack of TransformerDecoderLayer2Att collecting per-layer attention
-    maps: att[stream] is (B, L, Tq, Tk)."""
+class _Stack(nn.Module):
+    """A decoder stack's layers, final norm and the ``remat`` switch."""
+
+    layer_cls = None
 
     def __init__(self, d_model: int, num_layers: int, nhead: int,
                  dim_feedforward: int = 2048, activation: str = "gelu",
                  normalize_before: bool = True,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 remat: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerDecoderLayer2Att(d_model, nhead, dim_feedforward,
-                                        activation, normalize_before, dtype,
-                                        dropout)
+            self.layer_cls(d_model, nhead, dim_feedforward, activation,
+                           normalize_before, dtype, dropout)
             for _ in range(num_layers))
         self.norm = LayerNorm(d_model)
+        self.remat = bool(remat)
+
+    def _layer(self, layer, *args):
+        """One layer's training forward, recomputed in the backward pass
+        when ``remat`` is on."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpointed(layer, *args)
+        return layer(*args)
+
+
+class DenoiserDecoder(_Stack):
+    """Stack of TransformerDecoderLayer2Att collecting per-layer attention
+    maps: att[stream] is (B, L, Tq, Tk)."""
+
+    layer_cls = TransformerDecoderLayer2Att
 
     @staticmethod
     def _stack(per_layer):
@@ -371,7 +398,7 @@ class DenoiserDecoder(nn.Module):
     def forward(self, tgt, memory, time_embed, mem_masks=None):
         out, per_layer = tgt, []
         for layer in self.layers:
-            out, att = layer(out, memory, time_embed, mem_masks)
+            out, att = self._layer(layer, out, memory, time_embed, mem_masks)
             per_layer.append(att)
         return self.norm(out), self._stack(per_layer)
 
@@ -396,3 +423,67 @@ class DenoiserDecoder(nn.Module):
                                     None if kvs is None else kvs[i])
             per_layer.append(att)
         return self.norm(out), self._stack(per_layer)
+
+
+class FusedTransformerDecoderLayer2Att(_FFN):
+    """:class:`TransformerDecoderLayer2Att` with the five cross-attentions
+    batched into one padded attention (``ops/fused_streams.py``), the same
+    math; the cross section's weights live under ``cross_streams``."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 activation: str = "gelu", normalize_before: bool = True,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        from convofusion_tpu_torch.ops.fused_streams import FusedCrossStreams
+
+        super().__init__()
+        if not normalize_before:
+            raise ValueError("the denoiser layer is pre-norm "
+                             "(modules/denoiser.yaml)")
+        d = d_model
+        self.self_attn = MultiheadAttention(d, nhead, dtype, dropout)
+        self.time_block1 = TimeBlock(d, dtype, dropout)
+        self.time_block2 = TimeBlock(d, dtype, dropout)
+        self.norm1 = LayerNorm(d)
+        self.norm2 = LayerNorm(d)
+        self.norm3 = LayerNorm(d)
+        self.cross_streams = FusedCrossStreams(d, dtype, dropout)
+        self.att_fuser = Linear(len(COND_STREAMS) * d, d, dtype=dtype)
+        self._init_ffn(d, dim_feedforward, activation, dtype, dropout)
+        self.drop = Dropout(dropout)
+
+    def forward(self, tgt, mem_stack, pad_stack, time_embed):
+        """tgt (B, Tq, D); mem_stack (S, B, Tk, D) and pad_stack (S, B, Tk)
+        from ``pad_stream_stack``.  Returns (tgt, weights (S, B, Tq,
+        Tk))."""
+        tgt2 = self.norm1(tgt)
+        tgt2, _ = self.self_attn(tgt2, tgt2, tgt2, need_weights=False)
+        tgt = tgt + self.drop(tgt2)
+        tgt = tgt + self.time_block1(tgt, time_embed)
+        cat, weights = self.cross_streams(self.norm2(tgt), mem_stack,
+                                          pad_stack)
+        tgt = tgt + self.drop(self.att_fuser(cat))
+        tgt = tgt + self.time_block2(tgt, time_embed)
+        tgt = tgt + self.drop(self.ffn(self.norm3(tgt)))
+        return tgt, weights
+
+
+class FusedDenoiserDecoder(_Stack):
+    """:class:`DenoiserDecoder` over fused layers: the memories are padded
+    and stacked once a call; the same per-stream attention maps, each
+    trimmed to its stream's length."""
+
+    layer_cls = FusedTransformerDecoderLayer2Att
+
+    def forward(self, tgt, memory, time_embed, mem_masks=None):
+        from convofusion_tpu_torch.ops.fused_streams import pad_stream_stack
+
+        mem_stack, pad_stack, lengths = pad_stream_stack(memory, mem_masks)
+        out, per_layer = tgt, []
+        for layer in self.layers:
+            out, w = self._layer(layer, out, mem_stack, pad_stack,
+                                 time_embed)
+            per_layer.append(w)
+        stacked = torch.stack(per_layer, dim=2)     # (S, B, L, Tq, Tmax)
+        att = {s: stacked[i, ..., :lengths[s]]
+               for i, s in enumerate(COND_STREAMS)}
+        return self.norm(out), att

@@ -277,7 +277,13 @@ def load_torch_vae(path: str, model) -> None:
 
 def transplant_vae(model, vae_ckpt_path: str) -> None:
     """The stage handoff: a stage-1 checkpoint's VAE into a stage-2 model,
-    nothing else (:183-193, reference train.py:144-156)."""
+    nothing else (:183-193, reference train.py:144-156).  A model on raw
+    motion has no VAE to take it: JAX adds the tree unused, the port warns
+    and leaves the model as it is."""
+    if model.vae is None:
+        warnings.warn(f"{vae_ckpt_path}: the model diffuses raw motion "
+                      f"(vae_type 'no'); its VAE is not loaded")
+        return
     load_torch_vae(vae_ckpt_path, model)
 
 
@@ -286,20 +292,25 @@ def load_torch_full_model(path: str, model) -> None:
     ``model`` (:286-340): VAE, denoiser, audio encoder, fuser, the T5
     projection and, where the file has it, the T5 trunk.  The VAE's and the
     denoiser's dims are inferred from the file and checked against the
-    model's."""
+    model's.  A model on raw motion (no VAE) takes the rest of a file, and
+    a file's weights that do not fit the model's layout (the unfused
+    cross-attentions into a ``fuse_streams`` model) raise: no conversion
+    is made, as JAX makes none."""
     sd = _from_reference_names(_tensors(_read(path)["state_dict"]))
     cfg = model.cfg
     layers = [int(m.group(1)) for k in sd if (m := re.match(
         r"denoiser\.decoder\.layers\.(\d+)\.", k))]
-    _check_dims(str(path), {
-        "vae_dim": sd["vae.body_skel_embedding.weight"].shape[0],
-        "vae_layers": _infer_skip_layers(sd, "vae.body_encoder"),
-        "denoiser_dim": sd["denoiser.latent_embd.weight"].shape[0],
-        "denoiser_layers": 1 + max(layers, default=-1)}, {
-        "vae_dim": cfg["latent_dim"][1],
-        "vae_layers": cfg["motion_vae"]["num_layers"],
-        "denoiser_dim": cfg["denoiser"]["text_encoded_dim"],
-        "denoiser_layers": cfg["denoiser"]["num_layers"]})
+    found = {"denoiser_dim": sd["denoiser.latent_embd.weight"].shape[0],
+             "denoiser_layers": 1 + max(layers, default=-1)}
+    want = {"denoiser_dim": cfg["denoiser"]["text_encoded_dim"],
+            "denoiser_layers": cfg["denoiser"]["num_layers"]}
+    if model.vae is not None:
+        found.update(
+            vae_dim=sd["vae.body_skel_embedding.weight"].shape[0],
+            vae_layers=_infer_skip_layers(sd, "vae.body_encoder"))
+        want.update(vae_dim=cfg["latent_dim"][1],
+                    vae_layers=cfg["motion_vae"]["num_layers"])
+    _check_dims(str(path), found, want)
     _load_weights(model, sd, str(path))
 
 

@@ -8,7 +8,8 @@
   ``PRODUCTION_VAE`` / ``TINY`` / ``TINY_VAE``, the dicts whose comments
   cite the same YAML lines; the exceptions are named in each test;
 - ``ablation_flag`` maps YAML's bare ``no`` (boolean False) to ``'no'``;
-- a knob the port does not implement raises and names its key.
+- a knob the port does not implement raises and names its key; the fused
+  streams, REMAT and raw-motion diffusion are read into the dict.
 No JAX model is built: the comparisons are of config containers.
 """
 import copy
@@ -154,7 +155,6 @@ def test_serve_block_and_optimizer_knobs():
 
 
 @pytest.mark.parametrize("override,key", [
-    ("TRAIN.ABLATION.VAE_TYPE=no", "VAE_TYPE"),
     ("TRAIN.ABLATION.MLP_DIST=true", "MLP_DIST"),
     ("TRAIN.ABLATION.CAUSAL_ATTN=true", "CAUSAL_ATTN"),
     ("model.motion_vae.params.position_embedding=learned",
@@ -164,9 +164,9 @@ def test_serve_block_and_optimizer_knobs():
     ("model.denoiser.params.normalize_before=false", "normalize_before"),
     ("model.motion_vae.params.arch=all_encoder", "motion_vae.params.arch"),
     ("model.denoiser.params.arch=trans_enc", "denoiser.params.arch"),
-    ("model.denoiser.params.fuse_streams=true", "fuse_streams"),
-    ("TPU.REMAT=true", "TPU.REMAT"),
     ("TPU.MESH.MODEL=2", "TPU.MESH.MODEL"),
+    ("TPU.PALLAS_STEP=false", "TPU.PALLAS_STEP"),
+    ("TPU.SCAN_UNROLL=2", "TPU.SCAN_UNROLL"),
     ("model.condition=text", "model.condition"),
     ("model.scheduler.params.variance_type=fixed_large", "variance_type"),
     ("model.text_encoder.params.finetune=true", "finetune"),
@@ -179,10 +179,49 @@ def test_unsupported_knob_raises(override, key):
 def test_stage_one_skips_the_denoiser_knobs():
     """A stage-1 config builds the VAE alone: the denoiser's knobs are not
     its business; the VAE's still are."""
-    cfg = _load(EXPERIMENTS[1], ["model.denoiser.params.fuse_streams=true"])
+    cfg = _load(EXPERIMENTS[1],
+                ["model.denoiser.params.position_embedding=learned"])
     assert C.from_cfg(cfg)["motion_vae"] == C.PRODUCTION_VAE["motion_vae"]
     with pytest.raises(NotImplementedError, match="normalize_before"):
         C.from_cfg(_load(EXPERIMENTS[1], [
             "model.motion_vae.params.normalize_before=false"]))
-    with pytest.raises(NotImplementedError, match="fuse_streams"):
+    with pytest.raises(NotImplementedError, match="position_embedding"):
         C.from_cfg(cfg, stage="diffusion")
+
+
+@pytest.mark.parametrize("overrides,path,want", [
+    (["model.denoiser.params.fuse_streams=true"],
+     ("denoiser", "fuse_streams"), True),
+    (["model.denoiser.params.remat=true"], ("denoiser", "remat"), True),
+    (["TPU.REMAT=true"], ("denoiser", "remat"), True),
+    (["TRAIN.ABLATION.VAE_TYPE=no"], ("vae_type",), "no"),
+    (["TRAIN.ABLATION.VAE_TYPE='no'"], ("vae_type",), "no"),
+    (["model.vae_type=no", "TRAIN.ABLATION.VAE_TYPE=convofusion"],
+     ("vae_type",), "no"),
+    ([], ("vae_type",), "convofusion"),
+])
+def test_ported_knob_is_read(overrides, path, want):
+    """``fuse_streams``, ``remat``, ``TPU.REMAT`` and ``VAE_TYPE: no``
+    reach the dict (JAX convofusion.py:84-110, :149-153): ``model.vae_type``
+    wins over ``TRAIN.ABLATION.VAE_TYPE``, YAML's unquoted ``no`` (False)
+    reads 'no'; the rest of the dict is PRODUCTION's."""
+    got = C.from_cfg(_load(EXPERIMENTS[0], DDIM_50 + overrides))
+    node = got
+    for key in path:
+        node = node[key]
+    assert node == want
+    want_dict = copy.deepcopy(C.PRODUCTION)
+    node = want_dict
+    for key in path[:-1]:
+        node = node[key]
+    node[path[-1]] = want
+    assert got == want_dict
+
+
+def test_raw_motion_geometry_is_not_refused():
+    """The no-VAE geometry (latent_dim [1, 189]) and a VAE knob the port
+    refuses are not checked when no VAE is built."""
+    got = C.from_cfg(_load(EXPERIMENTS[0], [
+        "TRAIN.ABLATION.VAE_TYPE=no", "model.latent_dim=[1,189]",
+        "model.motion_vae.params.normalize_before=false"]))
+    assert got["vae_type"] == "no" and got["latent_dim"] == [1, 189]

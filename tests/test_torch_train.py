@@ -50,8 +50,10 @@ def jax_params_from_port(model):
     JAX package's converters."""
     sd = {k: v.detach().float().numpy() for k, v in model.state_dict().items()}
     cfg = model.cfg
-    out = {"vae": tl.vae_params(_sub(sd, "vae."), cfg["latent_dim"][1],
-                                cfg["motion_vae"]["num_layers"])}
+    out = {}
+    if model.vae is not None:    # none on raw motion (vae_type 'no')
+        out["vae"] = tl.vae_params(_sub(sd, "vae."), cfg["latent_dim"][1],
+                                   cfg["motion_vae"]["num_layers"])
     if model.stage != "vae":
         out["denoiser"] = tl.denoiser_params(
             _sub(sd, "denoiser."), cfg["denoiser"]["text_encoded_dim"],

@@ -125,8 +125,9 @@ def _flatten_shapes(tree, prefix):
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imported: neither JAX
     nor the JAX package comes along, the config system, the checkpoints,
-    the asset drop, the tokenizers, the data pipeline and the test CLI
-    included (each keeps its own copy), and neither do the tokenizer
+    the asset drop, the tokenizers, the data pipeline, the test CLI, the
+    learning proof and the fused streams included (each keeps its own
+    copy), and neither do the tokenizer
     packages the JAX side uses as its oracle."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -140,7 +141,8 @@ def test_port_imports_no_jax():
         "'models.tokenizer', 'data.text', 'data.audio', 'native', "
         "'data.dataset', 'data.collate', 'data.datamodule', "
         "'data.fixture', 'utils.quaternion', 'utils.geometry', "
-        "'utils.logger', 'utils.profiling', 'cli.test')]\n"
+        "'utils.logger', 'utils.profiling', 'cli.test', 'train.overfit', "
+        "'train.sampler_quality', 'ops.fused_streams')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'convofusion_tpu', "
