@@ -153,9 +153,26 @@ step kernel must be among them):
                finite and nonzero; the learning proof's pipeline
                (train/overfit.run) at 20 + 20 epochs and DDIM-10: every key
                of JAX's result, finite
+ 17. ablations - every model option the JAX package builds, at the
+               production width: sample() fp32 batch 2 DDIM-10 card vs CPU
+               (phase 4's bounds, 10 launches a card call) with the
+               post-norm, learned-PE, MLP_DIST VAE and the denoiser's
+               learned memory PE, and with the all_encoder VAE; the
+               trans_enc denoiser, fp32 batch 4, card vs CPU: a stage-2
+               loss and its gradients (phase 11's bounds), unguided
+               DDIM-10 (0 launches), a guided call that raises;
+               EmbedAction (eval, guided), the text condition's emb_proj
+               and TextAudioController spk-ta card vs CPU within 1e-5;
+               TPU.PALLAS_STEP false against true at bf16 batch 96 DDIM-50
+               in turns (ms a call; 50 and 0 launches a call), one fp32
+               batch-2 step of both paths within 1e-5 and DDIM-10 within
+               phase 4's bounds; the ablated config through cli/train
+               (stage 1 at 128 and stage 2 at 64, 2 steps each), a save and
+               load of the stage-2 model bit-equal, and cli/test on one
+               batch of 32 at DDIM-50 (50 launches)
 Then the kernel against its plain version at any other shape the path
 phases launched it with, the whole run's wall time, a JSON line of per-kernel numbers
-(launches summed over phases 5-16 that ran, and each phase's count under
+(launches summed over phases 5-17 that ran, and each phase's count under
 launches_by_phase, every timed shape under shapes; the dpmpp and training
 phases launch no step kernel)
 and, last, the result line {"ok": true, "device": {...}}.
@@ -214,6 +231,8 @@ from convofusion_tpu_torch.models.convofusion import (
     to_tensors,
 )
 from convofusion_tpu_torch.models import weg as weg_lib
+from convofusion_tpu_torch.models.audioenc import TextAudioController
+from convofusion_tpu_torch.models.denoiser import Denoiser, EmbedAction
 from convofusion_tpu_torch.models.sentencepiece import write_synthetic_spiece
 from convofusion_tpu_torch.models.tokenizer import (
     SentencePieceTokenizer,
@@ -352,6 +371,25 @@ OVERFIT_EPOCHS = 20
 # the raw-motion (vae_type 'no') latents the step kernel takes: (B, 128,
 # 189) at phase 16's batches
 RAW_MOTION_BATCHES = (VARIANT_PARITY_BATCH, BATCH)
+# phase 17: the ablations at the production width.  sample() card vs CPU
+# at fp32 batch 2 DDIM-10 (phase 4's motion bound, the latents' of phases
+# 6, 8 and 10; exactly 10 launches a card call); trans_enc at fp32 batch 4
+# (phase 11's loss and gradient bounds, then unguided DDIM-10 at phase 4's);
+# the modules card vs CPU within 1e-5; TPU.PALLAS_STEP false against true
+# at bf16 batch 96 DDIM-50 in turns after a warm-up each, and one fp32
+# batch-2 step of both paths within 1e-5
+ABLATION_PARITY_BATCH, ABLATION_STEPS, TRANS_ENC_BATCH = 2, 10, 4
+ABLATION_MODULE_ATOL, STEP_PATHS_ATOL = 1e-5, 1e-5
+STEP_PATH_TURNS = 2
+# the CLIs with the post-norm, learned-PE, MLP_DIST VAE (and the denoiser's
+# learned memory PE): stage 1's 2 steps of 128 on phase 15's 64-file tree
+# (266 train items), stage 2's 2 steps of 64 on a 32-file tree (132), the
+# test CLI's one batch of 32 on phase 14's 7-file tree
+ABLATION_CLI_FILES = (TRAIN_CLI_FILES, 32, CLI_BEAT_FILES)
+ABLATION_OVERRIDES = ["model.motion_vae.params.normalize_before=false",
+                      "model.motion_vae.params.position_embedding=learned",
+                      "TRAIN.ABLATION.MLP_DIST=true",
+                      "model.denoiser.params.position_embedding=learned"]
 # what earlier phases of this run measured, for later phases to print
 PHASE_RESULTS = {}
 
@@ -1300,6 +1338,18 @@ def train_batch(model, raw):
     return prepare_arrays(model, raw)[0]
 
 
+def _grad_worst(got, want):
+    """The worst gradient's gap over its tolerance (phase 11's), and its
+    name."""
+    worst, worst_name = 0.0, None
+    for name, w in want.items():
+        tol = TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * float(w.abs().max())
+        ratio = float((got[name] - w).abs().max()) / tol
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
 def phase_train_parity(device="cuda"):
     """Stage 1 and stage 2 (token ids), fp32 with TF32 off, production
     geometry, batch 4, dropout 0, the same seeded weights and numpy-made
@@ -1353,12 +1403,7 @@ def phase_train_parity(device="cuda"):
         if not all(np.isfinite(l_gpu + l_cpu)):
             raise RuntimeError(f"train_parity {stage}: losses not finite")
         d_loss = abs(l_gpu[0] - l_cpu[0]) / abs(l_cpu[0])
-        worst, worst_name = 0.0, None
-        for name, want in g_cpu.items():
-            tol = TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * float(want.abs().max())
-            ratio = float((g_gpu[name] - want).abs().max()) / tol
-            if ratio > worst:
-                worst, worst_name = ratio, name
+        worst, worst_name = _grad_worst(g_gpu, g_cpu)
         d_fit = max(abs(a - c) / abs(c) for a, c in zip(l_gpu, l_cpu))
         log(f"# train_parity: {stage} fp32 batch {b} card vs CPU: step-1 "
             f"loss {l_cpu[0]:.6g}, relative gap {d_loss:.3g} (tolerance "
@@ -2500,19 +2545,21 @@ def unguided_parity(device=None):
                            f"{launches} times")
 
 
-def _card_cpu_gap(what, dev_out, cpu_out):
+def _card_cpu_gap(what, dev_out, cpu_out, phase="variants",
+                  bounds=(PARITY_ATOL, VARIANT_LATENT_ATOL)):
     """max |motion| and |latent| gaps of two (motion, latents) pairs, held
-    to phase 4's bounds (motion 1e-3, latents 2e-3)."""
+    to ``bounds`` (phase 4's: motion 1e-3, latents 2e-3)."""
     (m_d, l_d), (m_c, l_c) = dev_out, cpu_out
     for t in (m_d, m_c):
         if not torch.isfinite(t).all():
-            raise RuntimeError(f"variants {what}: motion not finite")
+            raise RuntimeError(f"{phase} {what}: motion not finite")
     dm = float((m_d - m_c).abs().max())
     dl = float((l_d - l_c).abs().max())
-    log(f"# variants: {what}: max|motion diff| {dm:.3g}, max|latent diff| "
-        f"{dl:.3g}; tolerances {PARITY_ATOL}, {VARIANT_LATENT_ATOL}")
-    if not dm <= PARITY_ATOL or not dl <= VARIANT_LATENT_ATOL:
-        raise RuntimeError(f"variants {what}: {dm} / {dl} over the bounds")
+    log(f"# {phase}: {what}: max|motion diff| {dm:.3g}, max|latent diff| "
+        f"{dl:.3g}; tolerances {bounds[0]}, {bounds[1]}")
+    if not dm <= bounds[0] or not dl <= bounds[1]:
+        raise RuntimeError(f"{phase} {what}: {dm} / {dl} over the bounds")
+    return dm, dl
 
 
 def _fp32_sample(cfg, side, raw, init, steps, state_dict=None):
@@ -2865,6 +2912,359 @@ def phase_variants(smi, device="cuda"):
     PHASE_RESULTS["variants"] = row
 
 
+def ablated_vae_parity(device):
+    """fp32 batch 2 DDIM-10 sample() on the card against the CPU, seeded
+    weights, numpy-made inputs and noise, for the post-norm learned-PE
+    MLP_DIST VAE with the denoiser's learned memory PE, and for the
+    all_encoder VAE; exactly 10 launches a card call."""
+    base = copy.deepcopy(PRODUCTION)
+    base["scheduler"].update(variant="ddim",
+                             num_inference_timesteps=ABLATION_STEPS)
+    post = copy.deepcopy(base)
+    post["motion_vae"].update(normalize_before=False,
+                              position_embedding="learned", mlp_dist=True)
+    post["denoiser"]["position_embedding"] = "learned"
+    all_enc = copy.deepcopy(base)
+    all_enc["motion_vae"]["arch"] = "all_encoder"
+    b, lat = ABLATION_PARITY_BATCH, base["latent_dim"][1]
+    raw = synthetic_raw_batch(111, b, mel_frames=base["mel_frames"])
+    init, steps = _noise(np.random.default_rng(112), ABLATION_STEPS,
+                         (b, 16, lat))
+    on_card = torch.device(device).type == "cuda"
+    row = {}
+    for name, cfg in (("post_norm_learned_mlp_dist", post),
+                      ("all_encoder", all_enc)):
+        (dev_out, n), (cpu_out, _) = (
+            _fp32_sample(cfg, side, raw, init, steps)
+            for side in (device, "cpu"))
+        if on_card and n != ABLATION_STEPS:
+            raise RuntimeError(f"ablations {name}: {n} launches, want "
+                               f"{ABLATION_STEPS}")
+        row[name] = _card_cpu_gap(
+            f"{name} fp32 batch {b} DDIM-{ABLATION_STEPS} card vs CPU, {n} "
+            f"launches on the card", dev_out, cpu_out, phase="ablations")
+    return row
+
+
+def trans_enc_parity(device):
+    """The trans_enc denoiser at the production width, fp32, dropout 0,
+    batch 4, on the card against the CPU: one stage-2 loss and its
+    gradients (phase 11's bounds), one unguided DDIM-10 sample() (phase 4's
+    bounds, no launch), and a guided call that raises before any work."""
+    cfg = without_dropout(PRODUCTION)
+    cfg["denoiser"]["arch"] = "trans_enc"
+    cfg["guidance_scale"] = 1.0
+    cfg["scheduler"].update(variant="ddim",
+                            num_inference_timesteps=ABLATION_STEPS)
+    b, lat = TRANS_ENC_BATCH, cfg["latent_dim"][1]
+    raw = synthetic_raw_batch(121, b, mel_frames=cfg["mel_frames"])
+    rng = np.random.default_rng(122)
+    draws = train_draws(rng, "diffusion", b, 1, lat)[0]
+    init, steps = _noise(rng, ABLATION_STEPS, (b, 16, lat))
+    out = {}
+    for side in (device, "cpu"):
+        model = Convofusion(cfg, dtype="float32", device=side, seed=0)
+        batch = train_batch(model, raw)
+        trainer = Trainer(model)
+        with trainer.training():
+            loss, _ = trainer.compute_grads(batch, None, draws)
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+        before = gs_mod.guided_step.launches
+        motion, latents = model.sample(batch, num_inference_steps=len(steps),
+                                       init_noise=init, step_noise=steps)
+        n = gs_mod.guided_step.launches - before
+        # guided sampling: no work, a ValueError naming trans_enc
+        model.guidance_scale, model.do_classifier_free_guidance = 7.5, True
+        try:
+            model.sample(batch, torch.Generator(device=side).manual_seed(0),
+                         num_inference_steps=len(steps))
+        except ValueError as e:
+            if "trans_enc" not in str(e):
+                raise
+        else:
+            raise RuntimeError("ablations trans_enc: guided sample() ran")
+        if gs_mod.guided_step.launches != before + n or n:
+            raise RuntimeError(f"ablations trans_enc: {n} launches")
+        out[side] = (float(loss), grads,
+                     (motion.float().cpu(), latents.cpu()))
+        del model, trainer
+    (l_d, g_d, s_d), (l_c, g_c, s_c) = out[device], out["cpu"]
+    d_loss = abs(l_d - l_c) / abs(l_c)
+    worst, worst_name = _grad_worst(g_d, g_c)
+    log(f"# ablations: trans_enc stage 2 fp32 batch {b} card vs CPU: loss "
+        f"{l_c:.6g}, relative gap {d_loss:.3g} (tolerance "
+        f"{TRAIN_LOSS_RTOL}); {len(g_c)} gradients, the worst at "
+        f"{worst:.3g} of its tolerance ({worst_name}); a guided sample() "
+        f"raised ValueError on both sides")
+    if set(g_d) != set(g_c) or not any(
+            k.startswith("denoiser.encoder.") for k in g_c):
+        raise RuntimeError("ablations trans_enc: gradient sets differ")
+    if not d_loss <= TRAIN_LOSS_RTOL or not worst <= 1.0:
+        raise RuntimeError(f"ablations trans_enc: loss gap {d_loss}, "
+                           f"gradient {worst_name} at {worst}x")
+    dm, dl = _card_cpu_gap(
+        f"trans_enc unguided fp32 batch {b} DDIM-{ABLATION_STEPS} card vs "
+        f"CPU, 0 launches", s_d, s_c, phase="ablations")
+    return {"loss_rel_gap": d_loss, "grad_worst": worst,
+            "sample_gaps": (dm, dl)}
+
+
+def module_parity(device):
+    """EmbedAction in eval and in guided eval, the text condition's
+    emb_proj (ReLU + Linear of a trans_enc denoiser) and
+    TextAudioController in the spk-ta mode, at the production width,
+    seeded weights: the card against the CPU within 1e-5."""
+    d = PRODUCTION["denoiser"]["text_encoded_dim"]
+    t, mel_frames = PRODUCTION["text_pad_len"], PRODUCTION["mel_frames"]
+    rng = np.random.default_rng(131)
+    action = torch.from_numpy(rng.integers(0, 10, (8, 1)))
+    text = torch.from_numpy(rng.standard_normal((4, t, d)).astype(
+        np.float32))
+    mask = torch.ones(4, t, dtype=torch.bool)
+    mask[1:, t // 2:] = False
+    mel = torch.from_numpy(rng.standard_normal((4, mel_frames, 80)).astype(
+        np.float32))
+    den = Denoiser(latent_dim=PRODUCTION["latent_dim"][1],
+                   **{**PRODUCTION["denoiser"], "arch": "trans_enc",
+                      "condition": "text"})
+    cases = (
+        ("EmbedAction eval", EmbedAction(10, d, guidance_scale=1.0),
+         lambda m, dev: m(action.to(dev))),
+        ("EmbedAction guided", EmbedAction(10, d, guidance_scale=7.5),
+         lambda m, dev: m(action.to(dev))),
+        ("text emb_proj", den.emb_proj, lambda m, dev: m(text.to(dev))),
+        ("TextAudioController spk-ta",
+         TextAudioController(out_dim=d, audio_max_length=mel_frames),
+         lambda m, dev: torch.cat([
+             o.flatten() for o in m(text.to(dev), mask.to(dev),
+                                    mel.to(dev), "spk-ta")
+             if torch.is_tensor(o) and o.is_floating_point()])),
+    )
+    gaps = {}
+    for i, (name, module, run) in enumerate(cases):
+        layers.init_weights(module, torch.Generator().manual_seed(133 + i))
+        module.eval()
+        with torch.no_grad():
+            want = run(module, "cpu")
+            got = run(copy.deepcopy(module).to(device), device).cpu()
+        gaps[name] = float((got - want).abs().max())
+        if got.shape != want.shape or not gaps[name] <= ABLATION_MODULE_ATOL:
+            raise RuntimeError(f"ablations {name}: card vs CPU "
+                               f"{gaps[name]}")
+    log(f"# ablations: modules card vs CPU at width {d}, max|diff| "
+        f"{ {k: f'{v:.3g}' for k, v in gaps.items()} } (tolerance "
+        f"{ABLATION_MODULE_ATOL})")
+    return gaps
+
+
+def _profile_reverse(model, batch, gen):
+    """Wall ms, device busy ms and kernels a step of PROFILE_STEPS reverse
+    steps under the profiler."""
+    keys = ("spk_ids", "spk_tmask", "lsn_ids", "lsn_tmask", "melspec_lsn",
+            "active_passive_lsn", "lsn_id")
+    b = batch["lsn_ids"].shape[0]
+    with torch.inference_mode():
+        cond, masks = model.encode_conditions(*(batch[k] for k in keys))
+        unc, umasks = model.encode_uncond(batch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.diffusion_reverse(cond, masks, unc, umasks, b,
+                                    num_inference_steps=PROFILE_STEPS,
+                                    generator=gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return (round(wall_ms / PROFILE_STEPS, 2),
+            round(sum(_device_us(e) for e in kernels) / 1e3 / PROFILE_STEPS,
+                  2),
+            sum(e.count for e in kernels) // PROFILE_STEPS)
+
+
+def step_paths(smi, device):
+    """TPU.PALLAS_STEP false against true in sample(): the production
+    model, bf16 batch 96 DDIM-50, a warm-up and STEP_PATH_TURNS timed calls
+    of each path in turns of alternating order (50 launches a kernel call,
+    none a plain one), and a profile of a few steps of each; then fp32
+    batch 2: one reverse step of both paths within 1e-5, and DDIM-10 of
+    both within phase 4's bounds."""
+    on_card = torch.device(device).type == "cuda"
+    model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=1)
+    raw = synthetic_raw_batch(141, BATCH, mel_frames=PRODUCTION["mel_frames"])
+    batch, _, _ = prepare_arrays(model, raw)
+    gen = torch.Generator(device=device).manual_seed(142)
+    times = {"kernel": [], "plain": []}
+    # a warm-up of each, then turns in alternating order: kernel, plain,
+    # plain, kernel, ...
+    for turn in range(1 + STEP_PATH_TURNS):
+        for name in (("kernel", "plain") if turn % 2 else
+                     ("plain", "kernel")):
+            model.use_step_kernel = name == "kernel"
+            before = gs_mod.guided_step.launches
+            t0 = time.perf_counter()
+            motion, _ = model.sample(batch, gen)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            n = gs_mod.guided_step.launches - before
+            if n != (STEPS if name == "kernel" and on_card else 0) or \
+                    tuple(motion.shape) != (BATCH, 128, 189) or \
+                    not torch.isfinite(motion).all():
+                raise RuntimeError(f"ablations {name} step path: {n} "
+                                   f"launches, motion {tuple(motion.shape)}")
+            if turn:
+                times[name].append(dt)
+    ms = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    prof = {}
+    if on_card:
+        for name in times:
+            model.use_step_kernel = name == "kernel"
+            prof[name] = _profile_reverse(model, batch, gen)
+    model.use_step_kernel = True
+    del model
+    log(f"# ablations: sample() bf16 batch {BATCH} DDIM-{STEPS} on {smi}, "
+        f"{STEP_PATH_TURNS} timed calls a path in turns: with the step "
+        f"kernel {ms['kernel']:.1f} ms a call "
+        f"({[round(x * 1e3, 1) for x in times['kernel']]}), TPU.PALLAS_STEP "
+        f"false {ms['plain']:.1f} ms "
+        f"({[round(x * 1e3, 1) for x in times['plain']]}): the kernel saves "
+        f"{(ms['plain'] - ms['kernel']) / STEPS:.3f} ms a step; "
+        f"{PROFILE_STEPS} profiled steps (wall ms, device busy ms, kernels "
+        f"a step): {prof}")
+
+    cfg = copy.deepcopy(PRODUCTION)
+    cfg["scheduler"].update(variant="ddim",
+                            num_inference_timesteps=ABLATION_STEPS)
+    model = Convofusion(cfg, dtype="float32", device=device, seed=0)
+    b, lat = ABLATION_PARITY_BATCH, cfg["latent_dim"][1]
+    batch, _, _ = prepare_arrays(model, synthetic_raw_batch(
+        143, b, mel_frames=cfg["mel_frames"]))
+    rng = np.random.default_rng(144)
+    gaps = {}
+    for n_steps, bounds in ((1, (STEP_PATHS_ATOL, STEP_PATHS_ATOL)),
+                            (ABLATION_STEPS,
+                             (PARITY_ATOL, VARIANT_LATENT_ATOL))):
+        init, steps = _noise(rng, n_steps, (b, 16, lat))
+        outs = {}
+        for use in (True, False):
+            model.use_step_kernel = use
+            motion, latents = model.sample(batch, num_inference_steps=n_steps,
+                                           init_noise=init, step_noise=steps)
+            outs[use] = (motion.float().cpu(), latents.cpu())
+        gaps[n_steps] = _card_cpu_gap(
+            f"fp32 batch {b} DDIM-{n_steps} on the card, the kernel path "
+            f"against TPU.PALLAS_STEP false", outs[True], outs[False],
+            phase="ablations", bounds=bounds)
+    del model
+    return {"batch": BATCH, "dtype": "bfloat16", "steps": STEPS,
+            "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+            "fp32_gaps": gaps}
+
+
+def ablation_cli(smi, device=None):
+    """An ablation config through the CLIs at the production configs'
+    width, bf16: cli/train stage 1 (config_vae_beatdnd.yaml, batch 128, 2
+    steps) with the post-norm, learned-PE, MLP_DIST VAE; stage 2
+    (config_cf_beatdnd.yaml, batch 64, 2 steps) from its file; a save and
+    load of that model, bit-equal; cli/test on one batch of 32 at DDIM-50
+    (WEG off: phase 14 runs it), 50 launches."""
+    dev_arg = ["--device", device] if device else []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ablations") as tmp, \
+            asset_root(os.path.join(tmp, "assets")):
+        t0 = time.perf_counter()
+        write_synthetic_spiece(os.path.join(tmp, "assets", "t5-base",
+                                            "spiece.model"))
+        roots = [make_fixture_pair(os.path.join(tmp, f"data{n}"), n_files=n)
+                 for n in ABLATION_CLI_FILES]
+        log(f"# ablations: spiece.model and fixture trees "
+            f"{ABLATION_CLI_FILES} in {time.perf_counter() - t0:.2f} s")
+        common = ["TRAIN.END_EPOCH=1", "LOGGER.VAL_EVERY_STEPS=1",
+                  "LOGGER.SACE_CHECKPOINT_EPOCH=1",
+                  "TPU.COMPUTE_DTYPE=bfloat16"] + ABLATION_OVERRIDES
+        exp = os.path.join(tmp, "experiments", "convofusion")
+        walls = {}
+        t0 = time.perf_counter()
+        s1 = cli_train.main(_cli_argv(tmp, roots[0], "abl_vae", common,
+                                      cfg="config_vae_beatdnd.yaml")
+                            + dev_arg)
+        walls["stage1_s"] = time.perf_counter() - t0
+        vae_ckpt = ckpt_lib.latest_checkpoint(os.path.join(
+            exp, "abl_vae", "checkpoints"))
+        steps1 = [e["steps"] for e in s1.train_stats.epochs]
+        if not s1.vae.mlp_dist or steps1 != [2]:
+            raise RuntimeError(f"ablations stage 1: steps {steps1}")
+        del s1
+        argv2 = _cli_argv(tmp, roots[1], "abl_cf", common + [
+            f"TRAIN.PRETRAINED_VAE={vae_ckpt}"])
+        t0 = time.perf_counter()
+        s2 = cli_train.main(argv2 + dev_arg)
+        walls["stage2_s"] = time.perf_counter() - t0
+        steps2 = [e["steps"] for e in s2.train_stats.epochs]
+        rows = (_metric_rows(os.path.join(exp, "abl_vae"), "stage 1")
+                + _metric_rows(os.path.join(exp, "abl_cf"), "stage 2"))
+        if steps2 != [2]:
+            raise RuntimeError(f"ablations stage 2: steps {steps2}")
+
+        # the trained model saved without its trunk, loaded into a fresh
+        # model of the same seed whose other weights are zeroed
+        seed = int(parse_args("train", argv2).SEED_VALUE)
+        path, save_ms, _ = _save_timed(os.path.join(tmp, "roundtrip"), 0, s2)
+        fresh = Convofusion(s2.cfg, dtype="bfloat16", device=s2.device,
+                            seed=seed)
+        with torch.no_grad():
+            for n, p in fresh.named_parameters():
+                if not n.startswith(ckpt_lib.TRUNK):
+                    p.zero_()
+        ckpt_lib.load_checkpoint(path, fresh)
+        differ = _bit_equal(fresh, s2)
+        if differ:
+            raise RuntimeError(f"ablations: {len(differ)} tensors differ "
+                               f"after the round trip: {differ[:4]}")
+        n_tensors = len(s2.state_dict())
+        del s2, fresh
+
+        ckpt2 = ckpt_lib.latest_checkpoint(os.path.join(exp, "abl_cf",
+                                                        "checkpoints"))
+        calls = []
+        t0 = time.perf_counter()
+        with launches_per_sample(calls):
+            run = cli_test.main(_cli_argv(
+                tmp, roots[2], "abl_test", common + DDIM_OVERRIDES + [
+                    f"TEST.CHECKPOINTS={ckpt2}", "TEST.SAVE_PREDICTIONS=true",
+                    "TRAIN.ABLATION.WEG_TYPE=no"]) + dev_arg)
+        walls["test_s"] = time.perf_counter() - t0
+        on_card = device != "cpu"
+        log(f"# ablations: the CLIs on {smi}, bf16: stage 1 steps {steps1} "
+            f"at batch 128 in {walls['stage1_s']:.1f} s, stage 2 steps "
+            f"{steps2} at batch 64 in {walls['stage2_s']:.1f} s, total/train "
+            f"{[round(r['total/train'], 4) for r in rows]}; {n_tensors} "
+            f"tensors bit-equal after a save ({save_ms:.1f} ms) and load; "
+            f"cli/test batches {run.batch_sizes} at DDIM-{STEPS} in "
+            f"{walls['test_s']:.1f} s (sample {_ms(run.sample_ms)} ms), "
+            f"step-kernel launches {calls}")
+        if run.batch_sizes != [32] or (on_card and calls != [STEPS]) or \
+                not all(np.isfinite(lat).all() for lat in run.latents):
+            raise RuntimeError(f"ablations test CLI: batches "
+                               f"{run.batch_sizes}, launches {calls}")
+    return walls
+
+
+def phase_ablations(smi, device="cuda"):
+    """Phase 17: every model option the JAX package builds."""
+    row = {}
+    for name, fn in (("vae_parity", lambda: ablated_vae_parity(device)),
+                     ("trans_enc", lambda: trans_enc_parity(device)),
+                     ("modules", lambda: module_parity(device)),
+                     ("step_paths", lambda: step_paths(smi, device)),
+                     ("cli", lambda: ablation_cli(smi, device))):
+        t0 = time.perf_counter()
+        row[name] = fn()
+        log(f"# ablations: {name} part in {time.perf_counter() - t0:.1f} s")
+    PHASE_RESULTS["ablations"] = row
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -2967,9 +3367,9 @@ def kernel_in_path_us(kernels, expected) -> float:
 PHASES = {4: "parity", 5: "main", 6: "weg_parity", 7: "serve",
           8: "rollout_parity", 9: "rollout", 10: "dpmpp",
           11: "train_parity", 12: "train", 13: "checkpoint", 14: "test_cli",
-          15: "train_cli", 16: "variants"}
+          15: "train_cli", 16: "variants", 17: "ablations"}
 # the phases whose runs launch the step kernel (the others must not)
-PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15, 16}
+PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15, 16, 17}
 
 
 def parse_phases(spec: str):
@@ -2989,7 +3389,7 @@ def parse_phases(spec: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1-16", type=parse_phases,
+    ap.add_argument("--phases", default="1-17", type=parse_phases,
                     help="e.g. '1-3,13' (default every phase; 1-3 always "
                          "run)")
     chosen = ap.parse_args(argv).phases
@@ -3021,7 +3421,8 @@ def main(argv=None):
             13: lambda: phase_checkpoint(smi),
             14: lambda: phase_test_cli(smi),
             15: lambda: phase_train_cli(smi),
-            16: lambda: phase_variants(smi)}
+            16: lambda: phase_variants(smi),
+            17: lambda: phase_ablations(smi)}
     by_phase = {}
     for number in sorted(chosen - {1, 2, 3}):
         gs_mod.guided_step.launches = 0
@@ -3068,6 +3469,11 @@ def main(argv=None):
         "shapes": [{"case": key, **row} for key, row in sorted(rows.items())],
         "in_path_us_raw_motion": PHASE_RESULTS.get("variants", {}).get(
             "raw_motion", {}).get("in_path_us"),
+        # sample() with the kernel and with TPU.PALLAS_STEP false, in turns
+        # (phase 17)
+        "sample_ms_by_step_path": {
+            k: v for k, v in PHASE_RESULTS.get("ablations", {}).get(
+                "step_paths", {}).items() if k != "fp32_gaps"} or None,
     }]
     log(f"# whole run: {time.perf_counter() - t_run:.1f} s, phases "
         f"{sorted(chosen)}")

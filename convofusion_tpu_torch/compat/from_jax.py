@@ -12,8 +12,13 @@ becomes ``weight`` (out, in), LayerNorm ``scale`` becomes ``weight``,
 know raises.  A stage-1 tree (``vae`` alone) gives the state_dict of
 ``Convofusion(..., stage='vae')``; a tree without ``vae`` that of a model
 on raw motion (``vae_type`` 'no'); any other tree must hold every
-module.  The map is linear (transposes and concatenations), so it carries
-a gradient tree as it carries parameters.
+module.  The ablations' trees come across too: learned PE tables
+(``pe``), the MLP_DIST heads, the all_encoder decoders, the trans_enc
+``encoder`` and ``emb_proj`` (Dense -> ``emb_proj.1``, or the action
+table).  ``module_state_dict_from_jax`` carries one module's tree, the
+``TextAudioController`` and ``EmbedAction`` included.  The map is linear
+(transposes and concatenations), so it carries a gradient tree as it
+carries parameters.
 """
 from __future__ import annotations
 
@@ -89,6 +94,12 @@ class _Converter:
         self.dense(f"{path}/out_layers_2", f"{key}.out_layers.2")
         self.layernorm(f"{path}/norm", f"{key}.norm")
 
+    def learned_pe(self, path, key):
+        """A learned PE's table, where the tree has one (a sine PE has no
+        parameters)."""
+        if self.has(f"{path}/pe"):
+            self.put(f"{key}.pe", self.take(f"{path}/pe"))
+
     # ---------------------------------------------------------- modules
     def denoiser(self, p="denoiser", k="denoiser"):
         self.dense(f"{p}/latent_embd", f"{k}.latent_embd")
@@ -97,6 +108,18 @@ class _Converter:
             self.dense(f"{p}/time_embedding/{lin}",
                        f"{k}.time_embedding.{lin}")
         self.embed(f"{p}/bh_embedding", f"{k}.bh_embedding")
+        if self.has(f"{p}/emb_proj/action_embedding"):
+            self.put(f"{k}.emb_proj.action_embedding",
+                     self.take(f"{p}/emb_proj/action_embedding"))
+        elif self.has(f"{p}/emb_proj/kernel"):
+            self.dense(f"{p}/emb_proj", f"{k}.emb_proj.1")
+        if self.count(f"{p}/encoder/input_blocks_") or self.has(
+                f"{p}/encoder/norm/scale"):
+            # trans_enc: a skip encoder, no decoder, condition embedding
+            # or memory PE
+            self.skip_stack(f"{p}/encoder", f"{k}.encoder", cross=False)
+            return
+        self.learned_pe(f"{p}/mem_pos", f"{k}.mem_pos")
         self.embed(f"{p}/condition_embedding", f"{k}.condition_embedding")
         dp, dk = f"{p}/decoder", f"{k}.decoder"
         self.layernorm(f"{dp}/norm", f"{dk}.norm")
@@ -135,25 +158,42 @@ class _Converter:
                        (f"output_blocks_{i}", f"output_blocks.{i}")]
             self.dense(f"{p}/linear_blocks_{i}", f"{k}.linear_blocks.{i}")
         for jp, tk in blocks:
-            lp, lk = f"{p}/{jp}", f"{k}.{tk}"
-            self.mha(f"{lp}/self_attn", f"{lk}.self_attn")
-            if cross:
-                self.mha(f"{lp}/multihead_attn", f"{lk}.multihead_attn")
-            self.ffn(lp, lk)
-            for n in ("norm1", "norm2", "norm3")[:3 if cross else 2]:
-                self.layernorm(f"{lp}/{n}", f"{lk}.{n}")
+            self.layer(f"{p}/{jp}", f"{k}.{tk}", cross)
 
-    def vae(self):
+    def layer(self, p, k, cross: bool):
+        """A ``TransformerEncoderLayer`` (``cross`` False) or
+        ``TransformerDecoderLayer``."""
+        self.mha(f"{p}/self_attn", f"{k}.self_attn")
+        if cross:
+            self.mha(f"{p}/multihead_attn", f"{k}.multihead_attn")
+        self.ffn(p, k)
+        for n in ("norm1", "norm2", "norm3")[:3 if cross else 2]:
+            self.layernorm(f"{p}/{n}", f"{k}.{n}")
+
+    def encoder_layer(self, p, k):
+        self.layer(p, k, cross=False)
+
+    def decoder_layer(self, p, k):
+        self.layer(p, k, cross=True)
+
+    def vae(self, p="vae", k="vae"):
+        for pe in ("query_pos_encoder", "query_pos_decoder",
+                   "mem_pos_decoder"):
+            self.learned_pe(f"{p}/{pe}", f"{k}.{pe}")
         for part in ("body", "hands"):
-            self.skip_stack(f"vae/{part}_encoder", f"vae.{part}_encoder",
+            self.skip_stack(f"{p}/{part}_encoder", f"{k}.{part}_encoder",
                             cross=False)
-            self.skip_stack(f"vae/{part}_decoder", f"vae.{part}_decoder",
-                            cross=True)
-            self.dense(f"vae/{part}_skel_embedding",
-                       f"vae.{part}_skel_embedding")
-            self.dense(f"vae/{part}_final_layer", f"vae.{part}_final_layer")
+            # all_encoder's decoders are skip encoders (no cross-attention)
+            dec = f"{p}/{part}_decoder"
+            self.skip_stack(dec, f"{k}.{part}_decoder", cross=self.has(
+                f"{dec}/middle_block/multihead_attn/out_proj/kernel"))
+            self.dense(f"{p}/{part}_skel_embedding",
+                       f"{k}.{part}_skel_embedding")
+            self.dense(f"{p}/{part}_final_layer", f"{k}.{part}_final_layer")
+            if self.has(f"{p}/{part}_dist_layer/kernel"):     # MLP_DIST
+                self.dense(f"{p}/{part}_dist_layer", f"{k}.{part}_dist_layer")
             name = f"{part}_global_motion_token"
-            self.put(f"vae.{name}", self.take(f"vae/{name}"))
+            self.put(f"{k}.{name}", self.take(f"{p}/{name}"))
 
     def text_encoder(self, p="text_encoder", k="text_encoder"):
         tp, tk = f"{p}/text_model", f"{k}.text_model.encoder"
@@ -176,14 +216,29 @@ class _Converter:
             self.dense(f"{bp}/wo", f"{bk}.1.DenseReluDense.wo")
         self.dense(f"{p}/projection_1", f"{k}.projection.1")
 
-    def audio_encoder(self):
-        self.dense("audio_encoder/main_0", "audio_encoder.main.0")
-        self.dense("audio_encoder/main_3", "audio_encoder.main.3")
-        self.dense("audio_encoder/out_net", "audio_encoder.out_net")
+    def audio_encoder(self, p="audio_encoder", k="audio_encoder"):
+        self.dense(f"{p}/main_0", f"{k}.main.0")
+        self.dense(f"{p}/main_3", f"{k}.main.3")
+        self.dense(f"{p}/out_net", f"{k}.out_net")
+
+    def controller(self, p, k):
+        """``TextAudioController``: the audio encoder and the spk-ta
+        projections."""
+        self.audio_encoder(f"{p}/audio_encoder", f"{k}.audio_encoder")
+        for name in ("text_time_proj", "audio_time_proj", "out_net"):
+            self.dense(f"{p}/{name}", f"{k}.{name}")
 
     def condition_fuser(self):
         for n in ("active_passive_emb", "lsn_id_emb"):
             self.embed(f"condition_fuser/{n}", f"condition_fuser.{n}")
+
+
+def _finish(conv: _Converter) -> Dict[str, torch.Tensor]:
+    unknown = sorted(k for k in conv.flat if k not in conv.used)
+    if unknown:
+        raise KeyError(f"JAX parameters with no port counterpart: "
+                       f"{unknown[:8]}{' ...' if len(unknown) > 8 else ''}")
+    return conv.sd
 
 
 def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
@@ -197,8 +252,25 @@ def state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
         conv.text_encoder()
         conv.audio_encoder()
         conv.condition_fuser()
-    unknown = sorted(k for k in conv.flat if k not in conv.used)
-    if unknown:
-        raise KeyError(f"JAX parameters with no port counterpart: "
-                       f"{unknown[:8]}{' ...' if len(unknown) > 8 else ''}")
-    return conv.sd
+    return _finish(conv)
+
+
+# module -> the converter method that carries its tree
+MODULES = ("vae", "denoiser", "audio_encoder", "controller", "embed_action",
+           "encoder_layer", "decoder_layer")
+
+
+def module_state_dict_from_jax(kind: str, params) -> Dict[str, torch.Tensor]:
+    """One module's JAX parameter tree (``module.init(...)['params']``) ->
+    the port module's state_dict: ``kind`` is one of :data:`MODULES`
+    (``ConvoFusionVae``, ``Denoiser``, ``AudioConvEncoder``,
+    ``TextAudioController``, ``EmbedAction``, ``TransformerEncoderLayer``,
+    ``TransformerDecoderLayer``)."""
+    if kind not in MODULES:
+        raise ValueError(f"module {kind!r}, not one of {MODULES}")
+    conv = _Converter(_flatten({"m": params}))
+    if kind == "embed_action":
+        conv.put("m.action_embedding", conv.take("m/action_embedding"))
+    else:
+        getattr(conv, kind)("m", "m")
+    return {key[2:]: v for key, v in _finish(conv).items()}

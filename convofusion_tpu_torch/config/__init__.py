@@ -99,6 +99,12 @@ PRODUCTION = {
     # the tokenizer's model (modules/text_encoder.yaml:5, assets.yaml:16):
     # a spiece.model is looked up for it (models/tokenizer.find_spiece)
     "t5_path": "t5-base",
+    # TPU.PALLAS_STEP (default true, convofusion_tpu/models/convofusion.py:
+    # 175-177): guided DDIM/DDPM steps through the fused step kernel; false
+    # takes the plain combine and update
+    "pallas_step": True,
+    # TPU.SCAN_UNROLL (default 1, :181-182): recorded only
+    "scan_unroll": 1,
     "denoiser": {                  # modules/denoiser.yaml
         "text_encoded_dim": 512,
         "ff_size": 1024,
@@ -112,6 +118,8 @@ PRODUCTION = {
         "dropout": 0.1,
         "fuse_streams": False,     # the five cross-attentions as one
         "remat": False,            # TPU.REMAT: recompute layers in backward
+        "arch": "trans_dec",       # or trans_enc, the concat ablation
+        "condition": "text+audio",  # config_cf_beatdnd.yaml:69
     },
     "motion_vae": {                # modules/motion_vae.yaml
         "arch": "encoder_decoder",
@@ -122,6 +130,7 @@ PRODUCTION = {
         "activation": "gelu",
         "position_embedding": "sine",
         "dropout": 0.1,
+        "mlp_dist": False,         # TRAIN.ABLATION.MLP_DIST (base.yaml:30)
     },
     "text_encoder": {              # modules/text_encoder.yaml + t5-base dims
         "latent_dim": 512,         # (models/factory.py:141-161)

@@ -4,8 +4,9 @@ test config.
 ``from_cfg`` reads every key the JAX model reads
 (``convofusion_tpu/models/convofusion.py:60-183``, ``models/factory.py:
 46-179``, ``train/trainer.py:43-77``, ``serving.py:469-532``) and returns a
-dict shaped like ``config.PRODUCTION``.  A knob the port does not implement
-raises ``NotImplementedError`` naming its key; none is ignored.  Keys the
+dict shaped like ``config.PRODUCTION``.  A knob the port does not implement,
+or one where JAX raises, raises ``NotImplementedError`` (a value JAX
+rejects, ``ValueError``) naming its key; none is ignored.  Keys the
 JAX model never reads (``TRAIN.ABLATION.PE_TYPE``, ``LOSS.LAMBDA_CROSS``,
 the dataset roots, ...) are not read here either.
 
@@ -27,8 +28,7 @@ from convofusion_tpu_torch.config import (
 
 def _unsupported(key: str, value, why: str = "") -> NotImplementedError:
     return NotImplementedError(
-        f"{key}={value!r} is not ported{': ' + why if why else ''} "
-        f"(ROADMAP Queue 1, remaining features)")
+        f"{key}={value!r} is not supported{': ' + why if why else ''}")
 
 
 def _params(block) -> Dict:
@@ -39,17 +39,23 @@ def _params(block) -> Dict:
         else dict(params)
 
 
-def _check_transformer(name: str, params: Dict, arch: str) -> None:
-    """Knobs of the VAE and the denoiser the port builds one way only."""
-    if str(params.get("arch", arch)) != arch:
-        raise _unsupported(f"model.{name}.params.arch", params["arch"])
-    pe = params.get("position_embedding", "sine")
-    if str(pe) != "sine":
-        raise _unsupported(f"model.{name}.params.position_embedding", pe,
-                           "learned or other position embeddings")
-    if not bool(params.get("normalize_before", True)):
-        raise _unsupported(f"model.{name}.params.normalize_before", False,
-                           "post-norm layers")
+# the values JAX builds (models/vae.py:71-86, models/denoiser.py:59-60,
+# ops/positional.py:75-84); any other raises ValueError there and here
+VAE_ARCHS = ("encoder_decoder", "all_encoder")
+DENOISER_ARCHS = ("trans_dec", "trans_enc")
+POSITION_EMBEDDINGS = ("sine", "v2", "sine_bh", "learned", "v3")
+
+
+def _check_transformer(name: str, params: Dict, archs) -> None:
+    """The VAE's or the denoiser's ``arch`` and ``position_embedding``
+    (values JAX builds), and no ``compute_dtype``."""
+    for key, allowed, default in (("arch", archs, archs[0]),
+                                  ("position_embedding",
+                                   POSITION_EMBEDDINGS, "sine")):
+        value = str(params.get(key, default))
+        if value not in allowed:
+            raise ValueError(f"model.{name}.params.{key}={value!r}: not one "
+                             f"of {allowed}")
     if "compute_dtype" in params:
         raise _unsupported(f"model.{name}.params.compute_dtype",
                            params["compute_dtype"],
@@ -94,19 +100,17 @@ def _scheduler(block, predict_epsilon: bool, key: str,
     return out
 
 
-def _check_tpu(cfg) -> None:
+def _tpu(cfg) -> Dict:
     """The ``TPU`` block's knobs beyond TEXT_PAD_LEN and REMAT
-    (base.yaml:115-125, convofusion.py:149-182)."""
+    (convofusion.py:149-182): PALLAS_STEP and SCAN_UNROLL are read;
+    MESH.MODEL > 1 (tensor parallelism) raises."""
     tpu = cfg.get("TPU", {})
-    if not bool(tpu.get("PALLAS_STEP", True)):
-        raise _unsupported("TPU.PALLAS_STEP", False,
-                           "the port always runs its fused step kernel")
-    if int(tpu.get("SCAN_UNROLL", 1)) != 1:
-        raise _unsupported("TPU.SCAN_UNROLL", tpu.get("SCAN_UNROLL"))
     mesh = tpu.get("MESH", {})
     if int(mesh.get("MODEL", 1)) != 1:
         raise _unsupported("TPU.MESH.MODEL", mesh.get("MODEL"),
-                           "tensor parallelism")
+                           "tensor parallelism is not ported")
+    return {"pallas_step": bool(tpu.get("PALLAS_STEP", True)),
+            "scan_unroll": int(tpu.get("SCAN_UNROLL", 1))}
 
 
 def _train(cfg, vae_params: Dict, ds) -> Dict:
@@ -196,14 +200,12 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
     predict_epsilon = bool(cfg.TRAIN.ABLATION.PREDICT_EPSILON)
 
     vae_type = _vae_type(model, cfg)
-    if bool(cfg.TRAIN.ABLATION.get("MLP_DIST", False)):
-        raise _unsupported("TRAIN.ABLATION.MLP_DIST", True)
-    _check_tpu(cfg)
+    tpu = _tpu(cfg)
 
     vae = _params(model.motion_vae)
     if vae_type != "no":
         # no VAE is built on raw motion: its knobs are not read
-        _check_transformer("motion_vae", vae, "encoder_decoder")
+        _check_transformer("motion_vae", vae, VAE_ARCHS)
     ds = cfg.DATASET[str(cfg.TRAIN.DATASETS[0]).upper()]
     out = {
         "latent_dim": [int(v) for v in model.latent_dim],
@@ -217,23 +219,28 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
         "fps": int(ds.FPS),
         "predict_epsilon": predict_epsilon,
         "vae_type": vae_type,
-        "motion_vae": _transformer(vae, (
+        "motion_vae": {**_transformer(vae, (
             "arch", "ff_size", "num_layers", "num_heads", "normalize_before",
             "activation", "position_embedding", "dropout")),
+            # factory.py:62 reads it from the VAE's ablation block
+            "mlp_dist": bool(cfg.TRAIN.ABLATION.get("MLP_DIST", False))},
+        **tpu,
     }
 
     den = _params(model.denoiser)
     te = _params(model.text_encoder)
     ae = _params(model.audio_encoder)
     if stage != "vae":
-        _check_transformer("denoiser", den, "trans_dec")
+        _check_transformer("denoiser", den, DENOISER_ARCHS)
+        if str(den.get("arch", "trans_dec")) == "trans_dec" and \
+                not bool(den.get("normalize_before", True)):
+            raise _unsupported("model.denoiser.params.normalize_before",
+                               False, "the trans_dec layers are pre-norm "
+                               "(JAX asserts, ops/transformer.py:282)")
         if bool(cfg.TRAIN.ABLATION.get("CAUSAL_ATTN", False)):
             raise _unsupported("TRAIN.ABLATION.CAUSAL_ATTN", True,
                                "the reference raises on it (factory.py:"
                                "106-116)")
-        if str(den.get("condition", "text+audio")) != "text+audio":
-            raise _unsupported("model.condition", den["condition"],
-                               "only the five text+audio streams")
         for key in ("finetune", "last_hidden_state"):
             if bool(te.get(key, False)):
                 raise _unsupported(f"model.text_encoder.params.{key}", True)
@@ -260,6 +267,10 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
             "text_encoded_dim", "ff_size", "num_layers", "num_heads",
             "normalize_before", "activation", "flip_sin_to_cos",
             "position_embedding", "dropout")),
+        "arch": str(den.get("arch", "trans_dec")),
+        # the pipeline feeds the five streams whatever the name; trans_enc
+        # with a one-tensor condition raises where the model is built
+        "condition": str(den.get("condition", "text+audio")),
         "freq_shift": float(den.get("freq_shift", 0.0)),
         "fuse_streams": bool(den.get("fuse_streams", False)),
         # per-layer rematerialisation: the denoiser's own flag or TPU.REMAT

@@ -36,6 +36,12 @@ the latents over the seven branches' assembled conditions (7B rows), one
 plain forward, and the plain combine and update, without the kernel (JAX
 :640-649, :828-840).
 
+``TPU.PALLAS_STEP`` false (``cfg['pallas_step']``, JAX :175-177) takes the
+plain combine and ``scheduler.step`` in place of the kernel on every
+device.  The trans_enc denoiser (``cfg['denoiser']['arch']``) trains and
+samples unguided; guided sampling with it raises before any work, as JAX
+fails there.
+
 With ``vae_type`` 'no' (JAX :84-110) there is no VAE: the diffusion runs
 on raw motion, (B, max_len, nfeats) latents, encode and decode are the
 identity, and guided DDIM/DDPM steps launch the kernel on (7, B, 128, 189)
@@ -64,7 +70,10 @@ from convofusion_tpu_torch.losses.diffvae import (
 from convofusion_tpu_torch.models import weg as weg_lib
 from convofusion_tpu_torch.models.audioenc import AudioConvEncoder
 from convofusion_tpu_torch.models.condfuser import TextAudioMotionFuser
-from convofusion_tpu_torch.models.denoiser import Denoiser
+from convofusion_tpu_torch.models.denoiser import (
+    ONE_TENSOR_CONDITIONS,
+    Denoiser,
+)
 from convofusion_tpu_torch.models.t5 import T5TextEncoder
 from convofusion_tpu_torch.models.tokenizer import (
     UNCOND_TEXT,
@@ -238,6 +247,16 @@ class Convofusion(nn.Module):
             latent_dim=self.latent_dim, latent_size=self.latent_size,
             **cfg["motion_vae"], dtype=dtype)
         if stage != "vae":
+            den = cfg["denoiser"]
+            if den.get("arch", "trans_dec") == "trans_enc" and \
+                    den.get("condition") in ONE_TENSOR_CONDITIONS:
+                # the pipeline feeds the five streams; JAX's trans_enc
+                # takes them as one tensor and fails in init_params
+                raise ValueError(
+                    f"model.condition={den['condition']!r} with "
+                    f"model.denoiser.params.arch='trans_enc': the pipeline "
+                    f"encodes the five text+audio streams, which that "
+                    f"condition cannot take (JAX fails to build it)")
             self.text_encoder = T5TextEncoder(**te, dtype=dtype)
             self.audio_encoder = AudioConvEncoder(**cfg["audio_encoder"],
                                                   dtype=dtype)
@@ -255,6 +274,12 @@ class Convofusion(nn.Module):
                 cfg["noise_scheduler"], self.predict_epsilon)
             self.num_inference_timesteps = int(
                 cfg["scheduler"]["num_inference_timesteps"])
+        # TPU.PALLAS_STEP: false takes the plain combine and update on every
+        # device (JAX :175-177, :640-649)
+        self.use_step_kernel = bool(cfg.get("pallas_step", True))
+        # TPU.SCAN_UNROLL: JAX's scan unroll factor, which changes no
+        # number (:181-182, :855); an eager loop has nothing to unroll
+        self.scan_unroll = int(cfg.get("scan_unroll", 1))
         train = cfg.get("train", {})
         self.guidance_uncondp = float(cfg.get("guidance_uncondp", 0.0))
         self.loss_weights = dict(train.get("loss", {}))
@@ -605,10 +630,11 @@ class Convofusion(nn.Module):
     def uses_step_kernel(self) -> bool:
         """The fused step covers guided sampling through ``Denoiser.guided``
         (its 7-branch planes; not the fused-stream layout) with epsilon
-        prediction and clipping under fixed_small DDPM or eta-0 DDIM
-        (convofusion.py:640-649)."""
+        prediction and clipping under fixed_small DDPM or eta-0 DDIM, unless
+        ``TPU.PALLAS_STEP`` is false (convofusion.py:640-649)."""
         s = self.scheduler
-        return (self.do_classifier_free_guidance and not self.fuse_streams
+        return (self.use_step_kernel and self.do_classifier_free_guidance
+                and not self.fuse_streams
                 and self.predict_epsilon and s.clip_sample
                 and (s.variant == "ddpm"
                      or (s.variant == "ddim" and s.eta == 0.0)))
@@ -641,6 +667,7 @@ class Convofusion(nn.Module):
         if capture_attention not in ("none", "all"):
             raise ValueError(f"capture_attention {capture_attention!r}, not "
                              f"'none' or 'all'")
+        self._check_guided()
         captured = [] if capture_attention == "all" else None
         variant = self.scheduler.variant
         if variant not in ("ddpm", "ddim", "dpmpp_2m"):
@@ -724,6 +751,16 @@ class Convofusion(nn.Module):
             return latents
         return latents, {s: torch.stack([a[s] for a in captured])
                          for s in captured[0]}
+
+    def _check_guided(self) -> None:
+        """Guided sampling with the trans_enc denoiser raises before any
+        work: it has no guided path (JAX fails on the missing decoder)."""
+        if self.do_classifier_free_guidance and not self.fuse_streams and \
+                self.denoiser.arch == "trans_enc":
+            raise ValueError(
+                "guided sampling (guidance_scale > 1) needs the trans_dec "
+                "denoiser; model.denoiser.params.arch='trans_enc' samples "
+                "unguided only (model.guidance_scale=1.0)")
 
     def _weg_refiner(self, weg: Dict, n_steps: int, wp: Dict):
         """refine(latents, i, t) for reverse step i: one loss + gradient
@@ -811,6 +848,7 @@ class Convofusion(nn.Module):
         full-condition attention maps of every step (see
         :meth:`diffusion_reverse`)."""
         b = batch["lsn_ids"].shape[0]
+        self._check_guided()
         cond_real, masks_real = self.encode_conditions(
             batch["spk_ids"], batch["spk_tmask"], batch["lsn_ids"],
             batch["lsn_tmask"], batch["melspec_lsn"],

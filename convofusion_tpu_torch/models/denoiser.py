@@ -1,17 +1,31 @@
-"""Latent-diffusion denoiser transformer (production ``trans_dec`` arch).
+"""Latent-diffusion denoiser transformer.
 
-Port of ``Denoiser._embed_sample``, ``_build_memory``, ``__call__``,
-``text_only``, ``precompute_step_kv``, ``forward_kv`` and ``guided``
-(``convofusion_tpu/models/denoiser.py:117-291``):
+Port of ``Denoiser`` (``convofusion_tpu/models/denoiser.py:36-291``) and
+``EmbedAction`` (:294-328).  Arch ``trans_dec`` (production):
+``_embed_sample``, ``_build_memory``, ``__call__``, ``text_only``,
+``precompute_step_kv``, ``forward_kv`` and ``guided`` (:117-291):
   1. project the (B, 16, latent_dim) latent tokens to d
   2. sinusoidal timestep embedding -> 2-layer MLP -> (B, 1, d)
   3. add the body/hands token-type embedding (even/odd tokens) + sine_bh PE
-  4. add time embedding + condition-id embedding + sine PE to each of the
+  4. add time embedding + condition-id embedding + the memory PE (sine, or
+     a learned table, ``position_embedding``; JAX :70-71) to each of the
      five condition streams
   5. run the 5-stream decoder stack; project back d -> latent_dim
 
-``fuse_streams`` builds the stack with the five cross-attentions batched
-into one (``FusedDenoiserDecoder``; JAX :55-90): ``forward`` and
+Arch ``trans_enc`` (JAX :93-108, :140-160), the concat-conditioning
+ablation: steps 1-3, then the condition tokens (plus the time embedding)
+are appended to the latent tokens, the sine_bh PE goes over the whole
+sequence, a skip encoder (``encoder``, at ``text_encoded_dim``, pre- or
+post-norm) runs it and the latent tokens' outputs are projected back; no
+attention maps.  Its condition is the five streams (``text+audio`` or any
+other name but these), one text tensor ``text`` / ``text_uncond``
+(``emb_proj``: ReLU then Linear) or action ids ``action`` (``emb_proj``:
+:class:`EmbedAction`).  It has no ``decoder``, ``condition_embedding`` or
+memory PE, so ``guided``, ``text_only`` and the K/V API raise (JAX fails
+there on the missing parameters).
+
+``fuse_streams`` builds the trans_dec stack with the five cross-attentions
+batched into one (``FusedDenoiserDecoder``; JAX :55-90): ``forward`` and
 ``text_only`` run the same math, and the guided and K/V paths, which need
 the per-stream layers, raise (JAX asserts, :270-271).  ``remat``
 recomputes each layer's activations in a training backward pass.
@@ -24,17 +38,24 @@ import torch
 from torch import nn
 
 from convofusion_tpu_torch.ops.embeddings import TimestepEmbedding, Timesteps
-from convofusion_tpu_torch.ops.layers import Linear
+from convofusion_tpu_torch.ops.layers import Linear, dropout_mask
 from convofusion_tpu_torch.ops.positional import (
-    PositionEmbeddingSine1D,
     PositionEmbeddingSineBH,
+    build_position_encoding,
 )
 from convofusion_tpu_torch.ops.transformer import (
     COND_STREAMS,
     NUM_BRANCHES,
     DenoiserDecoder,
     FusedDenoiserDecoder,
+    SkipTransformerEncoder,
 )
+
+ARCHS = ("trans_dec", "trans_enc")
+# the conditions trans_enc takes as one tensor (JAX :109-116, :148-153);
+# any other name means the five streams
+TEXT_CONDITIONS = ("text", "text_uncond")
+ONE_TENSOR_CONDITIONS = TEXT_CONDITIONS + ("action",)
 
 
 def _is_scalar(timesteps) -> bool:
@@ -49,29 +70,44 @@ class Denoiser(nn.Module):
                  activation: str = "gelu", flip_sin_to_cos: bool = True,
                  freq_shift: float = 0.0, position_embedding: str = "sine",
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 fuse_streams: bool = False, remat: bool = False):
+                 fuse_streams: bool = False, remat: bool = False,
+                 arch: str = "trans_dec", condition: str = "text+audio",
+                 nclasses: int = 10):
         super().__init__()
-        if position_embedding != "sine":
-            raise NotImplementedError(
-                f"memory PE {position_embedding!r} is not ported")
+        if arch not in ARCHS:
+            raise ValueError(f"model.denoiser.params.arch {arch!r}: not one "
+                             f"of {ARCHS}")
         d = text_encoded_dim
+        self.arch = arch
+        self.condition = condition
         self.latent_embd = Linear(latent_dim, d, dtype=dtype)
         self.latent_proj = Linear(d, latent_dim, dtype=dtype)
         self.time_proj = Timesteps(d, flip_sin_to_cos, freq_shift)
         self.time_embedding = TimestepEmbedding(d, d)
         self.query_pos = PositionEmbeddingSineBH(d)
-        self.mem_pos = PositionEmbeddingSine1D(d)
         self.bh_embedding = nn.Embedding(2, d, dtype=dtype)
-        self.condition_embedding = nn.Embedding(len(COND_STREAMS), d,
-                                                dtype=dtype)
         self.fuse_streams = bool(fuse_streams)
-        decoder_cls = (FusedDenoiserDecoder if self.fuse_streams
-                       else DenoiserDecoder)
-        self.decoder = decoder_cls(
-            d_model=d, num_layers=num_layers, nhead=num_heads,
-            dim_feedforward=ff_size, activation=activation,
-            normalize_before=normalize_before, dtype=dtype, dropout=dropout,
-            remat=remat)
+        stack = dict(num_layers=num_layers, nhead=num_heads,
+                     dim_feedforward=ff_size, activation=activation,
+                     normalize_before=normalize_before, dtype=dtype,
+                     dropout=dropout)
+        if arch == "trans_dec":
+            self.mem_pos = build_position_encoding(d, position_embedding)
+            self.condition_embedding = nn.Embedding(len(COND_STREAMS), d,
+                                                    dtype=dtype)
+            decoder_cls = (FusedDenoiserDecoder if self.fuse_streams
+                           else DenoiserDecoder)
+            self.decoder = decoder_cls(d_model=d, remat=remat, **stack)
+        else:
+            # JAX builds the encoder at text_encoded_dim (the reference's
+            # latent_dim only type-checks when the two are equal, :99-103)
+            self.encoder = SkipTransformerEncoder(d_model=d, **stack)
+            if condition in TEXT_CONDITIONS:
+                # reference names: emb_proj.1 is the Linear (:109-112)
+                self.emb_proj = nn.Sequential(nn.ReLU(),
+                                              Linear(d, d, dtype=dtype))
+            elif condition == "action":
+                self.emb_proj = EmbedAction(nclasses, d, dtype=dtype)
 
     def _embed_sample(self, sample, timesteps):
         b, t, _ = sample.shape
@@ -103,13 +139,35 @@ class Denoiser(nn.Module):
         """sample (B, T, latent_dim); timesteps int, 0-dim or (B,);
         cond[stream] (B, Tk, d), or (1, Tk, d) shared by the batch;
         cond_masks[stream] (B or 1, Tk) bool, True = pad.  Returns
-        (noise_pred, att[stream] (B, L, T, Tk))."""
+        (noise_pred, att[stream] (B, L, T, Tk)).  With ``trans_enc``,
+        ``cond`` is the condition's tensor (text (B, Tk, d), action ids
+        (B, 1)) or the five streams, masks are not read and att is {}."""
         x, time_emb = self._embed_sample(sample, timesteps)
+        if self.arch == "trans_enc":
+            return self._forward_trans_enc(x, time_emb, cond)
         mem = self._build_memory(cond, time_emb, _is_scalar(timesteps))
         out, att = self.decoder(x, mem, time_emb, cond_masks)
         return self.latent_proj(out), att
 
+    def _forward_trans_enc(self, x, time_emb, cond):
+        """The concat-conditioning encoder (JAX :140-160)."""
+        n_sample = x.shape[1]
+        if self.condition in ONE_TENSOR_CONDITIONS:
+            seq = [x, time_emb + self.emb_proj(cond)]
+        else:
+            seq = [x] + [cond[s] + time_emb for s in COND_STREAMS]
+        # torch.cat promotes mixed dtypes as jnp.concatenate does
+        tokens = self.encoder(self.query_pos(torch.cat(seq, dim=1)))
+        return self.latent_proj(tokens[:, :n_sample]), {}
+
+    def _require_decoder(self, what: str) -> None:
+        if self.arch == "trans_enc":
+            raise ValueError(
+                f"{what} needs the trans_dec decoder; arch 'trans_enc' has "
+                f"none (JAX fails on the missing parameters)")
+
     def _per_stream(self, what: str) -> None:
+        self._require_decoder(what)
         if self.fuse_streams:
             raise NotImplementedError(
                 f"{what} runs the per-stream layer layout, not "
@@ -121,6 +179,7 @@ class Denoiser(nn.Module):
         tlsn real, the rest single uncond rows).  Needs a scalar timestep,
         so those rows stay at batch 1 (in the fused layout, up to the
         padded stack, where they are broadcast)."""
+        self._require_decoder("text_only")
         if not _is_scalar(timesteps):
             raise ValueError("text_only takes a scalar timestep")
         return self.forward(sample, timesteps, cond, cond_masks)
@@ -174,3 +233,42 @@ class Denoiser(nn.Module):
         out7, att = self.decoder.guided(x7, mem_real, mem_unc, time_emb,
                                         masks_real, masks_unc, kvs)
         return self.latent_proj(out7), att
+
+
+class EmbedAction(nn.Module):
+    """Action-class condition (JAX :294-328): a row of the xavier table
+    ``action_embedding`` for each item's first id, (B, 1, d).  In training
+    (``guidance_uncondp`` > 0) whole rows are dropped by a Bernoulli draw
+    from the ``dropout_generator`` in scope, or by ``drop`` (B,) bool when
+    given; in eval with ``guidance_scale`` > 1 the first half of the batch
+    is zeroed (the unconditional half of guided inference); ``force_mask``
+    zeroes every row.  The table stays fp32 and the rows are cast to the
+    compute dtype."""
+
+    def __init__(self, num_actions: int, latent_dim: int,
+                 guidance_scale: float = 7.5, guidance_uncondp: float = 0.1,
+                 force_mask: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.action_embedding = nn.Parameter(
+            torch.empty(num_actions, latent_dim))
+        nn.init.xavier_uniform_(self.action_embedding)
+        self.guidance_scale = float(guidance_scale)
+        self.guidance_uncondp = float(guidance_uncondp)
+        self.force_mask = bool(force_mask)
+        self.dtype = dtype
+
+    def forward(self, action, drop: Optional[torch.Tensor] = None):
+        out = self.action_embedding[action[:, 0].long()]
+        b = out.shape[0]
+        if self.force_mask:
+            out = torch.zeros_like(out)
+        elif self.training and self.guidance_uncondp > 0.0:
+            if drop is None:
+                drop = dropout_mask((b, 1), self.guidance_uncondp,
+                                    out.device)
+            out = out * (1.0 - drop.reshape(b, 1).to(out.dtype))
+        elif not self.training and self.guidance_scale > 1.0:
+            half = torch.arange(b, device=out.device) < b // 2
+            out = torch.where(half[:, None], 0.0, out)
+        return out[:, None, :].to(self.dtype)

@@ -102,6 +102,13 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
+def dropout_mask(shape, p: float, device) -> torch.Tensor:
+    """A fp32 Bernoulli(``p``) draw of ``shape`` (1 = drop) from the
+    generator of the enclosing :func:`dropout_generator` block."""
+    return torch.empty(shape, device=device).bernoulli_(
+        p, generator=_DROPOUT_GENERATOR.get())
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm(epsilon=1e-5)``: fp32 weights, fp32 math and output."""
 
@@ -124,7 +131,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     1/sqrt(features), norms at one (T5LayerNorm starts at one and is left
     alone), the fused cross-attentions' stacked kernels as Dense kernels,
     the VAE's global motion tokens std 1 (flax ``normal(1.0)``,
-    convofusion_tpu/models/vae.py:91-96).  Values are drawn in fp32 on the CPU
+    convofusion_tpu/models/vae.py:91-96), a learned PE table U(0, 1)
+    (ops/positional.py:60-72), the action table xavier uniform
+    (models/denoiser.py:308-310).  Values are drawn in fp32 on the CPU
     and cast into each parameter, so one seed gives the same weights on
     every device and (up to rounding) in every dtype."""
 
@@ -149,6 +158,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(p)
             elif name.endswith("_global_motion_token"):
                 fill(p, 1.0)
+            elif name == "pe":              # a learned PE table: U(0, 1)
+                with torch.no_grad():
+                    p.copy_(torch.rand(p.shape, generator=generator))
+            elif name == "action_embedding":   # xavier uniform
+                bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+                with torch.no_grad():
+                    p.copy_((2 * torch.rand(p.shape, generator=generator)
+                             - 1) * bound)
             # the fused cross-attentions' stacked (S, D_in, D_out) kernels
             elif name in _STACKED_KERNELS:
                 fill(p, 1.0 / math.sqrt(p.shape[-2]))

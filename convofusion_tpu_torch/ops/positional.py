@@ -1,9 +1,11 @@
-"""Sine positional encodings, batch-first (B, T, D).
+"""Positional encodings, batch-first (B, T, D).
 
-Port of ``convofusion_tpu/ops/positional.py:14-57``: the sine table, the 1D
-sine PE and the body/hands interleaved ``sine_bh`` PE.  The table is a
-non-persistent buffer, so it moves with the module and is cast to the
-input's dtype at use, as the JAX code casts it.
+Port of ``convofusion_tpu/ops/positional.py:14-86``: the sine table, the
+1D sine PE, the body/hands interleaved ``sine_bh`` PE, the learned PE and
+``build_position_encoding``.  A sine table is a non-persistent buffer, so
+it moves with the module and is cast to the input's dtype at use, as the
+JAX code casts it; the learned table is an fp32 parameter cast the same
+way.
 """
 from __future__ import annotations
 
@@ -44,3 +46,28 @@ class PositionEmbeddingSineBH(PositionEmbeddingSine1D):
         t = x.shape[1]
         pe = torch.repeat_interleave(self.pe[: (t + 1) // 2], 2, dim=0)[:t]
         return x + pe[None].to(x.dtype)
+
+
+class PositionEmbeddingLearned1D(nn.Module):
+    """x + a learned (max_len, d_model) table, drawn U(0, 1) (JAX :60-72;
+    ``ops/layers.init_weights`` redraws it from the model's generator)."""
+
+    def __init__(self, d_model: int, max_len: int = 1024):
+        super().__init__()
+        self.pe = nn.Parameter(torch.rand(max_len, d_model))
+
+    def forward(self, x):
+        return x + self.pe[None, : x.shape[1]].to(x.dtype)
+
+
+def build_position_encoding(d_model: int, position_embedding: str = "sine",
+                            max_len: int = 1024) -> nn.Module:
+    """The PE of a config's ``position_embedding`` (JAX :75-84)."""
+    if position_embedding in ("v2", "sine"):
+        return PositionEmbeddingSine1D(d_model, max_len)
+    if position_embedding == "sine_bh":
+        return PositionEmbeddingSineBH(d_model, max_len)
+    if position_embedding in ("v3", "learned"):
+        return PositionEmbeddingLearned1D(d_model, max_len)
+    raise ValueError(f"position_embedding {position_embedding!r} is not "
+                     f"supported (sine/v2, sine_bh, learned/v3)")

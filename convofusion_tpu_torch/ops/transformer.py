@@ -10,7 +10,9 @@ Port of ``convofusion_tpu/ops/transformer.py``: ``_FFN``,
 ``.forward_kv`` / ``.guided`` (:513-627), the fused-stream layer and stack
 ``FusedTransformerDecoderLayer2Att`` / ``FusedDenoiserDecoder``
 (:630-729, the cross-attentions in ``ops/fused_streams.py``) and the
-guidance tables (:26,732-750); pre-norm only.  With ``remat`` a decoder
+guidance tables (:26,732-750).  The VAE's encoder and decoder layers are
+pre-norm or post-norm (JAX :60-145); the denoiser's layers are pre-norm
+and raise otherwise, as JAX asserts (:282, :651).  With ``remat`` a decoder
 stack recomputes each layer's activations in the backward pass of a
 training forward (the module in train mode with grad enabled; JAX
 ``nn.remat`` over the layer, :523-546, :700-711): sampling, WEG's gradient
@@ -20,8 +22,9 @@ broadcasts single-row memories, so one body serves full and mixed-batch
 streams; it and ``forward_kv`` share one body over per-stream K/V.  Dropout sits where JAX has it: the attention
 weights, the FFN after its activation, each residual branch, and the
 TimeBlock after its SiLU; each is the identity unless the module trains.
-No caller passes positional queries inside the layers (``pos`` /
-``query_pos`` are always None), so those arguments are left out.
+The encoder and decoder layers take JAX's ``pos`` / ``query_pos``, added
+to queries and keys; no model passes them (the PEs are added to the
+inputs), so they are None on every path.
 
 Module and parameter names are the reference torch ones (``linear1`` /
 ``linear2`` on the layer, ``time_block1.emb_layers.1``,
@@ -92,42 +95,49 @@ class _FFN(nn.Module):
         return self.linear2(self.ffn_dropout(self.act(self.linear1(x))))
 
 
-def _pre_norm(normalize_before: bool, what: str):
-    if not normalize_before:
-        raise NotImplementedError(f"post-norm {what} layers are not ported")
+def _with_pos(x, pos):
+    return x if pos is None else x + pos
 
 
 class TransformerEncoderLayer(_FFN):
-    """Pre-norm encoder layer (the production VAE encoder,
-    modules/motion_vae.yaml); the post-norm ablation is not ported."""
+    """Encoder layer, pre-norm (the production VAE, modules/motion_vae.yaml)
+    or post-norm (LayerNorm after each residual add, JAX :60-93).  ``pos``
+    is added to the queries and keys, not the values."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", normalize_before: bool = True,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        _pre_norm(normalize_before, "encoder")
+        self.normalize_before = bool(normalize_before)
         self.self_attn = MultiheadAttention(d_model, nhead, dtype, dropout)
         self._init_ffn(d_model, dim_feedforward, activation, dtype, dropout)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.drop = Dropout(dropout)
 
-    def forward(self, src):
-        src2 = self.norm1(src)
-        src2, _ = self.self_attn(src2, src2, src2, need_weights=False)
-        src = src + self.drop(src2)
-        return src + self.drop(self.ffn(self.norm2(src)))
+    def forward(self, src, pos=None):
+        if self.normalize_before:
+            src2 = self.norm1(src)
+            qk = _with_pos(src2, pos)
+            src2, _ = self.self_attn(qk, qk, src2, need_weights=False)
+            src = src + self.drop(src2)
+            return src + self.drop(self.ffn(self.norm2(src)))
+        qk = _with_pos(src, pos)
+        src2, _ = self.self_attn(qk, qk, src, need_weights=False)
+        src = self.norm1(src + self.drop(src2))
+        return self.norm2(src + self.drop(self.ffn(src)))
 
 
 class TransformerDecoderLayer(_FFN):
-    """Pre-norm decoder layer (the production VAE decoder,
-    modules/motion_vae.yaml); the post-norm ablation is not ported."""
+    """Decoder layer, pre-norm (the production VAE decoder) or post-norm
+    (JAX :96-145).  ``query_pos`` is added to the queries and the
+    self-attention keys, ``pos`` to the memory's keys."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", normalize_before: bool = True,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
-        _pre_norm(normalize_before, "decoder")
+        self.normalize_before = bool(normalize_before)
         self.self_attn = MultiheadAttention(d_model, nhead, dtype, dropout)
         self.multihead_attn = MultiheadAttention(d_model, nhead, dtype,
                                                  dropout)
@@ -137,14 +147,25 @@ class TransformerDecoderLayer(_FFN):
         self.norm3 = LayerNorm(d_model)
         self.drop = Dropout(dropout)
 
-    def forward(self, tgt, memory):
-        tgt2 = self.norm1(tgt)
-        tgt2, _ = self.self_attn(tgt2, tgt2, tgt2, need_weights=False)
-        tgt = tgt + self.drop(tgt2)
-        tgt2, _ = self.multihead_attn(self.norm2(tgt), memory, memory,
-                                      need_weights=False)
-        tgt = tgt + self.drop(tgt2)
-        return tgt + self.drop(self.ffn(self.norm3(tgt)))
+    def forward(self, tgt, memory, pos=None, query_pos=None):
+        mem_k = _with_pos(memory, pos)
+        if self.normalize_before:
+            tgt2 = self.norm1(tgt)
+            qk = _with_pos(tgt2, query_pos)
+            tgt2, _ = self.self_attn(qk, qk, tgt2, need_weights=False)
+            tgt = tgt + self.drop(tgt2)
+            tgt2, _ = self.multihead_attn(
+                _with_pos(self.norm2(tgt), query_pos), mem_k, memory,
+                need_weights=False)
+            tgt = tgt + self.drop(tgt2)
+            return tgt + self.drop(self.ffn(self.norm3(tgt)))
+        qk = _with_pos(tgt, query_pos)
+        tgt2, _ = self.self_attn(qk, qk, tgt, need_weights=False)
+        tgt = self.norm1(tgt + self.drop(tgt2))
+        tgt2, _ = self.multihead_attn(_with_pos(tgt, query_pos), mem_k,
+                                      memory, need_weights=False)
+        tgt = self.norm2(tgt + self.drop(tgt2))
+        return self.norm3(tgt + self.drop(self.ffn(tgt)))
 
 
 class _SkipStack(nn.Module):
@@ -175,18 +196,19 @@ class _SkipStack(nn.Module):
             for _ in range(num_block))
         self.norm = LayerNorm(d_model)
 
-    def forward(self, x, *memory):
+    def forward(self, x, *memory, **pos):
         """``memory``: the decoder's cross-attention memory, none for the
-        encoder.  No padding masks: the VAE's 128 frames, 8 chunks and
-        16-frame chunks are static."""
+        encoder; ``pos`` (``pos=``, and ``query_pos=`` for the decoder)
+        goes to every layer.  No padding masks: the VAE's 128 frames, 8
+        chunks and 16-frame chunks are static."""
         xs = []
         for blk in self.input_blocks:
-            x = blk(x, *memory)
+            x = blk(x, *memory, **pos)
             xs.append(x)
-        x = self.middle_block(x, *memory)
+        x = self.middle_block(x, *memory, **pos)
         for lin, blk in zip(self.linear_blocks, self.output_blocks):
             x = lin(torch.cat([x, xs.pop()], dim=-1))
-            x = blk(x, *memory)
+            x = blk(x, *memory, **pos)
         return self.norm(x)
 
 

@@ -292,16 +292,22 @@ def load_torch_full_model(path: str, model) -> None:
     ``model`` (:286-340): VAE, denoiser, audio encoder, fuser, the T5
     projection and, where the file has it, the T5 trunk.  The VAE's and the
     denoiser's dims are inferred from the file and checked against the
-    model's.  A model on raw motion (no VAE) takes the rest of a file, and
-    a file's weights that do not fit the model's layout (the unfused
-    cross-attentions into a ``fuse_streams`` model) raise: no conversion
-    is made, as JAX makes none."""
+    model's.  The ablations' weights (MLP_DIST heads, learned PE tables,
+    all_encoder decoders, a trans_enc encoder) load under their names, as
+    JAX converts them (compat/torch_loader.py:182-185); a file and a model
+    that differ in them raise.  A model on raw motion (no VAE) takes the
+    rest of a file, and a file's weights that do not fit the model's
+    layout (the unfused cross-attentions into a ``fuse_streams`` model)
+    raise: no conversion is made, as JAX makes none."""
     sd = _from_reference_names(_tensors(_read(path)["state_dict"]))
     cfg = model.cfg
-    layers = [int(m.group(1)) for k in sd if (m := re.match(
-        r"denoiser\.decoder\.layers\.(\d+)\.", k))]
+    if any(k.startswith("denoiser.encoder.") for k in sd):
+        n_layers = _infer_skip_layers(sd, "denoiser.encoder")   # trans_enc
+    else:
+        n_layers = 1 + max((int(m.group(1)) for k in sd if (m := re.match(
+            r"denoiser\.decoder\.layers\.(\d+)\.", k))), default=-1)
     found = {"denoiser_dim": sd["denoiser.latent_embd.weight"].shape[0],
-             "denoiser_layers": 1 + max(layers, default=-1)}
+             "denoiser_layers": n_layers}
     want = {"denoiser_dim": cfg["denoiser"]["text_encoded_dim"],
             "denoiser_layers": cfg["denoiser"]["num_layers"]}
     if model.vae is not None:

@@ -8,8 +8,11 @@
   ``PRODUCTION_VAE`` / ``TINY`` / ``TINY_VAE``, the dicts whose comments
   cite the same YAML lines; the exceptions are named in each test;
 - ``ablation_flag`` maps YAML's bare ``no`` (boolean False) to ``'no'``;
-- a knob the port does not implement raises and names its key; the fused
-  streams, REMAT and raw-motion diffusion are read into the dict.
+- a knob the port does not implement, or where JAX raises, raises and
+  names its key; the ablations JAX runs (MLP_DIST, learned PEs, the VAE's
+  post-norm, all_encoder, trans_enc, another model.condition,
+  TPU.PALLAS_STEP, TPU.SCAN_UNROLL), the fused streams, REMAT and
+  raw-motion diffusion are read into the dict.
 No JAX model is built: the comparisons are of config containers.
 """
 import copy
@@ -155,19 +158,9 @@ def test_serve_block_and_optimizer_knobs():
 
 
 @pytest.mark.parametrize("override,key", [
-    ("TRAIN.ABLATION.MLP_DIST=true", "MLP_DIST"),
     ("TRAIN.ABLATION.CAUSAL_ATTN=true", "CAUSAL_ATTN"),
-    ("model.motion_vae.params.position_embedding=learned",
-     "motion_vae.params.position_embedding"),
-    ("model.denoiser.params.position_embedding=learned",
-     "denoiser.params.position_embedding"),
     ("model.denoiser.params.normalize_before=false", "normalize_before"),
-    ("model.motion_vae.params.arch=all_encoder", "motion_vae.params.arch"),
-    ("model.denoiser.params.arch=trans_enc", "denoiser.params.arch"),
     ("TPU.MESH.MODEL=2", "TPU.MESH.MODEL"),
-    ("TPU.PALLAS_STEP=false", "TPU.PALLAS_STEP"),
-    ("TPU.SCAN_UNROLL=2", "TPU.SCAN_UNROLL"),
-    ("model.condition=text", "model.condition"),
     ("model.scheduler.params.variance_type=fixed_large", "variance_type"),
     ("model.text_encoder.params.finetune=true", "finetune"),
 ])
@@ -176,16 +169,58 @@ def test_unsupported_knob_raises(override, key):
         C.from_cfg(_load(EXPERIMENTS[0], [override]))
 
 
+@pytest.mark.parametrize("override,path,want", [
+    ("TRAIN.ABLATION.MLP_DIST=true", ("motion_vae", "mlp_dist"), True),
+    ("model.motion_vae.params.position_embedding=learned",
+     ("motion_vae", "position_embedding"), "learned"),
+    ("model.denoiser.params.position_embedding=learned",
+     ("denoiser", "position_embedding"), "learned"),
+    ("model.motion_vae.params.normalize_before=false",
+     ("motion_vae", "normalize_before"), False),
+    ("model.motion_vae.params.arch=all_encoder", ("motion_vae", "arch"),
+     "all_encoder"),
+    ("model.denoiser.params.arch=trans_enc", ("denoiser", "arch"),
+     "trans_enc"),
+    ("TPU.PALLAS_STEP=false", ("pallas_step",), False),
+    ("TPU.SCAN_UNROLL=2", ("scan_unroll",), 2),
+    ("model.condition=text", ("denoiser", "condition"), "text"),
+])
+def test_ablation_knob_builds(override, path, want):
+    """A knob that JAX runs goes into the dict, and nothing else moves."""
+    got = C.from_cfg(_load(EXPERIMENTS[0], DDIM_50 + [override]))
+    node, ref = got, C.PRODUCTION
+    for k in path[:-1]:
+        node, ref = node[k], ref[k]
+    assert node[path[-1]] == want != ref[path[-1]]
+    node[path[-1]] = ref[path[-1]]
+    assert got == C.PRODUCTION
+
+
+@pytest.mark.parametrize("override,key", [
+    ("model.motion_vae.params.arch=transformer", "motion_vae.params.arch"),
+    ("model.denoiser.params.arch=mlp", "denoiser.params.arch"),
+    ("model.motion_vae.params.position_embedding=rotary",
+     "motion_vae.params.position_embedding"),
+])
+def test_a_value_jax_rejects_raises(override, key):
+    with pytest.raises(ValueError, match=key):
+        C.from_cfg(_load(EXPERIMENTS[0], [override]))
+
+
 def test_stage_one_skips_the_denoiser_knobs():
     """A stage-1 config builds the VAE alone: the denoiser's knobs are not
-    its business; the VAE's still are."""
+    its business; the VAE's still are (its post-norm builds)."""
     cfg = _load(EXPERIMENTS[1],
-                ["model.denoiser.params.position_embedding=learned"])
+                ["model.denoiser.params.normalize_before=false"])
     assert C.from_cfg(cfg)["motion_vae"] == C.PRODUCTION_VAE["motion_vae"]
-    with pytest.raises(NotImplementedError, match="normalize_before"):
+    post = C.from_cfg(_load(EXPERIMENTS[1], [
+        "model.motion_vae.params.normalize_before=false"]))
+    assert post["motion_vae"] == {**C.PRODUCTION_VAE["motion_vae"],
+                                  "normalize_before": False}
+    with pytest.raises(ValueError, match="arch"):
         C.from_cfg(_load(EXPERIMENTS[1], [
-            "model.motion_vae.params.normalize_before=false"]))
-    with pytest.raises(NotImplementedError, match="position_embedding"):
+            "model.motion_vae.params.arch=transformer"]))
+    with pytest.raises(NotImplementedError, match="normalize_before"):
         C.from_cfg(cfg, stage="diffusion")
 
 
