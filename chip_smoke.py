@@ -17,7 +17,7 @@ step kernel must be among them):
                at B=96 CUDA-event times of kernel (L2 flushed, and back to back)
                and plain version; then the step kernel's tile and block
                size sweep at the main path's case (bf16 planes, DDIM)
-  4. parity  - production geometry, fp32, batch 2, DDIM-50, seeded weights,
+  4. parity  - production geometry, fp32, batch 2, DDIM-20, seeded weights,
                numpy-made inputs and noise: sample() on the card (through
                the kernel) against sample() on the CPU (plain version)
   5. main    - production geometry, bf16, batch 96, DDIM-50, 7-way
@@ -27,7 +27,7 @@ step kernel must be among them):
                one call split into encode / reverse / decode, and a
                profile of a few reverse steps, which gives the step
                kernel's device time inside the loop (in_path_us)
-  6. weg_parity - production geometry, fp32, batch 2, DDIM-10, word-
+  6. weg_parity - production geometry, fp32, batch 2, DDIM-5, word-
                excitation guidance (WEG) with focus words on both rows,
                numpy-made inputs and noise: sample(focus=...) on the card
                against the CPU, with the config's WEG parameters and with
@@ -48,17 +48,18 @@ step kernel must be among them):
                pipeline's
   8. rollout_parity - production geometry, fp32, the long-form rollout
                (cli/unbounded.rollout) of a 2-part batch of 2 (3 windows),
-               DDIM-10, numpy-made noise for every window: the card
+               DDIM-4, numpy-made noise for every window: the card
                against the CPU without WEG and with 'random' WEG (one
                seeded random.Random a side); every window's motion and
                latents within their tolerances, root xz continuity between
-               windows, exactly 10 kernel launches a window on the card,
+               windows, exactly 4 kernel launches a window on the card,
                equal WEG counts on both sides
   9. rollout - production geometry, bf16, batch 96, 2 parts (3 windows;
                bench.py --mode rollout has 3 parts), DDIM-50: one warm-up
-               and one timed rollout without WEG, one with 'random' WEG;
-               finite (96, 128, 189) motion for every window, exactly 150
-               kernel launches a rollout, one uncond encode a sampler (the
+               of 1 part (1 window) and one timed rollout without WEG, one
+               of 1 part with 'random' WEG; finite (96, 128, 189) motion
+               for every window, exactly 50 kernel launches a window, one
+               uncond encode a sampler (the
                first window of its first rollout); windows/s, ms a window,
                the host's ms a window (window text, tokenization, focus
                words, stitching) against the sampler's, peak memory; then
@@ -78,12 +79,12 @@ step kernel must be among them):
  12. train    - production geometry, bf16 compute with fp32 master weights:
                stage 2 at batch 64 with token ids, stage 2 at batch 64 with
                the cached T5 trunk and VAE posterior (bench.py --cached-text
-               --cached-vae), stage 1 at batch 128; each 3 warm-up and 10
+               --cached-vae), stage 1 at batch 128; each 3 warm-up and 6
                timed steps (median ms a step, clips/s), peak memory, and 2
                profiled steps (kernels a step, the card's busy share), and
                one profiled step with F.dropout's fused kernel (the kernels
                that masks from the step's generator add); every loss
-               finite; then stage 1 on one fixed batch for 50 steps, whose
+               finite; then stage 1 on one fixed batch for 20 steps, whose
                last 5 losses must average below its first 5
  13. checkpoint - the production stage-2 model from the YAML config
                (load_config + from_cfg), bf16: saved without the T5 trunk,
@@ -104,7 +105,7 @@ step kernel must be among them):
                or it fails), loader / tokenize / sample ms per batch,
                exactly 50 kernel launches per batch, the result
                directories and attention-map files, peak memory; then the
-               CLI in fp32 at DDIM-10 on one batch of 4 on the card and on
+               CLI in fp32 at DDIM-4 on one batch of 4 on the card and on
                the CPU (the refinement capped at 3 iterations; phase 6 runs
                the config's): the same files, byte-equal texts and semantic
                CSVs, motion within 1e-3 and latents within 2e-3; then the
@@ -112,9 +113,9 @@ step kernel must be among them):
  15. train_cli - the training and rollout CLIs on fixture trees, with a
                synthesized spiece.model in the asset drop: stage 1
                (cli/train.main, config_vae_beatdnd.yaml, bf16, batch 128,
-               3 epochs, validation and a background checkpoint each), then
+               2 epochs, validation and a background checkpoint each), then
                stage 2 (config_cf_beatdnd.yaml, the stage-1 file
-               transplanted, bf16, batch 64, 3 epochs, the T5-trunk and VAE
+               transplanted, bf16, batch 64, 2 epochs, the T5-trunk and VAE
                posterior caches, prefetch 2): every logged loss finite,
                total/train and total/val in metrics.jsonl, the caches' hits
                and misses (no trunk miss after the first epoch), no host
@@ -122,9 +123,9 @@ step kernel must be among them):
                launches, ms a step and clips/s of the steady epochs beside
                phase 12's Trainer step, the prefetch thread's loader and
                prepare ms a batch and the step loop's wait, peak memory; a
-               fourth epoch through TRAIN.RESUME from epoch=2.ckpt, its
+               third epoch through TRAIN.RESUME from epoch=1.ckpt, its
                batches prepared inline (TPU.PREFETCH=0); then
-               the stage-2 CLI in fp32, dropout 0, batch 4, 2 epochs on the
+               the stage-2 CLI in fp32, dropout 0, batch 4, 1 epoch on the
                card and on the CPU: each epoch's loss within 1e-4
                relative, every step's gradients within phase 11's
                tolerance, every final weight within 1e-5 + 1e-3 max|w| of
@@ -132,15 +133,15 @@ step kernel must be among them):
                AdamW replay of its device's gradients; then
                cli/unbounded.main from the stage-2 file (bf16, DDIM-50,
                semantic WEG with the refinement capped at 3 iterations, one
-               test batch of 3-window recordings at MAX_LEN 256, 50
+               test batch of one-window recordings at MAX_LEN 128, 50
                launches a window, windows/s); eval/run.main over its dump,
                dyadic (the FID forward on the card) and monadic (numpy on
                the host), against --device cpu within 1e-5 relative;
                unguided sample() (guidance scale 1.0), fp32 batch 2,
-               DDIM-10 and dpmpp_2m-10, card vs CPU, 0 launches
+               DDIM-4 and dpmpp_2m-4, card vs CPU, 0 launches
  16. variants - at the production width: the fused five-stream denoiser
                (weights from the unfused model through the converter), fp32
-               batch 4 DDIM-10 on the card against the CPU and against the
+               batch 4 DDIM-4 on the card against the CPU and against the
                unfused layout (phase 4's bounds), then bf16 batch 96
                DDIM-50 in turns with the unfused layout: clips/s, kernels a
                step, 0 step-kernel launches (JAX's gate); TPU.REMAT: a
@@ -148,31 +149,46 @@ step kernel must be among them):
                step without it (loss, gradients, generator state), then
                bf16 batch 64 with and without it in turns (ms a step, the
                step's peak memory); vae_type 'no': bf16 batch 96 DDIM-50
-               with 50 launches at (7, 96, 128, 189), fp32 batch 4 DDIM-10
+               with 50 launches at (7, 96, 128, 189), fp32 batch 4 DDIM-4
                card vs CPU, 3 stage-2 steps with the denoiser's gradient
                finite and nonzero; the learning proof's pipeline
-               (train/overfit.run) at 20 + 20 epochs and DDIM-10: every key
+               (train/overfit.run) at 2 + 2 epochs and DDIM-4: every key
                of JAX's result, finite
  17. ablations - every model option the JAX package builds, at the
-               production width: sample() fp32 batch 2 DDIM-10 card vs CPU
-               (phase 4's bounds, 10 launches a card call) with the
+               production width: sample() fp32 batch 2 DDIM-4 card vs CPU
+               (phase 4's bounds, 4 launches a card call) with the
                post-norm, learned-PE, MLP_DIST VAE and the denoiser's
                learned memory PE, and with the all_encoder VAE; the
                trans_enc denoiser, fp32 batch 4, card vs CPU: a stage-2
                loss and its gradients (phase 11's bounds), unguided
-               DDIM-10 (0 launches), a guided call that raises;
+               DDIM-4 (0 launches), a guided call that raises;
                EmbedAction (eval, guided), the text condition's emb_proj
                and TextAudioController spk-ta card vs CPU within 1e-5;
                TPU.PALLAS_STEP false against true at bf16 batch 96 DDIM-50
                in turns (ms a call; 50 and 0 launches a call), one fp32
-               batch-2 step of both paths within 1e-5 and DDIM-10 within
-               phase 4's bounds; the ablated config through cli/train
-               (stage 1 at 128 and stage 2 at 64, 2 steps each), a save and
-               load of the stage-2 model bit-equal, and cli/test on one
-               batch of 32 at DDIM-50 (50 launches)
+               batch-2 step of both paths within 1e-5 and DDIM-4 within
+               phase 4's bounds; the ablated config through cli/train on
+               one 7-file tree (stage 1 and stage 2 at batch 14, 2 steps
+               each), a save and load of the stage-2 model bit-equal, and
+               cli/test on one batch of 32 at DDIM-50 (50 launches)
+ 18. distributed - the stage-2 train CLI at the YAML batch 64 (one step an
+               epoch, 2 epochs) without and with TPU.MULTIHOST under a
+               world-size-1 NCCL group (torchrun's environment set
+               in-process): losses and weights bit-equal, rank 0's files,
+               the barriers passed, no host wait inside a step (CUDA sync
+               checker); a SIGTERM after step 1 under the group
+               checkpoints, and the resume ends within 1e-6 of the
+               straight run; T5 trunk dropout 0.1 through the Trainer
+               (stage 2 bf16 batch 64, 3 steps): the trunk bit-identical,
+               a second run bit-equal, step 1's loss unlike rate 0's, the
+               CLI's trunk cache off, ms a step; the test CLI with a
+               charsmap spiece.model on transcripts with non-ASCII
+               characters: one batch of 32 at DDIM-50, 50 launches, the
+               card's token ids equal to the host tokenizer's, ms to
+               tokenize 32 texts with and without the charsmap
 Then the kernel against its plain version at any other shape the path
 phases launched it with, the whole run's wall time, a JSON line of per-kernel numbers
-(launches summed over phases 5-17 that ran, and each phase's count under
+(launches summed over phases 5-18 that ran, and each phase's count under
 launches_by_phase, every timed shape under shapes; the dpmpp and training
 phases launch no step kernel)
 and, last, the result line {"ok": true, "device": {...}}.
@@ -187,6 +203,8 @@ import json
 import math
 import os
 import random
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -195,6 +213,7 @@ import threading
 import time
 import urllib.request
 import warnings
+from typing import Dict
 
 import numpy as np
 import torch
@@ -242,6 +261,7 @@ from convofusion_tpu_torch.ops import guided_step as gs_mod
 from convofusion_tpu_torch.ops import layers
 from convofusion_tpu_torch.ops.fused_streams import fuse_denoiser_params
 from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
+from convofusion_tpu_torch.parallel import mesh as dist_mesh
 from convofusion_tpu_torch.serving import (
     GestureRequest,
     build_service,
@@ -278,10 +298,12 @@ PEAK_FP32_FLOPS = 67e12
 # guided_step per element: 8 for the guidance combine, 5 for x0 and its
 # clip, 6-7 for the DDPM or DDIM update
 STEP_FLOPS_PER_ELEMENT = 20
-# card-vs-CPU fp32 motion after 50 guided steps: see phase_parity
-PARITY_ATOL = 1e-3
-# phase 6: DDIM-10 with WEG; the tolerance is argued in phase_weg_parity
-WEG_STEPS = 10
+# card-vs-CPU fp32 motion after PARITY_STEPS guided steps (cut from 50):
+# see phase_parity
+PARITY_STEPS, PARITY_ATOL = 20, 1e-3
+# phase 6: DDIM-5 with WEG (cut from 10); the tolerance is argued in
+# phase_weg_parity
+WEG_STEPS = 5
 WEG_PARITY_ATOL = 1e-3
 WEG_LATENT_ATOL = 2e-3
 # the refinement forced at step 0: the loop runs to its bound on both sides
@@ -293,13 +315,14 @@ WEG_COST_CALLS = 10
 SERVE_CLIENTS, SERVE_TIMED_BATCHES, SERVE_HTTP_REQUESTS = 8, 1, 4
 # every Nth service request carries no focus words
 NO_FOCUS_EVERY = 5
-# phase 8: DDIM-10 rollouts of 2 parts (3 windows); tolerances argued in
-# phase_rollout_parity
-ROLLOUT_PARITY_STEPS, ROLLOUT_PARITY_PARTS = 10, 2
+# phase 8: DDIM-4 rollouts (cut from 10) of 2 parts (3 windows);
+# tolerances argued in phase_rollout_parity
+ROLLOUT_PARITY_STEPS, ROLLOUT_PARITY_PARTS = 4, 2
 ROLLOUT_MOTION_ATOL, ROLLOUT_LATENT_ATOL = 1e-3, 2e-3
 # phase 9: parts of a rollout (bench.py --mode rollout's 3, cut to 2; 2
-# parts are 3 windows) and timed rollouts (batch and steps as phase 5)
-ROLLOUT_PARTS, ROLLOUT_TIMED = 2, 1
+# parts are 3 windows) and timed rollouts (batch and steps as phase 5);
+# the warm-up and the WEG rollout take one part (one window; cut from 2)
+ROLLOUT_PARTS, ROLLOUT_TIMED, ROLLOUT_SHORT_PARTS = 2, 1, 1
 # phase 10: DPM-Solver++ 2M steps (bench.py --sampler dpmpp_2m --steps 20)
 DPMPP_STEPS = 20
 DPMPP_ATOL, DPMPP_LATENT_ATOL = 1e-3, 2e-3
@@ -309,9 +332,9 @@ TRAIN_PARITY_BATCH, TRAIN_PARITY_STEPS = 4, 3
 TRAIN_LOSS_RTOL, TRAIN_FIT_RTOL = 1e-4, 1e-3
 TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 # phase 12: the production batch sizes (config_cf_beatdnd.yaml:11,
-# config_vae_beatdnd.yaml:17), warm-up, timed (cut from 20) and profiled
-# steps, and the stage-1 learning check's steps
-TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 10, 2, 50
+# config_vae_beatdnd.yaml:17), warm-up, timed (cut from 20, then 10) and
+# profiled steps, and the stage-1 learning check's steps (cut from 50)
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 6, 2, 20
 TRAIN_DIFFUSION_BATCH = PRODUCTION["train"]["batch_size"]
 TRAIN_VAE_BATCH = PRODUCTION_VAE["train"]["batch_size"]
 # phase 13: the YAML scheduler is DDPM-1000 (modules/scheduler.yaml:1-11);
@@ -324,10 +347,10 @@ CKPT_RESUME_BATCH, CKPT_RESUME_STEPS, CKPT_RESUME_RTOL = 4, (2, 2), 1e-6
 # phase 14: the test CLI on fixture trees; 2 BEAT speakers x 7 files x 2
 # chunks and 4 DnD items make one full TEST.BATCH_SIZE batch of 32
 # (config_cf_beatdnd.yaml:36; the second batch of 8 files is cut);
-# the card-vs-CPU run is fp32 DDIM-10 on one batch of 4 BEAT items
-# (phases 6, 8 and 10's tolerances); the batch mel against the host's
-# within 1e-4 of the largest power and 1e-2 dB
-CLI_BEAT_FILES, CLI_PARITY_BATCH, CLI_PARITY_STEPS = 7, 4, 10
+# the card-vs-CPU run is fp32 DDIM-4 (cut from 10) on one batch of 4 BEAT
+# items (phases 6, 8 and 10's tolerances); the batch mel against the
+# host's within 1e-4 of the largest power and 1e-2 dB
+CLI_BEAT_FILES, CLI_PARITY_BATCH, CLI_PARITY_STEPS = 7, 4, 4
 # the parity run's WEG refinement bound: the config's 300 iterations take
 # ~55 s on 8 CPU cores at this width; phase 6 holds the full loop
 CLI_PARITY_REFINE = 3
@@ -336,60 +359,81 @@ MEL_POWER_RTOL, MEL_DB_ATOL = 1e-4, 1e-2
 # phase 15: the training and rollout CLIs, eval and unguided sampling.  2
 # BEAT speakers x 64 files of 11 s (2 chunks each) + the DnD listener
 # items fill stage 1's batch of 128 twice and stage 2's of 64 four times;
-# 3 epochs a stage, then a resumed fourth for stage 2
-TRAIN_CLI_FILES, TRAIN_CLI_EPOCHS = 64, 3
-# card vs CPU through the CLI: fp32, dropout 0, batch 4, 2 stage-2 epochs
-# on a 1-file fixture (2 steps an epoch); tolerances argued in
+# 2 epochs a stage (cut from 3), then a resumed third for stage 2
+TRAIN_CLI_FILES, TRAIN_CLI_EPOCHS = 64, 2
+# card vs CPU through the CLI: fp32, dropout 0, batch 4, 1 stage-2 epoch
+# (cut from 2) on a 1-file fixture (2 steps an epoch); tolerances argued in
 # train_cli_parity
-TRAIN_CLI_PARITY_BATCH, TRAIN_CLI_PARITY_EPOCHS = 4, 2
+TRAIN_CLI_PARITY_BATCH, TRAIN_CLI_PARITY_EPOCHS = 4, 1
 TRAIN_CLI_LOSS_RTOL = 1e-4
 TRAIN_CLI_WEIGHT_ATOL, TRAIN_CLI_WEIGHT_RTOL = 1e-5, 1e-3
 # an element beyond that bound must be what AdamW makes of the recorded
 # gradients: its final weight within 1e-6 of a float64 AdamW replay on
 # each side; at most this many such elements
 TRAIN_CLI_REPLAY_ATOL, TRAIN_CLI_REPLAY_MAX = 1e-6, 100
-# the rollout CLI at MAX_LEN 256 (3 windows: two 128-frame parts and the
-# stitch between them) on one test batch of 2 speakers x 4 files + the DnD
-# items, the refinement loop of the rollout's fixed WEG parameters
+# the rollout CLI at MAX_LEN 128 (one window; cut from 256 and 3 windows:
+# phases 8 and 9 run the preseq inpainting of later windows) on one test
+# batch of 2 speakers x 4 files + the DnD items, the refinement loop of the
+# rollout's fixed WEG parameters
 # (cli/unbounded.ROLLOUT_WEG_PARAMETERS, as the reference's) capped at 3
 # iterations a refined step: at its bound of 300 the random weights never
 # meet the threshold and a window took 28-40 s; phase 6 runs a forced loop
 # to its bound
-UNBOUNDED_FILES, UNBOUNDED_MAX_LEN, UNBOUNDED_REFINE = 4, 256, 3
+UNBOUNDED_FILES, UNBOUNDED_MAX_LEN, UNBOUNDED_REFINE = 4, 128, 3
 # eval/run on the card against --device cpu
 EVAL_RTOL = 1e-5
-# unguided sampling (guidance_scale 1.0), card vs CPU, fp32 batch 2
-UNGUIDED_STEPS = 10
+# unguided sampling (guidance_scale 1.0), card vs CPU, fp32 batch 2,
+# 4 steps (cut from 10)
+UNGUIDED_STEPS = 4
 # phase 16: the fused layout, REMAT and raw motion at the production
-# width: card-vs-CPU runs at fp32 batch 4 DDIM-10 (phase 4's motion bound;
-# the latents' as phases 6, 8 and 10), timed runs in turns after a
-# warm-up; the learning proof's pipeline at 20 + 20 epochs
-VARIANT_PARITY_BATCH, VARIANT_PARITY_STEPS = 4, 10
+# width: card-vs-CPU runs at fp32 batch 4 DDIM-4 (cut from 10; phase 4's
+# motion bound; the latents' as phases 6, 8 and 10), timed runs in turns
+# after a warm-up (1 turn and 1 warm-up step, cut from 2 each); the
+# learning proof's pipeline at 2 + 2 epochs (cut from 20 + 20: every key
+# of JAX's result, as tests/test_torch_overfit_run.py on the CPU)
+VARIANT_PARITY_BATCH, VARIANT_PARITY_STEPS = 4, 4
 VARIANT_LATENT_ATOL = 2e-3
-VARIANT_WARMUP, VARIANT_TURNS = 2, 2
-OVERFIT_EPOCHS = 20
+VARIANT_WARMUP, VARIANT_TURNS = 1, 1
+OVERFIT_EPOCHS = 2
 # the raw-motion (vae_type 'no') latents the step kernel takes: (B, 128,
 # 189) at phase 16's batches
 RAW_MOTION_BATCHES = (VARIANT_PARITY_BATCH, BATCH)
 # phase 17: the ablations at the production width.  sample() card vs CPU
-# at fp32 batch 2 DDIM-10 (phase 4's motion bound, the latents' of phases
-# 6, 8 and 10; exactly 10 launches a card call); trans_enc at fp32 batch 4
-# (phase 11's loss and gradient bounds, then unguided DDIM-10 at phase 4's);
+# at fp32 batch 2 DDIM-4 (cut from 10; phase 4's motion bound, the
+# latents' of phases 6, 8 and 10; exactly 4 launches a card call); trans_enc
+# at fp32 batch 4 (phase 11's loss and gradient bounds, then unguided
+# DDIM-4 at phase 4's);
 # the modules card vs CPU within 1e-5; TPU.PALLAS_STEP false against true
 # at bf16 batch 96 DDIM-50 in turns after a warm-up each, and one fp32
 # batch-2 step of both paths within 1e-5
-ABLATION_PARITY_BATCH, ABLATION_STEPS, TRANS_ENC_BATCH = 2, 10, 4
+ABLATION_PARITY_BATCH, ABLATION_STEPS, TRANS_ENC_BATCH = 2, 4, 4
 ABLATION_MODULE_ATOL, STEP_PATHS_ATOL = 1e-5, 1e-5
-STEP_PATH_TURNS = 2
+STEP_PATH_TURNS = 1          # cut from 2
 # the CLIs with the post-norm, learned-PE, MLP_DIST VAE (and the denoiser's
-# learned memory PE): stage 1's 2 steps of 128 on phase 15's 64-file tree
-# (266 train items), stage 2's 2 steps of 64 on a 32-file tree (132), the
-# test CLI's one batch of 32 on phase 14's 7-file tree
-ABLATION_CLI_FILES = (TRAIN_CLI_FILES, 32, CLI_BEAT_FILES)
+# learned memory PE) on one 7-file tree (phase 14's): stage 1's and stage
+# 2's 2 steps at batch 14 (29 train items), the test CLI's one batch of 32
+# without its result files.  Cut from 2 steps of 128 and of 64 on 64- and
+# 32-file trees: phase 15 runs the same CLI code at the YAML batches
+ABLATION_CLI_FILES, ABLATION_CLI_BATCH = CLI_BEAT_FILES, 14
 ABLATION_OVERRIDES = ["model.motion_vae.params.normalize_before=false",
                       "model.motion_vae.params.position_embedding=learned",
                       "TRAIN.ABLATION.MLP_DIST=true",
                       "model.denoiser.params.position_embedding=learned"]
+# phase 18: the stage-2 train CLI at the YAML batch of 64 on a 16-file tree
+# (74 train items: one step an epoch), 2 epochs, without and with a
+# world-size-1 NCCL group; a SIGTERM after step 1, then the resume, within
+# 1e-6 of the straight run's weights.  T5 trunk dropout 0.1 through the
+# Trainer, stage 2 bf16 batch 64, 3 steps.  The test CLI with a charsmap
+# spiece.model on phase 14's tree, its transcripts drawn from words with
+# curly quotes, accents, NBSP, a ligature, full-width letters and a
+# decomposed accent among plain ones
+DISTRIBUTED_FILES, DISTRIBUTED_EPOCHS, DISTRIBUTED_RESUME_ATOL = 16, 2, 1e-6
+T5_DROPOUT, T5_DROPOUT_STEPS = 0.1, 3
+CHARSMAP_WORDS = ("hello", "there", "friend", "story", "brave", "knights",
+                  "dragons", "dice", "laugh", "night", "it\u2019s",
+                  "\u201cfine\u201d", "caf\u00e9", "na\u00efve",
+                  "good\u00a0night", "\ufb01re", "\uff27\uff4f",
+                  "cafe\u0301", "\u2018yes\u2019", "r\u00e9sum\u00e9")
 # what earlier phases of this run measured, for later phases to print
 PHASE_RESULTS = {}
 
@@ -597,12 +641,12 @@ def phase_parity():
     """Same seeded weights, inputs and noise on the card and on the CPU, in
     fp32 with TF32 off.  GEMM summation order differs between cuBLAS and
     the CPU BLAS; the guidance combine scales each branch's rounding by
-    gs * 5 = 37.5 and 50 steps with x0 clipping compound it.  On an H100
-    the motion (|motion| <= 3.2) differed by 4.8e-5: PARITY_ATOL leaves
-    20x headroom."""
+    gs * 5 = 37.5 and the steps with x0 clipping compound it.  On an H100
+    the motion (|motion| <= 3.2) differed by 4.8e-5 after 50 steps:
+    PARITY_ATOL leaves 20x headroom, more at PARITY_STEPS."""
     b = 2
     raw = synthetic_raw_batch(11, b, mel_frames=PRODUCTION["mel_frames"])
-    init, steps = _noise(np.random.default_rng(12), STEPS,
+    init, steps = _noise(np.random.default_rng(12), PARITY_STEPS,
                          (b, 16, PRODUCTION["latent_dim"][1]))
     out = {}
     for device in ("cuda", "cpu"):
@@ -611,10 +655,11 @@ def phase_parity():
                             seed=0)
         batch, _, _ = prepare_arrays(model, raw)
         launches = gs_mod.guided_step.launches
-        motion, latents = model.sample(batch, num_inference_steps=STEPS,
-                                       init_noise=init, step_noise=steps)
+        motion, latents = model.sample(
+            batch, num_inference_steps=PARITY_STEPS, init_noise=init,
+            step_noise=steps)
         if device == "cuda" and gs_mod.guided_step.launches - launches \
-                != STEPS:
+                != PARITY_STEPS:
             raise RuntimeError("parity run on the card missed the kernel")
         out[device] = (motion.float().cpu(), latents.cpu())
         del model
@@ -627,7 +672,8 @@ def phase_parity():
                                f"or misshapen")
     dm = float((m_gpu - m_cpu).abs().max())
     dl = float((l_gpu - l_cpu).abs().max())
-    log(f"# parity: fp32 DDIM-{STEPS} batch {b} card vs CPU: max|motion "
+    log(f"# parity: fp32 DDIM-{PARITY_STEPS} batch {b} card vs CPU: "
+        f"max|motion "
         f"diff| {dm:.3g} (|motion| <= {float(m_cpu.abs().max()):.3g}), "
         f"max|latent diff| {dl:.3g}; tolerance {PARITY_ATOL}")
     if not dm <= PARITY_ATOL:
@@ -1150,12 +1196,13 @@ def phase_rollout_parity(device="cuda"):
 
 def phase_rollout(smi, device=None):
     """bench.py --mode rollout on the port: bf16 batch 96, DDIM-50, with
-    ROLLOUT_PARTS parts (bench.py's 3, cut to keep the run in its time)."""
+    ROLLOUT_PARTS parts (bench.py's 3, cut to keep the run in its time);
+    the warm-up and the WEG rollout of ROLLOUT_SHORT_PARTS."""
     model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=1)
     dev = model.device
     on_card = dev.type == "cuda"
-    batch = synthetic_long_batch(0, BATCH, n_parts=ROLLOUT_PARTS)
-    n_windows = 2 * ROLLOUT_PARTS - 1
+    batches = {n: synthetic_long_batch(0, BATCH, n_parts=n)
+               for n in (ROLLOUT_PARTS, ROLLOUT_SHORT_PARTS)}
     gen = torch.Generator(device=dev).manual_seed(64)
     encodes = []
     encode = model.encode_uncond
@@ -1167,6 +1214,9 @@ def phase_rollout(smi, device=None):
         torch.cuda.reset_peak_memory_stats()
     rows = []
     for i, weg_type in enumerate(["no"] * (1 + ROLLOUT_TIMED) + ["random"]):
+        timed = 0 < i <= ROLLOUT_TIMED
+        parts = ROLLOUT_PARTS if timed else ROLLOUT_SHORT_PARTS
+        batch, n_windows = batches[parts], 2 * parts - 1
         before_enc, before = len(encodes), gs_mod.guided_step.launches
         model.weg_counts = type(model.weg_counts)()
         t0 = time.perf_counter()
@@ -1187,14 +1237,14 @@ def phase_rollout(smi, device=None):
             raise RuntimeError(f"rollout {i}: {n_enc} uncond encodes")
         sampler_s = sum(c["seconds"] for c in calls)
         host_ms = (wall - sampler_s) / n_windows * 1e3
-        rows.append((weg_type, wall, sampler_s))
+        rows.append((weg_type, wall, n_windows))
         log(f"# rollout: {'warm-up ' if i == 0 else ''}{weg_type} WEG: "
             f"{wall * 1e3:.1f} ms, {BATCH * n_windows / wall:.2f} windows/s, "
             f"{wall / n_windows * 1e3:.1f} ms a window (sampler "
             f"{sampler_s / n_windows * 1e3:.1f} ms, host {host_ms:.1f} ms, "
             f"{(wall - sampler_s) / wall:.1%}); {n_launch} kernel launches, "
             f"{n_enc} uncond encodes, {model.weg_counts}")
-        if weg_type == "no":
+        if timed:
             last_window = calls[-1]["call"]
     model.encode_uncond = encode
 
@@ -1211,16 +1261,18 @@ def phase_rollout(smi, device=None):
         direct.setdefault(name, []).append(
             round((time.perf_counter() - t0) * 1e3, 1))
     log(f"# rollout: the last window's sample() alone: {direct} ms")
-    timed = [w for name, w, _ in rows[1:1 + ROLLOUT_TIMED]]
-    med = statistics.median(timed)
-    weg_wall = rows[-1][1]
+    n_windows = 2 * ROLLOUT_PARTS - 1
+    med = statistics.median(w for _, w, _ in rows[1:1 + ROLLOUT_TIMED])
+    _, weg_wall, weg_windows = rows[-1]
+    # a window's wall with WEG over one without
+    weg_x = (weg_wall / weg_windows) / (med / n_windows)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     log(f"# rollout: bf16 batch {BATCH} {ROLLOUT_PARTS} parts ({n_windows} "
         f"windows) DDIM-{STEPS} on {smi}: {BATCH * n_windows / med:.2f} "
         f"windows/s, {med / n_windows * 1e3:.1f} ms a window (median of "
-        f"{ROLLOUT_TIMED}); with WEG {BATCH * n_windows / weg_wall:.2f} "
-        f"windows/s ({weg_wall / med:.2f}x); peak memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{ROLLOUT_TIMED}); with WEG ({weg_windows} window) "
+        f"{BATCH * weg_windows / weg_wall:.2f} windows/s ({weg_x:.2f}x); "
+        f"peak memory {peak / 2**30:.2f} GiB")
 
 
 def phase_dpmpp(smi, device="cuda"):
@@ -2221,7 +2273,7 @@ def phase_train_cli(smi, device=None):
             log("# train_cli: no wait for the card inside stage-2 step 2 "
                 "(CUDA sync checker)")
 
-        # a fourth epoch through TRAIN.RESUME, with the batches prepared
+        # one more epoch through TRAIN.RESUME, with the batches prepared
         # inline (TPU.PREFETCH=0): the same work without the thread
         latest = ckpt_lib.latest_checkpoint(os.path.join(exp, "cf",
                                                          "checkpoints"))
@@ -2305,7 +2357,8 @@ def adamw_replay(opt, w0, grads, lrs):
 
 def train_cli_parity(tmp, vae_ckpt, dev_arg):
     """The stage-2 CLI on the card and on the CPU: production geometry,
-    fp32, dropout 0, batch 4, 2 epochs from the same stage-1 file, both
+    fp32, dropout 0, batch 4, TRAIN_CLI_PARITY_EPOCHS epochs from the same
+    stage-1 file, both
     caches on, no validation.  As phase 11 argues for the Trainer, each
     epoch's total/train is held to 1e-4 relative and every step's
     gradients to 1e-5 + 1e-3 max|g| of their tensor.  Every weight of the
@@ -3165,28 +3218,29 @@ def step_paths(smi, device):
 
 def ablation_cli(smi, device=None):
     """An ablation config through the CLIs at the production configs'
-    width, bf16: cli/train stage 1 (config_vae_beatdnd.yaml, batch 128, 2
-    steps) with the post-norm, learned-PE, MLP_DIST VAE; stage 2
-    (config_cf_beatdnd.yaml, batch 64, 2 steps) from its file; a save and
-    load of that model, bit-equal; cli/test on one batch of 32 at DDIM-50
-    (WEG off: phase 14 runs it), 50 launches."""
+    width, bf16: cli/train stage 1 (config_vae_beatdnd.yaml, 2 steps) with
+    the post-norm, learned-PE, MLP_DIST VAE; stage 2 (config_cf_beatdnd.
+    yaml, 2 steps) from its file; a save and load of that model,
+    bit-equal; cli/test on one batch of 32 at DDIM-50 (WEG off: phase 14
+    runs it), 50 launches."""
     dev_arg = ["--device", device] if device else []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ablations") as tmp, \
             asset_root(os.path.join(tmp, "assets")):
         t0 = time.perf_counter()
         write_synthetic_spiece(os.path.join(tmp, "assets", "t5-base",
                                             "spiece.model"))
-        roots = [make_fixture_pair(os.path.join(tmp, f"data{n}"), n_files=n)
-                 for n in ABLATION_CLI_FILES]
-        log(f"# ablations: spiece.model and fixture trees "
-            f"{ABLATION_CLI_FILES} in {time.perf_counter() - t0:.2f} s")
+        root = make_fixture_pair(os.path.join(tmp, "data"),
+                                 n_files=ABLATION_CLI_FILES)
+        log(f"# ablations: spiece.model and a fixture tree of "
+            f"{ABLATION_CLI_FILES} files in {time.perf_counter() - t0:.2f} s")
         common = ["TRAIN.END_EPOCH=1", "LOGGER.VAL_EVERY_STEPS=1",
                   "LOGGER.SACE_CHECKPOINT_EPOCH=1",
+                  f"TRAIN.BATCH_SIZE={ABLATION_CLI_BATCH}",
                   "TPU.COMPUTE_DTYPE=bfloat16"] + ABLATION_OVERRIDES
         exp = os.path.join(tmp, "experiments", "convofusion")
         walls = {}
         t0 = time.perf_counter()
-        s1 = cli_train.main(_cli_argv(tmp, roots[0], "abl_vae", common,
+        s1 = cli_train.main(_cli_argv(tmp, root, "abl_vae", common,
                                       cfg="config_vae_beatdnd.yaml")
                             + dev_arg)
         walls["stage1_s"] = time.perf_counter() - t0
@@ -3196,7 +3250,7 @@ def ablation_cli(smi, device=None):
         if not s1.vae.mlp_dist or steps1 != [2]:
             raise RuntimeError(f"ablations stage 1: steps {steps1}")
         del s1
-        argv2 = _cli_argv(tmp, roots[1], "abl_cf", common + [
+        argv2 = _cli_argv(tmp, root, "abl_cf", common + [
             f"TRAIN.PRETRAINED_VAE={vae_ckpt}"])
         t0 = time.perf_counter()
         s2 = cli_train.main(argv2 + dev_arg)
@@ -3231,14 +3285,16 @@ def ablation_cli(smi, device=None):
         t0 = time.perf_counter()
         with launches_per_sample(calls):
             run = cli_test.main(_cli_argv(
-                tmp, roots[2], "abl_test", common + DDIM_OVERRIDES + [
-                    f"TEST.CHECKPOINTS={ckpt2}", "TEST.SAVE_PREDICTIONS=true",
+                tmp, root, "abl_test", common + DDIM_OVERRIDES + [
+                    f"TEST.CHECKPOINTS={ckpt2}",
+                    "TEST.SAVE_PREDICTIONS=false",
                     "TRAIN.ABLATION.WEG_TYPE=no"]) + dev_arg)
         walls["test_s"] = time.perf_counter() - t0
         on_card = device != "cpu"
         log(f"# ablations: the CLIs on {smi}, bf16: stage 1 steps {steps1} "
-            f"at batch 128 in {walls['stage1_s']:.1f} s, stage 2 steps "
-            f"{steps2} at batch 64 in {walls['stage2_s']:.1f} s, total/train "
+            f"at batch {ABLATION_CLI_BATCH} in {walls['stage1_s']:.1f} s, "
+            f"stage 2 steps {steps2} at batch {ABLATION_CLI_BATCH} in "
+            f"{walls['stage2_s']:.1f} s, total/train "
             f"{[round(r['total/train'], 4) for r in rows]}; {n_tensors} "
             f"tensors bit-equal after a save ({save_ms:.1f} ms) and load; "
             f"cli/test batches {run.batch_sizes} at DDIM-{STEPS} in "
@@ -3263,6 +3319,315 @@ def phase_ablations(smi, device="cuda"):
         row[name] = fn()
         log(f"# ablations: {name} part in {time.perf_counter() - t0:.1f} s")
     PHASE_RESULTS["ablations"] = row
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """torchrun's environment for one process (rank 0 of world size 1, a
+    free localhost port) while open."""
+    values = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+              "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def step_records(record, sigterm_after=None):
+    """While open, each Trainer step appends its returned loss (on the
+    device) to ``record['losses']``; the first step's weights are copied
+    into ``record['after_1']``; with ``sigterm_after`` = n the process
+    signals itself SIGTERM after step n, as a preemption would."""
+    compute, apply = Trainer.compute_grads, Trainer.apply_grads
+
+    def compute_grads(self, *args, **kwargs):
+        loss, terms = compute(self, *args, **kwargs)
+        record.setdefault("losses", []).append(loss.clone())
+        return loss, terms
+
+    def apply_grads(self):
+        out = apply(self)
+        n = record["steps"] = record.get("steps", 0) + 1
+        if n == 1:
+            record["after_1"] = {k: v.clone() for k, v in
+                                 self.model.state_dict().items()}
+        if n == sigterm_after:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    Trainer.compute_grads, Trainer.apply_grads = compute_grads, apply_grads
+    try:
+        yield record
+    finally:
+        Trainer.compute_grads, Trainer.apply_grads = compute, apply
+
+
+def _max_gap(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+    if set(a) != set(b):
+        raise RuntimeError(f"state dicts differ in names: "
+                           f"{sorted(set(a) ^ set(b))[:4]}")
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def ddp_train(smi, device=None):
+    """Stage-2 cli/train at the YAML batch of 64, DISTRIBUTED_EPOCHS
+    epochs of one step: without a group, then with TPU.MULTIHOST under a
+    world-size-1 NCCL group (torchrun's environment set in-process): the
+    losses and weights bit-equal, rank 0's files written, the barriers
+    passed, no host wait inside its second step; then a SIGTERM after step
+    1 under the group checkpoints epoch 0, and TRAIN.RESUME from that file
+    ends within 1e-6 of the straight run's weights."""
+    dev_arg = ["--device", device] if device else []
+    on_card = device != "cpu"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp") as tmp, \
+            asset_root(os.path.join(tmp, "assets")):
+        write_synthetic_spiece(os.path.join(tmp, "assets", "t5-base",
+                                            "spiece.model"))
+        roots = make_fixture_pair(os.path.join(tmp, "data"),
+                                  n_files=DISTRIBUTED_FILES)
+        exp = os.path.join(tmp, "experiments", "convofusion")
+        over = [f"TRAIN.END_EPOCH={DISTRIBUTED_EPOCHS}",
+                "LOGGER.VAL_EVERY_STEPS=0", "LOGGER.SACE_CHECKPOINT_EPOCH=1",
+                "TPU.COMPUTE_DTYPE=bfloat16"]
+        group = over + ["TPU.MULTIHOST=true"]
+        runs, found = {}, []
+        barrier = dist_mesh.process_barrier
+
+        for name, extra, sigterm in (("plain", over, None),
+                                     ("group", group, None),
+                                     ("preempt", group, 1),
+                                     ("resume", group + ["TRAIN.RESUME=true"],
+                                      None)):
+            exp_name = "preempt" if name == "resume" else name
+            checked = sync_checked_step(1, found) \
+                if on_card and name == "group" else contextlib.nullcontext()
+            barriers = []
+
+            def counted_barrier(name, *args, **kwargs):
+                barriers.append(name)
+                return barrier(name, *args, **kwargs)
+
+            t0 = time.perf_counter()
+            with step_records({}, sigterm) as rec, checked, \
+                    (torchrun_env() if extra is not over
+                     else contextlib.nullcontext()):
+                dist_mesh.process_barrier = counted_barrier
+                try:
+                    model = cli_train.main(_cli_argv(tmp, roots, exp_name,
+                                                     extra) + dev_arg)
+                finally:
+                    dist_mesh.process_barrier = barrier
+            if dist_mesh.is_initialized():
+                raise RuntimeError(f"distributed {name}: the group outlived "
+                                   f"its run")
+            runs[name] = dict(
+                rec, seconds=time.perf_counter() - t0, barriers=barriers,
+                start=model.train_stats.start_epoch,
+                steps=[e["steps"] for e in model.train_stats.epochs],
+                weights={k: v.clone() for k, v in model.state_dict().items()},
+                files=sorted(os.listdir(os.path.join(exp, exp_name,
+                                                     "checkpoints"))))
+            del model
+        plain, grp = runs["plain"], runs["group"]
+        pre, res = runs["preempt"], runs["resume"]
+        with open(os.path.join(exp, "group", "metrics.jsonl")) as f:
+            metric_rows = [json.loads(line) for line in f]
+    losses_equal = len(plain["losses"]) == len(grp["losses"]) and all(
+        torch.equal(a, b) for a, b in zip(plain["losses"], grp["losses"]))
+    group_gap = _max_gap(plain["weights"], grp["weights"])
+    preempt_gap = _max_gap(pre["after_1"], plain["after_1"])
+    resume_gap = _max_gap(res["weights"], plain["weights"])
+    want_files = [f"epoch={e}.ckpt" for e in range(DISTRIBUTED_EPOCHS)]
+    log(f"# distributed: stage-2 cli/train bf16 batch 64 on {smi}, "
+        f"{DISTRIBUTED_EPOCHS} epochs of {plain['steps']} steps: without a "
+        f"group {plain['seconds']:.1f} s, under a world-size-1 group (NCCL "
+        f"on the card) "
+        f"{grp['seconds']:.1f} s: losses bit-equal {losses_equal} "
+        f"({[round(float(x), 6) for x in grp['losses']]}), max|weight gap| "
+        f"{group_gap:.3g}; rank 0 wrote {grp['files']} and "
+        f"{len(metric_rows)} metrics rows; barriers {grp['barriers']}; no "
+        f"wait for the card inside step 2 (CUDA sync checker): {not found}")
+    log(f"# distributed: SIGTERM after step 1 under the group: steps "
+        f"{pre['steps']}, files {pre['files']}, the step-1 weights "
+        f"{preempt_gap:.3g} from the straight run's; TRAIN.RESUME from "
+        f"epoch {res['start']}: steps {res['steps']}, final weights "
+        f"{resume_gap:.3g} from the straight run's (tol "
+        f"{DISTRIBUTED_RESUME_ATOL})")
+    if not losses_equal or group_gap != 0.0 or found or \
+            grp["files"] != want_files or \
+            len(metric_rows) != DISTRIBUTED_EPOCHS or \
+            grp["barriers"] != [f"train/epoch/{e}" for e in
+                                range(DISTRIBUTED_EPOCHS)] + ["train/end"] or \
+            plain["steps"] != [1] * DISTRIBUTED_EPOCHS:
+        raise RuntimeError("distributed: the group's run differs from the "
+                           "run without it")
+    if pre["steps"] != [1] or pre["files"] != want_files[:1] or \
+            res["start"] != 1 or res["steps"] != [1] or \
+            not preempt_gap <= DISTRIBUTED_RESUME_ATOL or \
+            not resume_gap <= DISTRIBUTED_RESUME_ATOL:
+        raise RuntimeError("distributed: the preempted run or its resume "
+                           "differs from the straight run")
+    return {"plain_s": plain["seconds"], "group_s": grp["seconds"],
+            "resume_gap": resume_gap}
+
+
+def t5_dropout(smi, device="cuda"):
+    """Stage 2 at batch 64 through the Trainer, bf16 with fp32 masters,
+    T5_DROPOUT_STEPS steps with the T5 trunk's dropout at T5_DROPOUT: the
+    trunk bit-identical after them, a second run from the same seed
+    bit-equal, step 1's loss unlike the rate-0 run's, the train CLI's trunk
+    cache off; ms a step beside phase 12's rate-0 step."""
+    raw = synthetic_raw_batch(181, TRAIN_DIFFUSION_BATCH,
+                              mel_frames=PRODUCTION["mel_frames"])
+    runs = {}
+    for name, rate in (("a", T5_DROPOUT), ("b", T5_DROPOUT), ("rate 0", 0.0)):
+        cfg = copy.deepcopy(PRODUCTION)
+        cfg["text_encoder"]["dropout"] = rate
+        model = Convofusion(cfg, dtype="bfloat16", device=device, seed=2)
+        batch = train_batch(model, raw)
+        trunk = model.text_encoder.text_model
+        before = {k: v.clone() for k, v in trunk.state_dict().items()}
+        trainer = Trainer(model)
+        trainer.init_state()
+        gen = torch.Generator(device=model.device).manual_seed(182)
+        losses, times = [], []
+        with trainer.training():
+            for _ in range(T5_DROPOUT_STEPS):
+                t0 = time.perf_counter()
+                loss, _ = trainer.compute_grads(batch, gen)
+                trainer.apply_grads()
+                _sync(device)
+                times.append(time.perf_counter() - t0)
+                losses.append(loss)
+        runs[name] = dict(
+            losses=[float(x) for x in losses],
+            trunk_same=_max_gap(before, trunk.state_dict()) == 0.0,
+            weights={k: v.clone() for k, v in model.state_dict().items()},
+            ms=statistics.median(times[1:]) * 1e3,
+            cache=cli_train.uses_trunk_cache(model, {}))
+        del model, trainer, batch
+    a, b, zero = runs["a"], runs["b"], runs["rate 0"]
+    repeat = a["losses"] == b["losses"] and \
+        _max_gap(a["weights"], b["weights"]) == 0.0
+    rate0_ms = PHASE_RESULTS.get("train", {}).get("stage2_ids", {}).get("ms")
+    log(f"# distributed: T5 trunk dropout {T5_DROPOUT}, stage 2 bf16 batch "
+        f"{TRAIN_DIFFUSION_BATCH} through the Trainer on {smi}: losses "
+        f"{[round(x, 6) for x in a['losses']]} (rate 0: "
+        f"{[round(x, 6) for x in zero['losses']]}); the trunk bit-identical "
+        f"after {T5_DROPOUT_STEPS} steps {a['trunk_same']}; a second run "
+        f"bit-equal {repeat}; the train CLI's trunk cache "
+        f"{'on' if a['cache'] else 'off'} (rate 0: "
+        f"{'on' if zero['cache'] else 'off'}); {a['ms']:.2f} ms a step "
+        f"(median of {T5_DROPOUT_STEPS - 1}) against {zero['ms']:.2f} ms at "
+        f"rate 0 here and phase 12's {rate0_ms} ms")
+    if not (a["trunk_same"] and b["trunk_same"] and zero["trunk_same"]
+            and repeat and a["losses"][0] != zero["losses"][0]
+            and not a["cache"] and zero["cache"]
+            and all(math.isfinite(x) for x in a["losses"])):
+        raise RuntimeError("distributed: T5 trunk dropout")
+    return {"ms": a["ms"], "rate0_ms": zero["ms"]}
+
+
+def charsmap_test_cli(smi, device=None):
+    """The test CLI with a synthesized 32k spiece.model that carries a
+    Precompiled charsmap, on phase 14's tree whose transcripts hold curly
+    quotes, accents, NBSP, a ligature and full-width letters: one batch of
+    32 at DDIM-50 (WEG off: phase 14 runs it), exactly 50 launches; the
+    token ids the card got equal the same tokenizer's on the host; ms to
+    tokenize 32 texts with the charsmap and without."""
+    dev_arg = ["--device", device] if device else []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_charsmap") as tmp, \
+            asset_root(os.path.join(tmp, "assets")):
+        spiece = write_synthetic_spiece(os.path.join(
+            tmp, "assets", "t5-base", "spiece.model"), charsmap=True)
+        plain = write_synthetic_spiece(os.path.join(tmp, "plain.model"))
+        roots = make_fixture_pair(os.path.join(tmp, "data"),
+                                  n_files=CLI_BEAT_FILES,
+                                  words=CHARSMAP_WORDS)
+        seen = []
+        prepare = cli_test._prepare
+
+        def recorded(model, batch, run):
+            arrays, tb_spk, tb_lsn = prepare(model, batch, run)
+            seen.append((model.text_pad_len, list(batch["text_spk"]),
+                         list(batch["text_lsn"]), arrays["spk_ids"].cpu(),
+                         arrays["lsn_ids"].cpu(),
+                         type(model.tokenizer).__name__))
+            return arrays, tb_spk, tb_lsn
+
+        calls = []
+        cli_test._prepare = recorded
+        t0 = time.perf_counter()
+        try:
+            with launches_per_sample(calls):
+                run = cli_test.main(_cli_argv(
+                    tmp, roots, "charsmap", DDIM_OVERRIDES + [
+                        "TEST.SAVE_PREDICTIONS=false",
+                        "TRAIN.ABLATION.WEG_TYPE=no"]) + dev_arg)
+        finally:
+            cli_test._prepare = prepare
+        wall = time.perf_counter() - t0
+        host = {name: SentencePieceTokenizer(path)
+                for name, path in (("charsmap", spiece), ("plain", plain))}
+        pad, spk, lsn, spk_ids, lsn_ids, tok_name = seen[0]
+        same = all(
+            np.array_equal(host["charsmap"](texts, pad_to=pad).input_ids,
+                           ids.numpy())
+            for texts, ids in ((spk, spk_ids), (lsn, lsn_ids)))
+        texts = lsn          # BEAT's speaker text is the uncond text
+        non_ascii = sum(any(ord(c) > 127 for c in t) for t in texts)
+        normalized = sum(host["charsmap"].tok.normalizer.normalize(t) != t
+                         for t in texts)
+        tok_ms = {}
+        for name, tok in host.items():
+            samples = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                tok(texts, pad_to=pad)
+                samples.append((time.perf_counter() - t1) * 1e3)
+            tok_ms[name] = statistics.median(samples)
+    on_card = device != "cpu"
+    log(f"# distributed: cli/test bf16 DDIM-{STEPS} with a charsmap "
+        f"spiece.model ({tok_name}) on {smi}: batches {run.batch_sizes} in "
+        f"{wall:.1f} s, step-kernel launches {calls}; {non_ascii} of "
+        f"{len(texts)} texts non-ASCII, {normalized} changed by the "
+        f"charsmap; the card's token ids equal the host tokenizer's: {same}; "
+        f"32 texts tokenized in {tok_ms['charsmap']:.2f} ms with the "
+        f"charsmap, {tok_ms['plain']:.2f} ms without (median of 5)")
+    if run.batch_sizes != [32] or (on_card and calls != [STEPS]) or \
+            not same or tok_name != "SentencePieceTokenizer" or \
+            not non_ascii or not normalized or \
+            not all(np.isfinite(x).all() for x in run.latents):
+        raise RuntimeError(f"distributed: the charsmap test CLI: batches "
+                           f"{run.batch_sizes}, launches {calls}, ids equal "
+                           f"{same}, tokenizer {tok_name}")
+    return {"tokenize_ms": tok_ms, "seconds": wall}
+
+
+def phase_distributed(smi, device="cuda"):
+    """Phase 18: data parallelism, T5 trunk dropout, the t5 tokenizer's
+    charsmap on a real path."""
+    row = {}
+    for name, fn in (("ddp_train", lambda: ddp_train(smi, device)),
+                     ("t5_dropout", lambda: t5_dropout(smi, device)),
+                     ("charsmap", lambda: charsmap_test_cli(smi, device))):
+        t0 = time.perf_counter()
+        row[name] = fn()
+        log(f"# distributed: {name} part in {time.perf_counter() - t0:.1f} s")
+    PHASE_RESULTS["distributed"] = row
 
 
 def phase_main(smi):
@@ -3367,9 +3732,10 @@ def kernel_in_path_us(kernels, expected) -> float:
 PHASES = {4: "parity", 5: "main", 6: "weg_parity", 7: "serve",
           8: "rollout_parity", 9: "rollout", 10: "dpmpp",
           11: "train_parity", 12: "train", 13: "checkpoint", 14: "test_cli",
-          15: "train_cli", 16: "variants", 17: "ablations"}
+          15: "train_cli", 16: "variants", 17: "ablations",
+          18: "distributed"}
 # the phases whose runs launch the step kernel (the others must not)
-PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15, 16, 17}
+PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15, 16, 17, 18}
 
 
 def parse_phases(spec: str):
@@ -3389,7 +3755,7 @@ def parse_phases(spec: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1-17", type=parse_phases,
+    ap.add_argument("--phases", default="1-18", type=parse_phases,
                     help="e.g. '1-3,13' (default every phase; 1-3 always "
                          "run)")
     chosen = ap.parse_args(argv).phases
@@ -3422,7 +3788,8 @@ def main(argv=None):
             14: lambda: phase_test_cli(smi),
             15: lambda: phase_train_cli(smi),
             16: lambda: phase_variants(smi),
-            17: lambda: phase_ablations(smi)}
+            17: lambda: phase_ablations(smi),
+            18: lambda: phase_distributed(smi)}
     by_phase = {}
     for number in sorted(chosen - {1, 2, 3}):
         gs_mod.guided_step.launches = 0

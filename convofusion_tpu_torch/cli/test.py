@@ -19,9 +19,12 @@ The device is the card unless ``--device`` names another; with no card
 and no ``--device`` it raises.  Each batch's noise is drawn on the host
 from a CPU generator seeded with ``SEED_VALUE`` and copied to the device
 once, so a run on the card and one on the CPU sample from the same noise
-(JAX draws its own from keys).  JAX's multi-device sampling
-(``local_data_parallel``) and its multi-host barrier have no counterpart:
-this entry point runs one process on one device.  JAX's test CLI ignores
+(JAX draws its own from keys).  Under ``TPU.MULTIHOST: true`` (torchrun,
+one process a card; JAX :61-87,176-190) every rank samples the same
+batches from the same weights (``local_data_parallel`` answers "no
+sharding" with one device a process), only rank 0 writes result files, and
+a host barrier at the end holds every rank until rank 0 has written.  JAX's
+test CLI ignores
 ``TPU.COMPUTE_DTYPE`` and computes in fp32 unless a module sets its own
 ``compute_dtype``; pass ``TPU.COMPUTE_DTYPE=float32`` for its numerics.
 """
@@ -36,6 +39,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from convofusion_tpu_torch.parallel import mesh
 
 
 @dataclass
@@ -65,9 +70,34 @@ def setup(argv: Optional[List[str]], log_name: str,
     ``parse_args('test')``, the logger, the test data module (timed), then
     the model of ``stage`` (default ``TRAIN.STAGE``) in
     ``TPU.COMPUTE_DTYPE``, ``max_len`` replacing the config's, with the
-    t5-base asset drop and ``TEST.CHECKPOINTS`` loaded.  Returns (cfg,
-    logger, datamodule, build_s, model)."""
-    from convofusion_tpu_torch.config import from_cfg, parse_args
+    t5-base asset drop and ``TEST.CHECKPOINTS`` loaded.  Under
+    ``TPU.MULTIHOST`` it joins the group first (``parallel/mesh.py``; the
+    caller leaves it with :func:`leave_group`) and the model goes to this
+    rank's card.  Returns (cfg, logger, datamodule, build_s, model)."""
+    from convofusion_tpu_torch.config import parse_args
+
+    pre = ArgumentParser(add_help=False)
+    pre.add_argument("--device", default=None,
+                     help="e.g. cpu (default: the card)")
+    known, rest = pre.parse_known_args(argv)
+    cfg = parse_args("test", rest)
+    device = mesh.init_distributed(cfg, known.device)
+    try:
+        return _setup(cfg, log_name, max_len, stage,
+                      known.device if device is None else device)
+    except BaseException:
+        leave_group(cfg)
+        raise
+
+
+def leave_group(cfg) -> None:
+    """Leave the group that ``TPU.MULTIHOST`` made (no-op without)."""
+    if bool((cfg.get("TPU", {}) or {}).get("MULTIHOST", False)):
+        mesh.shutdown()
+
+
+def _setup(cfg, log_name, max_len, stage, device):
+    from convofusion_tpu_torch.config import from_cfg
     from convofusion_tpu_torch.data.datamodule import get_datasets
     from convofusion_tpu_torch.models.convofusion import Convofusion
     from convofusion_tpu_torch.train.checkpoint import (
@@ -77,11 +107,6 @@ def setup(argv: Optional[List[str]], log_name: str,
     )
     from convofusion_tpu_torch.utils.logger import create_logger
 
-    pre = ArgumentParser(add_help=False)
-    pre.add_argument("--device", default=None,
-                     help="e.g. cpu (default: the card)")
-    known, rest = pre.parse_known_args(argv)
-    cfg = parse_args("test", rest)
     logger = create_logger(cfg, log_name)
 
     t0 = time.perf_counter()
@@ -93,7 +118,7 @@ def setup(argv: Optional[List[str]], log_name: str,
     if max_len is not None:
         model_cfg["max_len"] = max_len
     model = Convofusion(model_cfg, dtype=compute_dtype(cfg),
-                        device=known.device, seed=int(cfg.SEED_VALUE),
+                        device=device, seed=int(cfg.SEED_VALUE),
                         stage=stage or str(cfg.TRAIN.STAGE))
     # a checkpoint leaves the frozen T5 trunk out: the asset drop's real
     # t5-base weights go in first (utils/assets.py)
@@ -109,6 +134,14 @@ def setup(argv: Optional[List[str]], log_name: str,
 
 
 def main(argv: Optional[List[str]] = None) -> TestRun:
+    cfg, logger, datamodule, build_s, model = setup(argv, "test")
+    try:
+        return _generate(cfg, logger, datamodule, build_s, model)
+    finally:
+        leave_group(cfg)
+
+
+def _generate(cfg, logger, datamodule, build_s, model) -> TestRun:
     from convofusion_tpu_torch.cli.focus import select_focus_words
     from convofusion_tpu_torch.config import ablation_flag
     from convofusion_tpu_torch.models.results import (
@@ -117,7 +150,6 @@ def main(argv: Optional[List[str]] = None) -> TestRun:
     )
     from convofusion_tpu_torch.models.tokenizer import focus_word_indices
 
-    cfg, logger, datamodule, build_s, model = setup(argv, "test")
     seed = int(cfg.SEED_VALUE)
     stage = str(cfg.TRAIN.STAGE)
     on_card = model.device.type == "cuda"
@@ -128,6 +160,8 @@ def main(argv: Optional[List[str]] = None) -> TestRun:
     run = TestRun(out_dir, build_s)
     weg_type = ablation_flag(cfg, "WEG_TYPE")
     save = bool(cfg.TEST.SAVE_PREDICTIONS)
+    # every rank samples alike; rank 0 alone writes
+    write = save and mesh.is_main()
     gen = torch.Generator(device=model.device).manual_seed(seed)
     noise_gen = torch.Generator().manual_seed(seed)
     focus_rng = random.Random(seed)
@@ -161,7 +195,7 @@ def main(argv: Optional[List[str]] = None) -> TestRun:
             with torch.no_grad():
                 latent, _, _ = model.vae.encode(motion, generator=gen)
                 recon = model.vae.decode(latent, motion.shape[1])
-            if save:
+            if write:
                 save_vae_results(out_dir, batch["motion"],
                                  recon.float().cpu().numpy(),
                                  batch["length"], batch["name"])
@@ -194,7 +228,7 @@ def main(argv: Optional[List[str]] = None) -> TestRun:
         logger.info(f"gen time: {time.perf_counter() - t_start:.2f}s for "
                     f"{len(batch['length'])} samples")
 
-        if save:
+        if write:
             wrapped_lsn = model.tokenizer.wrapped_texts(batch["text_lsn"])
             wrapped_spk = model.tokenizer.wrapped_texts(batch["text_spk"])
             word_maps = {
@@ -225,9 +259,13 @@ def main(argv: Optional[List[str]] = None) -> TestRun:
     if run.sample_ms:
         logger.info(f"mean time/batch: {np.mean(run.sample_ms) / 1e3:.2f}s "
                     f"over {len(run.sample_ms)}")
-    if timer:
+    if timer and mesh.is_main():
         timer.dump()
-    print(f"results saved to {out_dir}")
+    # hold every rank until rank 0 has written (a host barrier: the ranks
+    # arrive whole batches apart; JAX :176-190)
+    mesh.process_barrier("test/end")
+    if mesh.is_main():
+        print(f"results saved to {out_dir}")
     return run
 
 

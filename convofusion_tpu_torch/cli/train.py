@@ -1,8 +1,9 @@
 """The training entry point: a YAML config's stage trained epoch by epoch,
 validated, logged and checkpointed.
 
-Port of ``convofusion_tpu/cli/train.py:19-413`` (reference train.py),
-single process on one device: ``parse_args('train')`` -> ``create_logger``
+Port of ``convofusion_tpu/cli/train.py:19-413`` (reference train.py):
+``parse_args('train')`` -> the data-parallel group under
+``TPU.MULTIHOST`` (``parallel/mesh.py``) -> ``create_logger``
 and ``MetricsLogger`` -> ``get_datasets`` -> the model of ``TRAIN.STAGE``
 in ``TPU.COMPUTE_DTYPE`` (bf16 by default; fp32 masters in the
 ``Trainer``) -> the t5-base asset drop -> ``TRAIN.RESUME`` (the latest
@@ -26,7 +27,8 @@ Host-side caches of the frozen encoders (both built after the weights are
 loaded, from private copies in eval mode that the training step never
 toggles; their encodes run under no_grad on the prefetch thread):
 
-* ``TPU.CACHE_TEXT_TRUNK`` (default on, not in stage 'vae'): the T5 trunk's
+* ``TPU.CACHE_TEXT_TRUNK`` (default on, not in stage 'vae', off with T5
+  trunk dropout: ``uses_trunk_cache``): the T5 trunk's
   states per text (``TextEmbeddingCache``, the uncond row at batch 1) in
   place of token ids (JAX :128-157).  Misses are encoded unpadded.
 * ``TPU.CACHE_VAE_POSTERIOR`` (default on, stage 'diffusion' only): the
@@ -44,8 +46,19 @@ again on resume).  Dropout masks come from the loss generator, seeded with
 
 A SIGTERM (``TPU.PREEMPTION_CHECKPOINT``, default on) ends the epoch at the
 next step: the partial epoch is logged and checkpointed under its number,
-and ``main`` returns.  ``TPU.MULTIHOST`` raises: multi-host (DDP) training
-is not ported.
+and ``main`` returns.
+
+Data parallelism (``TPU.MULTIHOST: true`` under torchrun, one process a
+card; JAX :43-86,215-312,355-410): ``TRAIN.BATCH_SIZE`` is one rank's
+batch.  Each rank loads a disjoint stride of the same shuffled epoch
+(``shard=``), padded so that every rank takes the same number of steps;
+each step's draws are drawn for the global batch and each rank keeps its
+rows; the Trainer averages the gradients, the loss and its terms over the
+ranks; validation terms are averaged over the ranks.  Only rank 0 writes
+(``metrics.jsonl``, wandb, the checkpoints), and a host barrier ends each
+epoch; every rank reads a resume.  A SIGTERM on any rank stops every rank
+after the same step (a flag reduced over the gloo side group after each
+step, with no device sync), rank 0 checkpoints, and each returns.
 """
 from __future__ import annotations
 
@@ -116,6 +129,16 @@ def step_draws(model, batch_size: int, nframes: int,
     return diffusion
 
 
+def _rank_rows(draws: Dict) -> Dict:
+    """This rank's rows of :func:`step_draws` taken for the global batch
+    (the posterior's eps along axis 1, the rest along axis 0)."""
+    from convofusion_tpu_torch.parallel import mesh
+
+    return {k: _rank_rows(v) if isinstance(v, dict)
+            else mesh.local_rows(v, 1 if k == "eps" else 0)
+            for k, v in draws.items()}
+
+
 def _timed(iterable, clock: Dict, key: str):
     """Yield from ``iterable``, adding each ``next``'s seconds to
     ``clock[key]``."""
@@ -139,6 +162,15 @@ def _to_device(tree, device):
     if device.type == "cuda":
         return tree.pin_memory().to(device, non_blocking=True)
     return tree.to(device)
+
+
+def uses_trunk_cache(model, tpu) -> bool:
+    """JAX's gate (:128-131): ``TPU.CACHE_TEXT_TRUNK`` (default on) beyond
+    stage 1, and no trunk dropout, with which the trunk's output is no
+    function of the text alone."""
+    return (model.stage != "vae"
+            and bool(tpu.get("CACHE_TEXT_TRUNK", True))
+            and model.text_encoder.dropout == 0.0)
 
 
 class TrunkCache:
@@ -225,11 +257,31 @@ def main(argv: Optional[List[str]] = None):
     """Train ``TRAIN.STAGE`` from ``START_EPOCH`` (or the resumed epoch)
     to ``END_EPOCH``; returns the model (``model.train_stats``: see
     :class:`TrainStats`)."""
+    from convofusion_tpu_torch.config import parse_args
+    from convofusion_tpu_torch.parallel import mesh
+
+    pre = ArgumentParser(add_help=False)
+    pre.add_argument("--device", default=None,
+                     help="e.g. cpu (default: the card)")
+    known, rest = pre.parse_known_args(argv)
+    cfg = parse_args("train", rest)
+    tpu = cfg.get("TPU", {}) or {}
+    # the group of TPU.MULTIHOST (JAX :43-46), left when the run ends
+    device = mesh.init_distributed(cfg, known.device)
+    try:
+        return _train(cfg, tpu, known.device if device is None else device)
+    finally:
+        if bool(tpu.get("MULTIHOST", False)):
+            mesh.shutdown()
+
+
+def _train(cfg, tpu, device):
+    """``main`` after the group: the run on ``device``."""
     from convofusion_tpu_torch.callback.progress import ProgressLogger
     from convofusion_tpu_torch.cli.test import compute_dtype
-    from convofusion_tpu_torch.config import parse_args
     from convofusion_tpu_torch.data.datamodule import get_datasets
     from convofusion_tpu_torch.models.convofusion import to_tensors
+    from convofusion_tpu_torch.parallel import mesh
     from convofusion_tpu_torch.train.checkpoint import (
         latest_checkpoint,
         load_checkpoint,
@@ -246,25 +298,24 @@ def main(argv: Optional[List[str]] = None):
         aggregate_terms,
     )
 
-    pre = ArgumentParser(add_help=False)
-    pre.add_argument("--device", default=None,
-                     help="e.g. cpu (default: the card)")
-    known, rest = pre.parse_known_args(argv)
-    cfg = parse_args("train", rest)
-    tpu = cfg.get("TPU", {}) or {}
-    if bool(tpu.get("MULTIHOST", False)):
-        raise NotImplementedError(
-            "TPU.MULTIHOST=True: multi-host (DDP) training is not ported; "
-            "this entry point trains on one device")
     seed = int(cfg.SEED_VALUE)
     stage = str(cfg.TRAIN.STAGE)
+    world, is_main = mesh.world_size(), mesh.is_main()
+    val_every = int(cfg.LOGGER.get("VAL_EVERY_STEPS", 0) or 0)
+    mesh.check_batch_sizes(int(cfg.TRAIN.BATCH_SIZE),
+                           int(cfg.EVAL.BATCH_SIZE) if val_every else None)
+    # each rank loads a disjoint stride of the epoch (JAX :215-218)
+    shard = (mesh.rank(), world) if world > 1 else None
     logger = create_logger(cfg, "train")
+    # side outputs from rank 0 only: N ranks sharing an experiment
+    # directory must not make N wandb runs or race on its files
     metrics = MetricsLogger(
         cfg.FOLDER_EXP,
         enable_wandb=not bool(cfg.LOGGER.WANDB.get("OFFLINE", True)),
         wandb_project=cfg.LOGGER.WANDB.get("PROJECT"),
-        wandb_resume_id=cfg.LOGGER.WANDB.get("RESUME_ID"))
-    logger.info(f"stage={stage} name={cfg.NAME}")
+        wandb_resume_id=cfg.LOGGER.WANDB.get("RESUME_ID")) \
+        if is_main else None
+    logger.info(f"stage={stage} name={cfg.NAME} rank={mesh.rank()}/{world}")
 
     stats = TrainStats()
     t0 = time.perf_counter()
@@ -272,7 +323,7 @@ def main(argv: Optional[List[str]] = None):
     stats.train_items = len(datamodule.dataset("train"))
     stats.build_s = time.perf_counter() - t0
 
-    model = build_model(cfg, compute_dtype(cfg), known.device)
+    model = build_model(cfg, compute_dtype(cfg), device)
     dev = model.device
     trainer = Trainer(model)
     # real t5-base trunk weights from the asset drop (utils/assets.py),
@@ -299,9 +350,7 @@ def main(argv: Optional[List[str]] = None):
     model.train_stats = stats
 
     tcache = pcache = None
-    if stage != "vae" and bool(tpu.get("CACHE_TEXT_TRUNK", True)):
-        # the config system raises on a text-encoder dropout other than 0,
-        # JAX's third condition
+    if uses_trunk_cache(model, tpu):
         tcache = TrunkCache(model)
         logger.info("frozen-T5 trunk cache enabled (TPU.CACHE_TEXT_TRUNK)")
     if stage == "diffusion" and model.vae is not None and \
@@ -319,8 +368,8 @@ def main(argv: Optional[List[str]] = None):
         """One loader batch -> (arrays, draws) on the device; runs on the
         prefetch thread."""
         motion = batch["motion" if stage == "vae" else "motion_lsn"]
-        draws = _to_device(step_draws(model, motion.shape[0],
-                                      motion.shape[1], draw_gen), dev)
+        draws = _to_device(_rank_rows(step_draws(
+            model, world * motion.shape[0], motion.shape[1], draw_gen)), dev)
         if stage == "vae":
             return to_tensors({"motion": motion}, dev), draws
         arrays = {k: batch[k] for k in ("melspec_lsn", "active_passive_lsn",
@@ -346,12 +395,12 @@ def main(argv: Optional[List[str]] = None):
 
     depth = int(tpu.get("PREFETCH", 2))
     save_every = int(cfg.LOGGER.SACE_CHECKPOINT_EPOCH)
-    val_every = int(cfg.LOGGER.get("VAL_EVERY_STEPS", 0) or 0)
     end_epoch = int(cfg.TRAIN.END_EPOCH)
     progress = ProgressLogger(logger)
 
-    # preemption: a SIGTERM flag checked after each step (single process;
-    # JAX's multi-host sync manager waits for DDP)
+    # preemption: a SIGTERM flag checked after each step; under a group it
+    # is reduced over the ranks, so all stop after the same step (JAX's
+    # preemption sync manager, :276-312)
     sigterm = []
     previous_handler = None
     if bool(tpu.get("PREEMPTION_CHECKPOINT", True)) and \
@@ -364,7 +413,11 @@ def main(argv: Optional[List[str]] = None):
     try:
         for epoch in range(start_epoch, end_epoch):
             draw_gen = torch.Generator().manual_seed(seed + epoch)
-            loader = datamodule.train_dataloader(seed=epoch)
+            # the ranks' own dropout streams restart each epoch, so a
+            # resume draws what a straight run does (one rank: the loss
+            # generator's)
+            mesh.seed_mask_streams(seed + epoch)
+            loader = datamodule.train_dataloader(seed=epoch, shard=shard)
             terms = []
             # host seconds: the loader and prepare on the prefetch thread,
             # the step loop's waits for a batch
@@ -395,7 +448,7 @@ def main(argv: Optional[List[str]] = None):
                     terms.append(step_terms)
                     global_step += 1
                     t_wait = time.perf_counter()
-                    if sigterm:
+                    if mesh.any_rank(bool(sigterm)):
                         logger.info(
                             f"preemption signal at epoch {epoch} step "
                             f"{global_step}: checkpointing and exiting")
@@ -412,14 +465,18 @@ def main(argv: Optional[List[str]] = None):
 
             if val_every and (epoch + 1) % val_every == 0 and not stop:
                 val_terms = []
+                # under a group: full batches only, each rank its stride
+                # (JAX :376-381), the terms averaged over the ranks
                 with torch.no_grad():
                     for arrays, draws in prefetch(
-                            datamodule.val_dataloader(),
+                            datamodule.val_dataloader(
+                                shard=shard, drop_last=shard is not None),
                             lambda b: prepare(b, draw_gen), depth=depth,
                             device=dev):
                         _, vt = trainer.loss_fn()(arrays, gen, draws)
                         val_terms.append(vt)
-                val_metrics = aggregate_terms(val_terms, "val")
+                val_metrics = mesh.host_mean(aggregate_terms(val_terms,
+                                                             "val"))
                 if val_metrics:
                     logger.info(
                         f"epoch {epoch}: val loss="
@@ -436,23 +493,28 @@ def main(argv: Optional[List[str]] = None):
                     logger.info(f"{name} cache: {c.hits} hits, "
                                 f"{c.misses} misses")
             stats.epochs.append(row)
-            metrics.log(epoch_metrics, step=epoch)
+            if metrics is not None:
+                metrics.log(epoch_metrics, step=epoch)
             progress.on_epoch_end(epoch, epoch_metrics)
-            if (epoch + 1) % save_every == 0 or epoch == end_epoch - 1 \
-                    or stop:
+            if is_main and ((epoch + 1) % save_every == 0 or
+                            epoch == end_epoch - 1 or stop):
                 # the tensors are on the host when this returns; a thread
                 # writes the file while the next epoch runs
                 path = save_checkpoint(ckpt_dir, epoch, model,
                                        trainer=trainer, generator=gen,
                                        background=True)
                 logger.info(f"saving {path} (async)")
+            mesh.process_barrier(f"train/epoch/{epoch}")
             if stop:
                 break
         wait_for_checkpoints()
+        # every rank waits until rank 0 has written its files
+        mesh.process_barrier("train/end")
     finally:
         if previous_handler is not None:
             signal.signal(signal.SIGTERM, previous_handler)
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
     return model
 
 

@@ -13,9 +13,12 @@ the previous window's (:461-468).  The uncond branch is encoded once, by
 the first window: every window has the same geometry.
 
 ``main`` is the entry point (``convofusion_tpu/cli/unbounded.py:206-273``):
-a YAML config's test split, every batch rolled out on one process, each
-window's noise drawn on the host from ``SEED_VALUE`` (JAX's data-parallel
-rollout waits for DDP):
+a YAML config's test split, every batch rolled out, each window's noise
+drawn on the host from ``SEED_VALUE``.  Under ``TPU.MULTIHOST: true``
+(torchrun, one process a card) every rank rolls out the same batches, rank
+0 alone writes, and a host barrier ends the run (JAX :250-256 shards the
+windows over the local chips; with one device a process nothing is
+sharded):
 
     python -m convofusion_tpu_torch.cli.unbounded --cfg <yaml> \\
         [--cfg_assets <yaml>] [--device cpu] [key=value ...]
@@ -223,8 +226,7 @@ def main(argv: Optional[List[str]] = None) -> RolloutRun:
     128-frame windows in ``TPU.COMPUTE_DTYPE`` -> the t5-base asset drop
     and ``TEST.CHECKPOINTS`` -> :func:`rollout` of every test batch into
     ``<TEST.FOLDER>/<model_type>/<NAME>/unbounded_<TIME>``."""
-    from convofusion_tpu_torch.cli.test import setup
-    from convofusion_tpu_torch.config import ablation_flag
+    from convofusion_tpu_torch.cli.test import leave_group, setup
 
     # the windows are 128 frames (8 chunks, 16 latent tokens) whatever
     # the dataset's MAX_LEN, which covers the whole recording
@@ -232,6 +234,16 @@ def main(argv: Optional[List[str]] = None) -> RolloutRun:
     # after construction (:225-227)
     cfg, logger, datamodule, build_s, model = setup(
         argv, "unbounded", max_len=128, stage="diffusion")
+    try:
+        return _roll_out(cfg, logger, datamodule, build_s, model)
+    finally:
+        leave_group(cfg)
+
+
+def _roll_out(cfg, logger, datamodule, build_s, model) -> RolloutRun:
+    from convofusion_tpu_torch.config import ablation_flag
+    from convofusion_tpu_torch.parallel import mesh
+
     seed = int(cfg.SEED_VALUE)
 
     out_dir = os.path.join(
@@ -248,16 +260,21 @@ def main(argv: Optional[List[str]] = None) -> RolloutRun:
         n_windows = 2 * (batch["motion_lsn"].shape[1] // 128) - 1
         noise = window_noise(model, b, num_steps, n_windows, noise_gen)
         t0 = time.perf_counter()
+        # every rank rolls out alike; rank 0 alone writes
         outs = rollout(model, batch, num_inference_steps=num_steps,
-                       weg_type=weg_type, save_dir=out_dir, rng=focus_rng,
-                       noise=noise)
+                       weg_type=weg_type,
+                       save_dir=out_dir if mesh.is_main() else None,
+                       rng=focus_rng, noise=noise)
         run.seconds.append(time.perf_counter() - t0)
         run.batch_sizes.append(b)
         run.windows.append(outs)
         logger.info(f"{b} rollouts of {n_windows} windows in "
                     f"{run.seconds[-1]:.2f}s")
     run.weg_counts = model.weg_counts
-    print(f"results saved to {out_dir}")
+    # every rank waits until rank 0 has written (JAX cli/test.py:176-190)
+    mesh.process_barrier("unbounded/end")
+    if mesh.is_main():
+        print(f"results saved to {out_dir}")
     return run
 
 

@@ -140,6 +140,7 @@ PRODUCTION = {
         "num_layers": 12,
         "num_heads": 12,
         "d_kv": 64,
+        "dropout": 0.0,            # the trunk's, in the stage-2 loss
     },
     "audio_encoder": {             # modules/audio_encoder.yaml
         "input_size": 80,

@@ -238,15 +238,14 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
                                False, "the trans_dec layers are pre-norm "
                                "(JAX asserts, ops/transformer.py:282)")
         if bool(cfg.TRAIN.ABLATION.get("CAUSAL_ATTN", False)):
-            raise _unsupported("TRAIN.ABLATION.CAUSAL_ATTN", True,
-                               "the reference raises on it (factory.py:"
-                               "106-116)")
+            # JAX raises ValueError: the reference's knob fails in torch
+            # (factory.py:106-116)
+            raise ValueError(
+                "TRAIN.ABLATION.CAUSAL_ATTN=True is not supported: the "
+                "reference implementation of this knob raises")
         for key in ("finetune", "last_hidden_state"):
             if bool(te.get(key, False)):
                 raise _unsupported(f"model.text_encoder.params.{key}", True)
-        if float(te.get("dropout", 0.0)) != 0.0:
-            raise _unsupported("model.text_encoder.params.dropout",
-                               te["dropout"], "the T5 trunk has no dropout")
         # the audio MLP keeps the module's rate: the JAX factory passes none
         # (factory.py:164-173)
         if float(ae.get("dropout", 0.1)) != 0.1:
@@ -287,6 +286,8 @@ def from_cfg(cfg, stage: Optional[str] = None) -> Dict:
         "num_layers": int(te.get("num_layers", 12)),
         "num_heads": int(te.get("num_heads", 12)),
         "d_kv": int(te.get("d_kv", 64)),
+        # the trunk's dropout, applied in the stage-2 loss (factory.py:158)
+        "dropout": float(te.get("dropout", 0.0)),
     }
     out["audio_encoder"] = {
         "input_size": int(ae.get("input_size", 80)),

@@ -154,8 +154,9 @@ def _speech_audio(rng, n_samples: int, sr: int, active: bool = True):
 def make_beat_fixture(root: str, speakers=("2_scott", "4_lawrence"),
                       n_files: int = 1, fps: int = 120, sr: int = 16000,
                       seconds: float = 11.0, seed: int = 0,
-                      motion_mode: str = "walk"):
-    """BEAT tree: <root>/<spkid>/<name>.{npy,wav,TextGrid,txt} + splits."""
+                      motion_mode: str = "walk", words=_WORDS):
+    """BEAT tree: <root>/<spkid>/<name>.{npy,wav,TextGrid,txt} + splits;
+    the transcripts draw from ``words`` (UTF-8)."""
     rng = np.random.default_rng(seed)
     names = []
     for spk in speakers:
@@ -175,17 +176,17 @@ def make_beat_fixture(root: str, speakers=("2_scott", "4_lawrence"),
             # word-aligned TextGrid covering the clip
             n_words = 24
             bounds = np.linspace(0, seconds, n_words + 1)
-            words = [str(rng.choice(_WORDS)) for _ in range(n_words)]
-            write_textgrid(pjoin(d, name + ".TextGrid"), words,
+            clip_words = [str(rng.choice(words)) for _ in range(n_words)]
+            write_textgrid(pjoin(d, name + ".TextGrid"), clip_words,
                            bounds[:-1], bounds[1:], seconds)
             # semantic annotation tsv: name, start, end, duration, score,
             # keywords
-            with open(pjoin(d, name + ".txt"), "w") as f:
+            with open(pjoin(d, name + ".txt"), "w", encoding="utf-8") as f:
                 for k in range(0, n_words, 4):
                     cls = "beat_align" if k % 8 else "iconic_gesture"
                     f.write(f"{cls}\t{bounds[k]:.2f}\t{bounds[k + 1]:.2f}\t"
                             f"{bounds[k + 1] - bounds[k]:.2f}\t0.7\t"
-                            f"{words[k]}\n")
+                            f"{clip_words[k]}\n")
             names.append(name)
     for split in ("train", "val", "test"):
         with open(pjoin(root, f"{split}.txt"), "w") as f:
@@ -240,6 +241,6 @@ def make_fixture_pair(tmpdir: str, **kw):
     os.makedirs(beat_root, exist_ok=True)
     os.makedirs(dnd_root, exist_ok=True)
     make_beat_fixture(beat_root, **{k: v for k, v in kw.items()
-                                    if k in ("n_files", "seed")})
+                                    if k in ("n_files", "seed", "words")})
     make_dnd_fixture(dnd_root)
     return beat_root, dnd_root

@@ -113,5 +113,5 @@ def write_textgrid(path: str, words, starts, ends, total_dur: float):
             f"            xmax = {e}",
             f'            text = "{w}"',
         ]
-    with open(path, "w") as f:
+    with open(path, "w", encoding="utf-8") as f:
         f.write("\n".join(out) + "\n")

@@ -86,7 +86,11 @@ from convofusion_tpu_torch.models.vae import (
     ConvoFusionVae,
 )
 from convofusion_tpu_torch.ops.guided_step import guided_step
-from convofusion_tpu_torch.ops.layers import dropout_generator, init_weights
+from convofusion_tpu_torch.ops.layers import (
+    default_init,
+    dropout_generator,
+    init_weights,
+)
 from convofusion_tpu_torch.ops.smoothing import (
     laplace_filter_time,
     laplacian_1d_kernel,
@@ -96,6 +100,7 @@ from convofusion_tpu_torch.ops.transformer import (
     GUIDANCE_BRANCHES,
     NUM_BRANCHES,
 )
+from convofusion_tpu_torch.parallel import mesh
 
 STAGES = ("vae", "diffusion", "vae_diffusion")
 # modality-dropout groups a training batch is cut into, besides the rows
@@ -144,25 +149,31 @@ def vae_posterior(vae: nn.Module, motion: torch.Tensor
             logvar.transpose(0, 1).contiguous())
 
 
-def _draw(draws: Optional[Dict], name: str, make, device):
+def _draw(draws: Optional[Dict], name: str, make, device, axis: int = 0):
     """``draws[name]`` (a tensor or an array) moved to ``device`` if
-    given, else ``make()``."""
+    given, else ``make(k)`` with the batch axis ``axis`` k times this
+    rank's batch.  Under a data-parallel group of k ranks that draws the
+    global batch's values and keeps this rank's rows
+    (``parallel/mesh.local_rows``), as JAX draws over the global batch."""
     if draws is not None and name in draws:
         value = draws[name]
         if not torch.is_tensor(value):
             value = torch.from_numpy(np.array(value))
         return value.to(device)
-    return make()
+    world = mesh.world_size()
+    return mesh.local_rows(make(world), axis) if world > 1 else make(1)
 
 
 def _masks_from_generator(loss):
     """A training loss whose ``Dropout`` masks draw from its ``generator``
     argument (JAX splits the dropout key off the step's key,
-    convofusion_tpu/models/convofusion.py:288-291,501-507)."""
+    convofusion_tpu/models/convofusion.py:288-291,501-507); under a group
+    of several ranks, from the rank's own stream
+    (``parallel/mesh.mask_generator``)."""
 
     @functools.wraps(loss)
     def wrapped(self, batch, generator=None, draws=None):
-        with dropout_generator(generator):
+        with dropout_generator(mesh.mask_generator(generator, self.device)):
             return loss(self, batch, generator, draws)
 
     return wrapped
@@ -241,39 +252,9 @@ class Convofusion(nn.Module):
             self.tokenizer = make_tokenizer(
                 str(cfg.get("t5_path", "t5-base")),
                 max_length=self.text_pad_len, vocab_size=vocab_size)
-        d = int(cfg["denoiser"]["text_encoded_dim"])
-
-        self.vae = None if self.vae_type == "no" else ConvoFusionVae(
-            latent_dim=self.latent_dim, latent_size=self.latent_size,
-            **cfg["motion_vae"], dtype=dtype)
-        if stage != "vae":
-            den = cfg["denoiser"]
-            if den.get("arch", "trans_dec") == "trans_enc" and \
-                    den.get("condition") in ONE_TENSOR_CONDITIONS:
-                # the pipeline feeds the five streams; JAX's trans_enc
-                # takes them as one tensor and fails in init_params
-                raise ValueError(
-                    f"model.condition={den['condition']!r} with "
-                    f"model.denoiser.params.arch='trans_enc': the pipeline "
-                    f"encodes the five text+audio streams, which that "
-                    f"condition cannot take (JAX fails to build it)")
-            self.text_encoder = T5TextEncoder(**te, dtype=dtype)
-            self.audio_encoder = AudioConvEncoder(**cfg["audio_encoder"],
-                                                  dtype=dtype)
-            # the JAX model builds its fuser without a compute dtype
-            # (convofusion_tpu/models/convofusion.py:146-147): its
-            # embedding rows stay fp32 in a bf16 model
-            self.condition_fuser = TextAudioMotionFuser(out_dim=d)
-            self.denoiser = Denoiser(latent_dim=self.latent_dim,
-                                     **cfg["denoiser"], dtype=dtype)
-            self.scheduler = scheduler_from_config(cfg["scheduler"],
-                                                   self.predict_epsilon)
-            # the training scheduler: it noises training latents, and the
-            # rollout re-noises its preseq with it
-            self.noise_scheduler = scheduler_from_config(
-                cfg["noise_scheduler"], self.predict_epsilon)
-            self.num_inference_timesteps = int(
-                cfg["scheduler"]["num_inference_timesteps"])
+        # a seeded model skips the default init its init_weights replaces
+        with default_init(seed is None):
+            self._build_modules(cfg, stage, dtype)
         # TPU.PALLAS_STEP: false takes the plain combine and update on every
         # device (JAX :175-177, :640-649)
         self.use_step_kernel = bool(cfg.get("pallas_step", True))
@@ -310,6 +291,44 @@ class Convofusion(nn.Module):
         self.eval()
         # generation only: WEG differentiates w.r.t. the latents alone
         self.requires_grad_(False)
+
+    def _build_modules(self, cfg: Dict, stage: str, dtype) -> None:
+        """The stage's modules: the motion VAE, and beyond stage 1 the T5
+        encoder, the audio encoder, the fuser, the denoiser and the two
+        schedulers."""
+        d = int(cfg["denoiser"]["text_encoded_dim"])
+        self.vae = None if self.vae_type == "no" else ConvoFusionVae(
+            latent_dim=self.latent_dim, latent_size=self.latent_size,
+            **cfg["motion_vae"], dtype=dtype)
+        if stage != "vae":
+            den = cfg["denoiser"]
+            if den.get("arch", "trans_dec") == "trans_enc" and \
+                    den.get("condition") in ONE_TENSOR_CONDITIONS:
+                # the pipeline feeds the five streams; JAX's trans_enc
+                # takes them as one tensor and fails in init_params
+                raise ValueError(
+                    f"model.condition={den['condition']!r} with "
+                    f"model.denoiser.params.arch='trans_enc': the pipeline "
+                    f"encodes the five text+audio streams, which that "
+                    f"condition cannot take (JAX fails to build it)")
+            self.text_encoder = T5TextEncoder(**cfg["text_encoder"],
+                                              dtype=dtype)
+            self.audio_encoder = AudioConvEncoder(**cfg["audio_encoder"],
+                                                  dtype=dtype)
+            # the JAX model builds its fuser without a compute dtype
+            # (convofusion_tpu/models/convofusion.py:146-147): its
+            # embedding rows stay fp32 in a bf16 model
+            self.condition_fuser = TextAudioMotionFuser(out_dim=d)
+            self.denoiser = Denoiser(latent_dim=self.latent_dim,
+                                     **cfg["denoiser"], dtype=dtype)
+            self.scheduler = scheduler_from_config(cfg["scheduler"],
+                                                   self.predict_epsilon)
+            # the training scheduler: it noises training latents, and the
+            # rollout re-noises its preseq with it
+            self.noise_scheduler = scheduler_from_config(
+                cfg["noise_scheduler"], self.predict_epsilon)
+            self.num_inference_timesteps = int(
+                cfg["scheduler"]["num_inference_timesteps"])
 
     def load_state_dict(self, state_dict, strict: bool = True,
                         assign: bool = False):
@@ -374,9 +393,11 @@ class Convofusion(nn.Module):
     def encode_text_trunk(self, ids, tmask):
         """The frozen T5 trunk alone, outside the graph: the hidden states
         before the projection, a pure function of the text that a training
-        run can cache (JAX :336-355)."""
-        with torch.no_grad():
-            return self.text_encoder.text_model(ids, tmask)
+        run can cache (JAX :336-355): in eval mode, so without the trunk's
+        dropout."""
+        trunk = self.text_encoder.text_model
+        with torch.no_grad(), _eval(trunk):
+            return trunk(ids, tmask)
 
     def project_trunk(self, trunk):
         """The trainable ReLU + Linear head over trunk states: the tail of
@@ -423,9 +444,9 @@ class Convofusion(nn.Module):
         motion = batch["motion"]
         b, t, _ = motion.shape
         dev = motion.device
-        eps = _draw(draws, "eps", lambda: torch.randn(
-            self._posterior_shape(b, t), generator=generator, device=dev),
-            dev)
+        eps = _draw(draws, "eps", lambda k: torch.randn(
+            self._posterior_shape(k * b, t), generator=generator,
+            device=dev), dev, axis=1)
         latent, (mu, logvar), _ = self.vae.encode(motion, eps=eps)
         recon = self.vae.decode(latent, t)
         lap_rst = lap_ref = None
@@ -479,8 +500,8 @@ class Convofusion(nn.Module):
         broadcasts.  ``draws['group']`` (B,) replaces the groups."""
         tmask = batch["lsn_tmask"]
         b, dev = tmask.shape[0], tmask.device
-        group = _draw(draws, "group", lambda: self._dropout_groups(
-            b, generator, dev), dev).long()
+        group = _draw(draws, "group", lambda k: self._dropout_groups(
+            k * b, generator, dev), dev).long()
         kept = self._keep_table[group]                  # (B, 5)
         keep = {s: kept[:, i] for i, s in enumerate(COND_STREAMS)}
         k_t, k_s = keep["tlsn"][:, None], keep["spkemb"][:, None]
@@ -525,16 +546,17 @@ class Convofusion(nn.Module):
         if "vae_mu" in batch:
             mu = batch["vae_mu"].transpose(0, 1)
             logvar = batch["vae_logvar"].transpose(0, 1)
-            eps = _draw(draws, "eps", lambda: torch.randn(
-                mu.shape, generator=generator, device=dev), dev)
+            eps = _draw(draws, "eps", lambda k: torch.randn(
+                (2, k * mu.shape[1]) + tuple(mu.shape[2:]),
+                generator=generator, device=dev), dev, axis=1)
             latent = mu + torch.exp(0.5 * logvar) * eps
         elif self.vae is None:
             z = batch["motion_lsn"].detach().float()
         else:
             motion = batch["motion_lsn"]
-            eps = _draw(draws, "eps", lambda: torch.randn(
-                self._posterior_shape(*motion.shape[:2]),
-                generator=generator, device=dev), dev)
+            eps = _draw(draws, "eps", lambda k: torch.randn(
+                self._posterior_shape(k * motion.shape[0], motion.shape[1]),
+                generator=generator, device=dev), dev, axis=1)
             with torch.no_grad(), _eval(self.vae):
                 latent, _, _ = self.vae.encode(motion, eps=eps)
         if latent is not None:
@@ -558,10 +580,11 @@ class Convofusion(nn.Module):
                 dropped["active_passive_lsn"], dropped["lsn_id"])
 
         sched = self.noise_scheduler
-        noise = _draw(draws, "noise", lambda: torch.randn(
-            z.shape, generator=generator, device=dev), dev)
-        timesteps = _draw(draws, "timesteps", lambda: torch.randint(
-            0, sched.num_train_timesteps, (b,), generator=generator,
+        noise = _draw(draws, "noise", lambda k: torch.randn(
+            (k * b,) + tuple(z.shape[1:]), generator=generator, device=dev),
+            dev)
+        timesteps = _draw(draws, "timesteps", lambda k: torch.randint(
+            0, sched.num_train_timesteps, (k * b,), generator=generator,
             device=dev), dev).long()
         noisy = sched.add_noise(z, noise, timesteps)
         noise_pred, att = self.denoiser(noisy, timesteps, cond, masks)

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from convofusion_tpu_torch.ops.embeddings import TimestepEmbedding, Timesteps
-from convofusion_tpu_torch.ops.layers import Linear, dropout_mask
+from convofusion_tpu_torch.ops.layers import Embedding, Linear, dropout_mask
 from convofusion_tpu_torch.ops.positional import (
     PositionEmbeddingSineBH,
     build_position_encoding,
@@ -85,7 +85,7 @@ class Denoiser(nn.Module):
         self.time_proj = Timesteps(d, flip_sin_to_cos, freq_shift)
         self.time_embedding = TimestepEmbedding(d, d)
         self.query_pos = PositionEmbeddingSineBH(d)
-        self.bh_embedding = nn.Embedding(2, d, dtype=dtype)
+        self.bh_embedding = Embedding(2, d, dtype=dtype)
         self.fuse_streams = bool(fuse_streams)
         stack = dict(num_layers=num_layers, nhead=num_heads,
                      dim_feedforward=ff_size, activation=activation,
@@ -93,8 +93,8 @@ class Denoiser(nn.Module):
                      dropout=dropout)
         if arch == "trans_dec":
             self.mem_pos = build_position_encoding(d, position_embedding)
-            self.condition_embedding = nn.Embedding(len(COND_STREAMS), d,
-                                                    dtype=dtype)
+            self.condition_embedding = Embedding(len(COND_STREAMS), d,
+                                                 dtype=dtype)
             decoder_cls = (FusedDenoiserDecoder if self.fuse_streams
                            else DenoiserDecoder)
             self.decoder = decoder_cls(d_model=d, remat=remat, **stack)

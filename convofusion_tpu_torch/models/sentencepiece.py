@@ -25,14 +25,23 @@ objects compute:
 * the ``$A </s>`` template appends ``</s>`` (word id None); truncation
   keeps it.
 
-The ``Precompiled`` charsmap normalizer is not ported.  A model that
-carries a charsmap (the real t5-base one does) is tokenized only on
-printable ASCII text, which that normalizer (nmt_nfkc) leaves unchanged;
-any other character raises ``NotImplementedError``: the port does not
-approximate it.
+A model that carries a Precompiled charsmap (the real t5-base one does)
+runs :class:`Precompiled` ahead of ``Strip(right)``, as JAX's pipeline does
+(:219-225): the charsmap is a darts-clone double array over the source
+strings' UTF-8 bytes followed by the pool of NUL-terminated targets, read
+and applied in pure Python the way ``tokenizers.normalizers.Precompiled``
+applies it.  A byte-fallback model (``Unigram(byte_fallback=True)``,
+:208-210) spells an unknown run as its UTF-8 bytes' ``<0xNN>`` pieces.
+:meth:`T5Pipeline.from_tokenizer_json` reads the same pipeline from a
+``tokenizer.json`` that ``tokenizers`` saved (JAX's ``HFTokenizer`` step).
+``build_charsmap`` writes a charsmap (a small double-array builder), so
+``synthesize_spiece_model(charsmap=True)`` can emit a model with one.
 """
 from __future__ import annotations
 
+import base64
+import functools
+import json
 import math
 import os
 import re
@@ -40,7 +49,7 @@ import string
 import struct
 import unicodedata
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 # sentencepiece_model.proto piece types
 NORMAL, UNKNOWN, CONTROL, USER_DEFINED, UNUSED, BYTE = 1, 2, 3, 4, 5, 6
@@ -201,12 +210,16 @@ class UnigramEncoder:
     """Viterbi segmentation over a unigram piece vocabulary, as
     ``tokenizers.models.Unigram``: an unknown character scores the lowest
     piece score minus 10 and maps to ``unk_id``; adjacent unknowns fuse
-    into one token."""
+    into one token.  With ``byte_fallback`` a fused unknown run becomes the
+    ``<0xNN>`` pieces of its UTF-8 bytes when the vocab has them all, as
+    ``Unigram.tokenize`` does."""
 
     UNK_PENALTY = 10.0
 
-    def __init__(self, vocab_scores: List[Tuple[str, float]], unk_id: int):
+    def __init__(self, vocab_scores: List[Tuple[str, float]], unk_id: int,
+                 byte_fallback: bool = False):
         self.unk_id = unk_id
+        self.byte_fallback = byte_fallback
         self.ids: Dict[str, int] = {}
         self.scores: Dict[str, float] = {}
         for i, (piece, score) in enumerate(vocab_scores):
@@ -244,19 +257,30 @@ class UnigramEncoder:
             if s > best[i + 1]:
                 best[i + 1] = s
                 back[i + 1] = (i, self.unk_id)
-        out: List[int] = []
+        spans: List[List[int]] = []          # [start, end, id]
         pos = n
         while pos > 0:
             i, pid = back[pos]
-            out.append(pid)
+            spans.append([i, pos, pid])
             pos = i
-        out.reverse()
-        fused: List[int] = []
-        for pid in out:
-            if pid == self.unk_id and fused and fused[-1] == self.unk_id:
+        spans.reverse()
+        fused: List[List[int]] = []
+        for span in spans:
+            if span[2] == self.unk_id and fused and \
+                    fused[-1][2] == self.unk_id:
+                fused[-1][1] = span[1]
                 continue
-            fused.append(pid)
-        return fused
+            fused.append(span)
+        out: List[int] = []
+        for i, j, pid in fused:
+            if pid == self.unk_id and self.byte_fallback:
+                pieces = [ids.get(f"<0x{b:02X}>")
+                          for b in text[i:j].encode("utf-8")]
+                if None not in pieces:
+                    out += pieces
+                    continue
+            out.append(pid)
+        return out
 
 
 def nmt_nfkc_normalize(text: str) -> str:
@@ -280,6 +304,249 @@ def nmt_nfkc_normalize(text: str) -> str:
 
 
 # --------------------------------------------------------------------------
+# the Precompiled charsmap normalizer
+# --------------------------------------------------------------------------
+
+# darts-clone's unit: bits 0-7 the label, bit 8 "has a leaf", bits 10-31 the
+# offset to the children (shifted left by 8 when bit 9 is set); a leaf unit
+# holds its value with bit 31 set, so its label never equals a byte
+def _unit_offset(unit: int) -> int:
+    return (unit >> 10) << ((unit & (1 << 9)) >> 6)
+
+
+def _unit_label(unit: int) -> int:
+    return unit & ((1 << 31) | 0xFF)
+
+
+class Precompiled:
+    """``tokenizers.normalizers.Precompiled`` over a charsmap: a
+    little-endian u32 trie size in bytes, that many bytes of darts-clone
+    double-array units (u32 each), then the pool of NUL-terminated
+    normalized strings that the trie's values index.
+
+    As tokenizers applies it: the text is split into extended grapheme
+    clusters (:func:`graphemes`); a cluster shorter than 6 UTF-8 bytes that
+    starts with a source string is replaced by the target of the SHORTEST
+    source that prefixes it; otherwise each character is replaced by its
+    own target, or kept.  Raises ``ValueError`` on a charsmap whose trie is
+    empty or runs past its end (tokenizers panics on the first text)."""
+
+    def __init__(self, charsmap: bytes):
+        if len(charsmap) < 4:
+            raise ValueError("precompiled charsmap shorter than its header")
+        (size,) = struct.unpack_from("<I", charsmap, 0)
+        if size == 0 or size % 4 or 4 + size > len(charsmap):
+            raise ValueError(f"precompiled charsmap: trie of {size} bytes in "
+                             f"a {len(charsmap)}-byte charsmap")
+        self.units = struct.unpack_from(f"<{size // 4}I", charsmap, 4)
+        self.pool = charsmap[4 + size:]
+        self._starts: Dict[str, bool] = {}
+        self._targets: Dict[str, Optional[str]] = {}
+
+    def _walk(self, key: bytes, values: Optional[List[int]]) -> bool:
+        """Follow ``key`` from the root, appending each prefix's value to
+        ``values``; True when every byte has a node."""
+        units = self.units
+        pos = _unit_offset(units[0])
+        for c in key:
+            if c == 0:
+                return False
+            pos ^= c
+            if pos >= len(units) or _unit_label(units[pos]) != c:
+                return False
+            unit = units[pos]
+            pos ^= _unit_offset(unit)
+            if values is not None and (unit >> 8) & 1:
+                values.append(units[pos] & ((1 << 31) - 1))
+        return True
+
+    def starts_source(self, ch: str) -> bool:
+        """Whether some source string starts with the character ``ch``."""
+        hit = self._starts.get(ch)
+        if hit is None:
+            hit = self._starts[ch] = self._walk(ch.encode("utf-8"), None)
+        return hit
+
+    def transform(self, chunk: str) -> Optional[str]:
+        """The target of the shortest source that prefixes ``chunk``, or
+        None."""
+        if chunk in self._targets:
+            return self._targets[chunk]
+        values: List[int] = []
+        self._walk(chunk.encode("utf-8"), values)
+        out = None
+        if values:
+            start = values[0]
+            end = self.pool.find(b"\0", start)
+            out = self.pool[start:len(self.pool) if end < 0 else end].decode(
+                "utf-8")
+        self._targets[chunk] = out
+        return out
+
+    def normalize(self, text: str) -> str:
+        if not any(self.starts_source(c) for c in set(text)):
+            return text
+        out: List[str] = []
+        for cluster in graphemes(text):
+            if len(cluster.encode("utf-8")) < 6 and \
+                    self.starts_source(cluster[0]):
+                target = self.transform(cluster)
+                if target is not None:
+                    out.append(target)
+                    continue
+            for ch in cluster:
+                target = self.transform(ch) if self.starts_source(ch) \
+                    else None
+                out.append(ch if target is None else target)
+        return "".join(out)
+
+
+@functools.lru_cache(maxsize=8)
+def precompiled(charsmap: bytes) -> Precompiled:
+    """One :class:`Precompiled` (and its memo) per charsmap."""
+    return Precompiled(charsmap)
+
+
+def build_charsmap(mapping: Dict[str, str]) -> bytes:
+    """A Precompiled charsmap mapping each source string to its target: a
+    darts-clone double array over the sources' UTF-8 bytes (each node's
+    children at ``base ^ label``, a key's value in the unit at its node's
+    ``base ^ 0``, every base distinct, the array a whole number of
+    256-unit blocks so that no lookup leaves it), then the targets'
+    pool."""
+    pool = bytearray()
+    trie: Dict = {}
+    for src, dst in sorted(mapping.items()):
+        if not src or "\0" in src + dst:
+            raise ValueError(f"charsmap entry {src!r} -> {dst!r}")
+        node = trie
+        for b in src.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[0] = len(pool)
+        pool += dst.encode("utf-8") + b"\0"
+    units = [0] * 256
+    taken = {0}
+    bases = set()
+    queue = [(0, trie)]
+    candidate = 256
+    while queue:
+        pos, node = queue.pop(0)
+        labels = sorted(node)
+        base = candidate
+        while base in bases or any(base ^ c in taken for c in labels):
+            base += 1
+        bases.add(base)
+        while base >= len(units):
+            units += [0] * 256
+        if 0 in node:
+            units[pos] |= 1 << 8
+            units[base] = node[0] | (1 << 31)
+            taken.add(base)
+        units[pos] |= (pos ^ base) << 10
+        for c in labels:
+            if c:
+                units[base ^ c] = c
+                taken.add(base ^ c)
+                queue.append((base ^ c, node[c]))
+        while candidate in bases:
+            candidate += 1
+    if len(units) >= 1 << 21:
+        raise ValueError("charsmap too large for 21-bit offsets")
+    return (struct.pack("<I", 4 * len(units))
+            + struct.pack(f"<{len(units)}I", *units) + bytes(pool))
+
+
+# Extended grapheme clusters (UAX #29, rules GB3-GB13) over unicodedata:
+# the classes the segmentation rules need, from the general category and
+# the code point ranges of the Hangul jamo, the regional indicators and
+# the emoji blocks
+_PREPEND = frozenset([0x06DD, 0x070F, 0x0890, 0x0891, 0x08E2, 0x110BD,
+                      0x110CD] + list(range(0x0600, 0x0606)))
+_EXTEND_EXTRA = frozenset([0x200C, 0xFF9E, 0xFF9F])
+_SPACING_EXTRA = frozenset([0x0E33, 0x0EB3])
+
+
+def _grapheme_class(ch: str) -> str:
+    cp = ord(ch)
+    if ch == "\r":
+        return "CR"
+    if ch == "\n":
+        return "LF"
+    if cp == 0x200D:
+        return "ZWJ"
+    if cp in _EXTEND_EXTRA or 0x1F3FB <= cp <= 0x1F3FF or \
+            0xE0020 <= cp <= 0xE007F:
+        return "Extend"
+    if cp in _PREPEND:
+        return "Prepend"
+    if 0x1F1E6 <= cp <= 0x1F1FF:
+        return "RI"
+    if 0x1100 <= cp <= 0x115F or 0xA960 <= cp <= 0xA97C:
+        return "L"
+    if 0x1160 <= cp <= 0x11A7 or 0xD7B0 <= cp <= 0xD7C6:
+        return "V"
+    if 0x11A8 <= cp <= 0x11FF or 0xD7CB <= cp <= 0xD7FB:
+        return "T"
+    if 0xAC00 <= cp <= 0xD7A3:
+        return "LV" if (cp - 0xAC00) % 28 == 0 else "LVT"
+    cat = unicodedata.category(ch)
+    if cat in ("Mn", "Me"):
+        return "Extend"
+    if cat == "Mc" or cp in _SPACING_EXTRA:
+        return "SpacingMark"
+    if cat in ("Cc", "Cf", "Zl", "Zp"):
+        return "Control"
+    if 0x1F000 <= cp <= 0x1FAFF or 0x2600 <= cp <= 0x27BF or \
+            cp in (0x00A9, 0x00AE, 0x203C, 0x2049, 0x2122, 0x2139):
+        return "Pict"
+    return "Other"
+
+
+def graphemes(text: str) -> Iterator[str]:
+    """``text``'s extended grapheme clusters (UAX #29 without the Indic
+    conjunct rule GB9c)."""
+    if not text:
+        return
+    start = 0
+    prev = _grapheme_class(text[0])
+    ri_run = 1 if prev == "RI" else 0
+    pict_zwj = False               # Pict Extend* ZWJ just before
+    in_pict = prev == "Pict"
+    for i in range(1, len(text)):
+        cur = _grapheme_class(text[i])
+        if prev == "CR" and cur == "LF":
+            join = True
+        elif prev in ("Control", "CR", "LF") or \
+                cur in ("Control", "CR", "LF"):
+            join = False
+        elif prev == "L" and cur in ("L", "V", "LV", "LVT"):
+            join = True
+        elif prev in ("LV", "V") and cur in ("V", "T"):
+            join = True
+        elif prev in ("LVT", "T") and cur == "T":
+            join = True
+        elif cur in ("Extend", "ZWJ", "SpacingMark") or prev == "Prepend":
+            join = True
+        elif cur == "Pict" and pict_zwj:
+            join = True
+        elif prev == "RI" and cur == "RI":
+            join = ri_run % 2 == 1
+        else:
+            join = False
+        if not join:
+            yield text[start:i]
+            start = i
+        pict_zwj = in_pict and cur == "ZWJ"
+        if cur == "Pict":
+            in_pict = True
+        elif cur != "Extend":
+            in_pict = False
+        ri_run = ri_run + 1 if cur == "RI" else 0
+        prev = cur
+    yield text[start:]
+
+
+# --------------------------------------------------------------------------
 # t5-base's fast-tokenizer pipeline
 # --------------------------------------------------------------------------
 
@@ -289,7 +556,6 @@ _RUST_WHITESPACE = frozenset(
     "\t\n\x0b\x0c\r \x85\xa0\u1680\u2028\u2029\u202f\u205f\u3000"
     + "".join(chr(c) for c in range(0x2000, 0x200B)))
 _SPACE_RUNS = re.compile(" {2,}")
-_PRINTABLE_ASCII = frozenset(chr(c) for c in range(0x20, 0x7F))
 
 
 def _strip_right(text: str) -> str:
@@ -333,28 +599,90 @@ class T5Pipeline:
     def __init__(self, sp: SPModel, extra_ids: int = 100):
         if sp.model_type != 1:
             raise ValueError("only unigram spiece models are supported")
-        if sp.byte_fallback:
-            raise NotImplementedError("byte-fallback spiece models are not "
-                                      "ported")
         vocab = sp.vocab_scores() + [
             (f"<extra_id_{i}>", 0.0) for i in range(extra_ids - 1, -1, -1)]
-        self.unigram = UnigramEncoder(vocab, sp.unk_id)
-        self.has_charsmap = bool(sp.precompiled_charsmap)
+        # the model's control and user-defined pieces, then the special
+        # tokens transformers registers (eos, unk, pad, the extra ids)
+        self._build(vocab, sp.unk_id, sp.byte_fallback,
+                    sp.precompiled_charsmap,
+                    [p for p, _, t in sp.pieces
+                     if t in (CONTROL, USER_DEFINED)]
+                    + ["</s>", "<unk>", "<pad>"]
+                    + [f"<extra_id_{i}>" for i in range(extra_ids)], "</s>")
+
+    def _build(self, vocab: List[Tuple[str, float]], unk_id: int,
+               byte_fallback: bool, charsmap: bytes, added: Sequence[str],
+               eos: str) -> None:
+        self.unigram = UnigramEncoder(vocab, unk_id, byte_fallback)
+        self.normalizer = precompiled(bytes(charsmap)) if charsmap else None
         self.token_to_id: Dict[str, int] = {}
         for i, (piece, _) in enumerate(vocab):
             self.token_to_id.setdefault(piece, i)
         self.id_to_token = {i: p for p, i in self.token_to_id.items()}
         self.added: Dict[str, int] = {}
-        # the model's control and user-defined pieces, then the special
-        # tokens transformers registers (eos, unk, pad, the extra ids)
-        self.add_special_tokens(
-            [p for p, _, t in sp.pieces if t in (CONTROL, USER_DEFINED)]
-            + ["</s>", "<unk>", "<pad>"]
-            + [f"<extra_id_{i}>" for i in range(extra_ids)])
-        if "</s>" not in self.token_to_id:
-            raise ValueError("spiece model has no </s> piece")
-        self.eos_id = self.token_to_id["</s>"]
-        self.pad_id = self.token_to_id["<pad>"]
+        self.add_special_tokens(added)
+        if eos not in self.token_to_id:
+            raise ValueError(f"the vocab has no {eos} piece")
+        self.eos_id = self.token_to_id[eos]
+        self.pad_id = self.token_to_id.get("<pad>", 0)
+
+    @classmethod
+    def from_tokenizer_json(cls, path: str) -> "T5Pipeline":
+        """The pipeline a ``tokenizers`` ``tokenizer.json`` describes (JAX's
+        ``HFTokenizer`` loads it through transformers): the Unigram vocab,
+        ``unk_id`` and ``byte_fallback``; the normalizer (an optional
+        ``Precompiled``, its charsmap base64, then ``Strip(right)`` and
+        ``Replace(" {2,}", "▁")``); ``Metaspace``; the added tokens; and the
+        ``$A <eos>`` template.  Anything else raises
+        ``NotImplementedError`` naming it."""
+        with open(path, encoding="utf-8") as f:
+            spec = json.load(f)
+        model = spec.get("model") or {}
+        if model.get("type") != "Unigram":
+            raise NotImplementedError(f"{path}: model {model.get('type')!r} "
+                                      f"(Unigram only)")
+        vocab = [(str(p), float(sc)) for p, sc in model["vocab"]]
+        norms = spec.get("normalizer") or {}
+        norms = norms.get("normalizers", []) \
+            if norms.get("type") == "Sequence" else [norms]
+        charsmap = b""
+        if norms and norms[0].get("type") == "Precompiled":
+            charsmap = base64.b64decode(norms[0]["precompiled_charsmap"])
+            norms = norms[1:]
+        if [n.get("type") for n in norms] != ["Strip", "Replace"] or \
+                norms[0].get("strip_left") or \
+                not norms[0].get("strip_right") or \
+                norms[1].get("pattern") != {"Regex": " {2,}"} or \
+                norms[1].get("content") != META:
+            raise NotImplementedError(f"{path}: normalizer {norms!r}")
+        pre = spec.get("pre_tokenizer") or {}
+        if pre.get("type") != "Metaspace" or \
+                pre.get("replacement") != META or \
+                pre.get("prepend_scheme", "always") != "always" or \
+                not pre.get("split", True):
+            raise NotImplementedError(f"{path}: pre_tokenizer {pre!r}")
+        post = spec.get("post_processor") or {}
+        single = post.get("single", [])
+        if post.get("type") != "TemplateProcessing" or len(single) != 2 or \
+                single[0] != {"Sequence": {"id": "A", "type_id": 0}} or \
+                "SpecialToken" not in single[1]:
+            raise NotImplementedError(f"{path}: post_processor {post!r}")
+        eos = single[1]["SpecialToken"]["id"]
+        added = sorted(spec.get("added_tokens", []), key=lambda t: t["id"])
+        for t in added:
+            if t.get("normalized") or t.get("lstrip") or t.get("rstrip") or \
+                    t.get("single_word"):
+                raise NotImplementedError(f"{path}: added token {t!r}")
+        self = cls.__new__(cls)
+        self._build(vocab, int(model.get("unk_id") or 0),
+                    bool(model.get("byte_fallback", False)), charsmap,
+                    [t["content"] for t in added], eos)
+        for t in added:
+            if self.added[t["content"]] != int(t["id"]):
+                raise NotImplementedError(
+                    f"{path}: added token {t['content']!r} at {t['id']}, "
+                    f"not its vocab id")
+        return self
 
     def __len__(self) -> int:
         return len(self.id_to_token)
@@ -394,16 +722,6 @@ class T5Pipeline:
             out.append((text[start:], False))
         return out
 
-    def _check_normalizable(self, text: str) -> None:
-        if not self.has_charsmap:
-            return
-        bad = sorted(set(text) - _PRINTABLE_ASCII)
-        if bad:
-            raise NotImplementedError(
-                f"this spiece model carries a Precompiled charsmap, which "
-                f"the port does not implement: text with {bad[:5]} cannot be "
-                f"tokenized exactly (printable ASCII only)")
-
     def encode(self, text: str) -> Encoding:
         """Token ids and word indices of ``text`` before the template."""
         ids: List[int] = []
@@ -415,7 +733,8 @@ class T5Pipeline:
                 words.append(word)
                 word += 1
                 continue
-            self._check_normalizable(segment)
+            if self.normalizer is not None:
+                segment = self.normalizer.normalize(segment)
             normalized = _SPACE_RUNS.sub(META, _strip_right(segment))
             if not normalized:
                 continue
@@ -440,15 +759,34 @@ class T5Pipeline:
 # the synthetic t5-geometry model
 # --------------------------------------------------------------------------
 
-def synthesize_spiece_model(vocab_size: int = 32000) -> SPModel:
+# the synthetic model's charsmap: what nmt_nfkc does to the characters a
+# transcript picks up (curly quotes, NBSP, full-width letters, ligatures,
+# an ellipsis, a zero-width space, tabs and newlines), and one
+# multi-character source: a decomposed e + combining acute composes
+SYNTHETIC_CHARSMAP: Dict[str, str] = {
+    "\u2018": "'", "\u2019": "'", "\u201c": '"', "\u201d": '"',
+    "\u00a0": " ", "\u2026": "...", "\u200b": "", "\t": " ", "\n": " ",
+    "\ufb01": "fi", "\ufb02": "fl", "e\u0301": "\u00e9",
+    **{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
+    **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},
+}
+
+
+def synthesize_spiece_model(vocab_size: int = 32000, charsmap: bool = False,
+                            byte_fallback: bool = False) -> SPModel:
     """A t5-base-GEOMETRY synthetic unigram model: ``<pad>`` / ``</s>``
     control pieces, ``<unk>`` (``unk_id=2``), then ``▁``-prefixed word
     pieces, bare continuation subwords and single characters with
     Zipf-like log scores.  Its ids do NOT match t5-base; it runs the
-    production pipeline where the real asset is not on disk."""
+    production pipeline where the real asset is not on disk.
+    ``charsmap`` adds :data:`SYNTHETIC_CHARSMAP` as a Precompiled charsmap;
+    ``byte_fallback`` puts the 256 ``<0xNN>`` byte pieces after ``<unk>``
+    and sets the flag.  With neither, the model is the JAX package's."""
     pieces: List[Tuple[str, float, int]] = [
         ("<pad>", 0.0, CONTROL), ("</s>", 0.0, CONTROL),
         ("<unk>", 0.0, UNKNOWN)]
+    if byte_fallback:
+        pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
     seen = {p for p, _, _ in pieces}
 
     def add(piece: str, score: float) -> None:
@@ -501,15 +839,21 @@ def synthesize_spiece_model(vocab_size: int = 32000) -> SPModel:
             if len(pieces) >= vocab_size:
                 break
 
-    return SPModel(pieces=pieces, model_type=1, unk_id=2)
+    return SPModel(pieces=pieces, model_type=1, unk_id=2,
+                   byte_fallback=byte_fallback,
+                   precompiled_charsmap=build_charsmap(SYNTHETIC_CHARSMAP)
+                   if charsmap else b"")
 
 
-def write_synthetic_spiece(path: str, vocab_size: int = 32000) -> str:
+def write_synthetic_spiece(path: str, vocab_size: int = 32000,
+                           charsmap: bool = False,
+                           byte_fallback: bool = False) -> str:
     """Serialize :func:`synthesize_spiece_model` to ``path``; an existing
     non-empty file is kept.  Returns ``path``."""
     if not (os.path.isfile(path) and os.path.getsize(path) > 0):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        data = serialize_model_proto(synthesize_spiece_model(vocab_size))
+        data = serialize_model_proto(synthesize_spiece_model(
+            vocab_size, charsmap, byte_fallback))
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
             f.write(data)

@@ -8,7 +8,16 @@ SelfAttention.q``, ``layer.1.DenseReluDense.wi``, ...) so
 and the projection is the reference's ``Sequential(ReLU, Linear)``.
 
 The trunk is frozen (reference t5.py:35-37): its parameters have
-``requires_grad=False`` and it runs under ``torch.no_grad()``.
+``requires_grad=False`` and it runs under ``torch.no_grad()``, so the
+gradient stops at its output as JAX's ``stop_gradient`` does
+(``convofusion_tpu/models/t5.py:189-193``).  ``dropout`` (the text
+encoder's ``params.dropout``) is applied at JAX's six sites
+(``convofusion_tpu/models/t5.py:96-97,123,129,132,151,160``): the attention
+weights, the two residual branches, the FFN's inner activation, the
+embedding output and the stack's output.  It acts only while the module
+trains (the stage-2 loss), with masks from the loss's generator
+(``ops/layers.Dropout``); it belongs to the forward alone and changes no
+weight.
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from convofusion_tpu_torch.ops.layers import Linear
+from convofusion_tpu_torch.ops.layers import Dropout, Embedding, Linear
 
 
 class T5LayerNorm(nn.Module):
@@ -56,9 +65,11 @@ def relative_position_bucket(relative_position, num_buckets=32,
 
 class T5Attention(nn.Module):
     def __init__(self, d_model, num_heads, d_kv, has_relative_bias=False,
-                 num_buckets=32, max_distance=128, dtype=torch.float32):
+                 num_buckets=32, max_distance=128, dropout=0.0,
+                 dtype=torch.float32):
         super().__init__()
         inner = num_heads * d_kv
+        self.dropout = Dropout(dropout)
         self.num_heads, self.d_kv = num_heads, d_kv
         self.num_buckets, self.max_distance = num_buckets, max_distance
         self.q = Linear(d_model, inner, bias=False, dtype=dtype)
@@ -66,7 +77,7 @@ class T5Attention(nn.Module):
         self.v = Linear(d_model, inner, bias=False, dtype=dtype)
         self.o = Linear(inner, d_model, bias=False, dtype=dtype)
         if has_relative_bias:
-            self.relative_attention_bias = nn.Embedding(
+            self.relative_attention_bias = Embedding(
                 num_buckets, num_heads, dtype=dtype)
             # (L, L) buckets for the longest text seen so far, grown on
             # demand: a copy from the host at every call would make the
@@ -101,52 +112,58 @@ class T5Attention(nn.Module):
         if attention_mask is not None:            # True = valid here
             scores = scores.masked_fill(
                 ~attention_mask[:, None, None, :], -1e9)
-        weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        weights = self.dropout(
+            torch.softmax(scores.float(), dim=-1).to(q.dtype))
         out = (weights @ v).transpose(1, 2).reshape(b, t, h * dk)
         return self.o(out), position_bias
 
 
 class T5LayerSelfAttention(nn.Module):
-    def __init__(self, d_model, num_heads, d_kv, has_relative_bias, dtype):
+    def __init__(self, d_model, num_heads, d_kv, has_relative_bias, dropout,
+                 dtype):
         super().__init__()
         self.SelfAttention = T5Attention(
-            d_model, num_heads, d_kv, has_relative_bias, dtype=dtype)
+            d_model, num_heads, d_kv, has_relative_bias, dropout=dropout,
+            dtype=dtype)
         self.layer_norm = T5LayerNorm(d_model)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, attention_mask, position_bias):
         h, position_bias = self.SelfAttention(
             self.layer_norm(x), attention_mask, position_bias)
-        return x + h, position_bias
+        return x + self.dropout(h), position_bias
 
 
 class T5DenseReluDense(nn.Module):
-    def __init__(self, d_model, d_ff, dtype):
+    def __init__(self, d_model, d_ff, dropout, dtype):
         super().__init__()
         self.wi = Linear(d_model, d_ff, bias=False, dtype=dtype)
         self.wo = Linear(d_ff, d_model, bias=False, dtype=dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
-        return self.wo(F.relu(self.wi(x)))
+        return self.wo(self.dropout(F.relu(self.wi(x))))
 
 
 class T5LayerFF(nn.Module):
-    def __init__(self, d_model, d_ff, dtype):
+    def __init__(self, d_model, d_ff, dropout, dtype):
         super().__init__()
-        self.DenseReluDense = T5DenseReluDense(d_model, d_ff, dtype)
+        self.DenseReluDense = T5DenseReluDense(d_model, d_ff, dropout, dtype)
         self.layer_norm = T5LayerNorm(d_model)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
-        return x + self.DenseReluDense(self.layer_norm(x))
+        return x + self.dropout(self.DenseReluDense(self.layer_norm(x)))
 
 
 class T5Block(nn.Module):
     def __init__(self, d_model, d_ff, num_heads, d_kv,
-                 has_relative_bias=False, dtype=torch.float32):
+                 has_relative_bias=False, dropout=0.0, dtype=torch.float32):
         super().__init__()
         self.layer = nn.ModuleList([
             T5LayerSelfAttention(d_model, num_heads, d_kv,
-                                 has_relative_bias, dtype),
-            T5LayerFF(d_model, d_ff, dtype),
+                                 has_relative_bias, dropout, dtype),
+            T5LayerFF(d_model, d_ff, dropout, dtype),
         ])
 
     def forward(self, x, attention_mask=None, position_bias=None):
@@ -156,21 +173,23 @@ class T5Block(nn.Module):
 
 class T5EncoderStack(nn.Module):
     def __init__(self, vocab_size=32128, d_model=768, d_ff=3072,
-                 num_layers=12, num_heads=12, d_kv=64, dtype=torch.float32):
+                 num_layers=12, num_heads=12, d_kv=64, dropout=0.0,
+                 dtype=torch.float32):
         super().__init__()
-        self.embed_tokens = nn.Embedding(vocab_size, d_model, dtype=dtype)
+        self.embed_tokens = Embedding(vocab_size, d_model, dtype=dtype)
         self.block = nn.ModuleList(
             T5Block(d_model, d_ff, num_heads, d_kv,
-                    has_relative_bias=(i == 0), dtype=dtype)
+                    has_relative_bias=(i == 0), dropout=dropout, dtype=dtype)
             for i in range(num_layers))
         self.final_layer_norm = T5LayerNorm(d_model)
+        self.dropout = Dropout(dropout)
 
     def forward(self, input_ids, attention_mask=None):
-        x = self.embed_tokens(input_ids)
+        x = self.dropout(self.embed_tokens(input_ids))
         position_bias = None
         for blk in self.block:
             x, position_bias = blk(x, attention_mask, position_bias)
-        return self.final_layer_norm(x)
+        return self.dropout(self.final_layer_norm(x))
 
 
 class T5EncoderModel(nn.Module):
@@ -190,12 +209,13 @@ class T5TextEncoder(nn.Module):
 
     def __init__(self, latent_dim=512, vocab_size=32128, d_model=768,
                  d_ff=3072, num_layers=12, num_heads=12, d_kv=64,
-                 dtype=torch.float32):
+                 dropout=0.0, dtype=torch.float32):
         super().__init__()
+        self.dropout = float(dropout)
         self.text_model = T5EncoderModel(
             vocab_size=vocab_size, d_model=d_model, d_ff=d_ff,
             num_layers=num_layers, num_heads=num_heads, d_kv=d_kv,
-            dtype=dtype)
+            dropout=dropout, dtype=dtype)
         self.text_model.requires_grad_(False)
         self.projection = nn.Sequential(
             nn.ReLU(), Linear(d_model, latent_dim, dtype=dtype))

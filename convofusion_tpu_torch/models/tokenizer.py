@@ -8,14 +8,19 @@ Port of ``convofusion_tpu/models/tokenizer.py``:
 * ``SentencePieceTokenizer`` (:108-160, :163-182): exact t5-base
   tokenization from a local ``spiece.model``, through the pure-Python
   pipeline of ``models/sentencepiece.py``;
-* ``find_spiece`` and ``make_tokenizer`` (:185-241);
+* ``HFTokenizer`` (:151-160): the same contract over a cached HF
+  tokenizer's ``tokenizer.json``, read in pure Python
+  (``T5Pipeline.from_tokenizer_json``; neither ``tokenizers`` nor
+  ``transformers`` is a dependency);
+* ``find_spiece``, ``find_tokenizer_json`` and ``make_tokenizer``
+  (:185-241);
 * ``focus_word_indices`` (:244-264), the WEG focus-word token columns.
 
-JAX's ``HFTokenizer`` (a cached ``transformers`` tokenizer, :151-160) has
-no counterpart: this package does not depend on ``transformers``.
-``make_tokenizer`` therefore goes from a ``spiece.model`` straight to the
-word-hash fallback; ``find_spiece`` still finds a ``spiece.model`` in the
-HF cache's snapshot layout.
+The asset layouts ``make_tokenizer`` tries, in JAX's order: a
+``spiece.model`` (the file, ``<dir>/spiece.model``, the asset drop's
+``<root>/t5-base/spiece.model`` or an HF cache snapshot's), then a cached
+HF tokenizer (``<dir>/tokenizer.json`` or ``$HF_HOME/hub/models--t5-base/
+snapshots/*/tokenizer.json``), then the word-hash fallback with a warning.
 """
 from __future__ import annotations
 
@@ -108,9 +113,9 @@ def wrap_texts(texts: Sequence[str]) -> List[str]:
     return [t if t == UNCOND_TEXT else f"<bos> {t} <eos>" for t in texts]
 
 
-class SentencePieceTokenizer:
-    """Exact t5-base tokenization from a local ``spiece.model``: the
-    contract of JAX's ``_FastTokenizerAdapter`` over ``convert_t5_fast``.
+class _PipelineTokenizer:
+    """The contract of JAX's ``_FastTokenizerAdapter`` over a
+    :class:`T5Pipeline`.
 
     The reference's run-time additions ``<eos>`` / ``<bos>`` / ``<pad>`` /
     ``<unk>`` (t5.py:30): on t5-base ``<eos>`` lands at 32100 and ``<bos>``
@@ -122,11 +127,9 @@ class SentencePieceTokenizer:
     word 0, content words follow from 1, a word's subwords share its
     index, ``</s>`` and padding are None."""
 
-    def __init__(self, spiece_path: str, max_length: int = 200,
-                 extra_ids: int = 100):
-        self.spiece_path = spiece_path
+    def __init__(self, pipeline: T5Pipeline, max_length: int = 200):
         self.max_length = max_length
-        self.tok = T5Pipeline(load_spiece(spiece_path), extra_ids=extra_ids)
+        self.tok = pipeline
         self.tok.add_special_tokens(["<eos>", "<bos>", "<pad>", "<unk>"])
 
     @property
@@ -154,6 +157,51 @@ class SentencePieceTokenizer:
         return wrap_texts(texts)
 
 
+class SentencePieceTokenizer(_PipelineTokenizer):
+    """Exact t5-base tokenization from a local ``spiece.model``, as JAX's
+    over ``convert_t5_fast``: its charsmap normalizes the text and a
+    byte-fallback model spells unknowns in bytes."""
+
+    def __init__(self, spiece_path: str, max_length: int = 200,
+                 extra_ids: int = 100):
+        self.spiece_path = spiece_path
+        super().__init__(T5Pipeline(load_spiece(spiece_path),
+                                    extra_ids=extra_ids), max_length)
+
+
+class HFTokenizer(_PipelineTokenizer):
+    """A cached HF tokenizer (JAX's ``AutoTokenizer.from_pretrained(...,
+    local_files_only=True)``): the ``tokenizer.json`` that
+    :func:`find_tokenizer_json` finds for ``modelpath``, read in pure
+    Python.  Raises ``FileNotFoundError`` without one."""
+
+    def __init__(self, modelpath: str, max_length: int = 200):
+        path = find_tokenizer_json(modelpath)
+        if path is None:
+            raise FileNotFoundError(f"no tokenizer.json for {modelpath!r}")
+        self.tokenizer_json = path
+        super().__init__(T5Pipeline.from_tokenizer_json(path), max_length)
+
+
+def _hf_snapshots(modelpath: str, name: str) -> List[str]:
+    """``name`` in the HF cache's snapshots of ``modelpath``."""
+    cache = os.environ.get(
+        "HF_HOME", os.path.expanduser("~/.cache/huggingface"))
+    slug = "models--" + modelpath.replace("/", "--")
+    return sorted(glob.glob(
+        os.path.join(cache, "hub", slug, "snapshots", "*", name)))
+
+
+def find_tokenizer_json(modelpath: str) -> Optional[str]:
+    """The ``tokenizer.json`` of a cached HF tokenizer: in the directory
+    ``modelpath``, or in an HF cache snapshot of the model name."""
+    modelpath = str(modelpath)
+    candidates = [os.path.join(modelpath, "tokenizer.json")] \
+        if os.path.isdir(modelpath) else []
+    candidates += _hf_snapshots(modelpath, "tokenizer.json")
+    return next((c for c in candidates if os.path.isfile(c)), None)
+
+
 def find_spiece(modelpath: str) -> Optional[str]:
     """A ``spiece.model`` for ``modelpath``: the file itself, one in the
     directory, the asset drop's ``<root>/<name>/spiece.model`` for a bare
@@ -169,11 +217,7 @@ def find_spiece(modelpath: str) -> Optional[str]:
         # bare model names ('t5-base', 'google/t5-base')
         candidates.append(os.path.join(
             assets_root(), modelpath.split("/")[-1], "spiece.model"))
-    cache = os.environ.get(
-        "HF_HOME", os.path.expanduser("~/.cache/huggingface"))
-    slug = "models--" + modelpath.replace("/", "--")
-    candidates += glob.glob(
-        os.path.join(cache, "hub", slug, "snapshots", "*", "spiece.model"))
+    candidates += _hf_snapshots(modelpath, "spiece.model")
     for c in candidates:
         if os.path.isfile(c):
             return c
@@ -183,8 +227,9 @@ def find_spiece(modelpath: str) -> Optional[str]:
 def make_tokenizer(modelpath: str = "t5-base", max_length: int = 200,
                    vocab_size: int = 32128):
     """The best tokenizer for ``modelpath``: a ``spiece.model``'s
-    ``SentencePieceTokenizer``, else ``WordHashTokenizer`` with a warning
-    (its ids are NOT t5-base, so released checkpoints are not conditioned
+    ``SentencePieceTokenizer``, else a cached HF tokenizer's
+    ``HFTokenizer``, else ``WordHashTokenizer`` with a warning (its ids are
+    NOT t5-base, so released checkpoints are not conditioned
     faithfully)."""
     spiece = find_spiece(modelpath)
     if spiece is not None:
@@ -192,6 +237,12 @@ def make_tokenizer(modelpath: str = "t5-base", max_length: int = 200,
             return SentencePieceTokenizer(spiece, max_length=max_length)
         except Exception as e:  # a corrupt asset: fall through
             warnings.warn(f"failed to load {spiece}: {e}")
+    if find_tokenizer_json(modelpath) is not None:
+        try:
+            return HFTokenizer(modelpath, max_length=max_length)
+        except Exception as e:  # a layout the port does not read
+            warnings.warn(f"failed to load the HF tokenizer of "
+                          f"{modelpath!r}: {e}")
     warnings.warn(
         f"no t5 tokenizer assets found for {modelpath!r}; falling back to "
         "WordHashTokenizer — token ids will NOT match t5-base, so text "

@@ -23,7 +23,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from convofusion_tpu_torch.ops.layers import Dropout, Linear
+from convofusion_tpu_torch.ops.layers import (
+    Dropout,
+    Linear,
+    default_init_enabled,
+)
 
 _BIG_NEG = -1e9
 
@@ -53,7 +57,8 @@ class MultiheadAttention(nn.Module):
             torch.zeros(3 * d_model, dtype=dtype))
         self.out_proj = Linear(d_model, d_model, dtype=dtype)
         self.attn_dropout = Dropout(dropout)
-        nn.init.xavier_uniform_(self.in_proj_weight)
+        if default_init_enabled():
+            nn.init.xavier_uniform_(self.in_proj_weight)
 
     @property
     def dtype(self):

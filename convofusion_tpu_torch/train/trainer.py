@@ -1,8 +1,13 @@
 """Training loop: AdamW with optax's semantics on the trainable parameters,
 fp32 master weights, and the step loop.
 
-Port of ``convofusion_tpu/train/trainer.py`` (single device; the data-
-parallel mesh is not ported).
+Port of ``convofusion_tpu/train/trainer.py``.  Under a
+``torch.distributed`` group (``parallel/mesh.py``) each rank computes its
+share of the global batch, and ``compute_grads`` averages the trainable
+gradients, the loss and its terms over the ranks in fp32, in one flattened
+bucket, before the optimizer's global-norm clip sees them: what JAX's
+``psum`` over the data mesh gives.  Frozen subtrees take part in no
+collective; with one rank the mean of one copy changes no bit.
 
 - ``frozen_names``: the T5 trunk never trains (reference t5.py:35-37), and
   stage 2 freezes the whole VAE (reference convofusion.py:78-82).  Frozen
@@ -32,6 +37,7 @@ import torch
 from torch import nn
 
 from convofusion_tpu_torch.models.convofusion import Convofusion
+from convofusion_tpu_torch.parallel import mesh
 
 
 def frozen_names(stage: str) -> Tuple[str, ...]:
@@ -171,6 +177,8 @@ class Trainer:
         self.params = [p for _, p in named]
         self.masters: Optional[List[torch.Tensor]] = None
         self.state: Optional[AdamWState] = None
+        # the rank-averaged fp32 gradients of the last compute_grads
+        self._reduced: Optional[List[torch.Tensor]] = None
 
     def state_dict(self) -> Dict:
         """The optimizer's state by parameter name: the fp32 masters, the
@@ -259,7 +267,7 @@ class Trainer:
     def training(self):
         """The model in train mode with the trainable parameters requiring
         grad; as it was afterwards.  The stage-2 loss runs the frozen VAE in
-        eval mode itself; the frozen T5 trunk has no dropout."""
+        eval mode itself; the frozen T5 trunk trains only its dropout."""
         model = self.model
         was_training = model.training
         saved = [(p, p.requires_grad) for p in model.parameters()]
@@ -279,17 +287,43 @@ class Trainer:
                       = None, draws: Optional[Dict] = None):
         """The stage's loss and its backward, leaving ``.grad`` on the
         trainable parameters; inside :meth:`training`.  Returns (loss,
-        terms), detached 0-dim tensors."""
+        terms), detached 0-dim tensors.  Under a group the returned loss and
+        terms, and the gradients :meth:`apply_grads` steps with, are the
+        means over the ranks (``.grad`` keeps this rank's own)."""
+        if mesh.world_size() > 1 and \
+                float(self.cfg.get("train", {}).get("loss", {}).get(
+                    "lambda_prior", 0.0)):
+            raise NotImplementedError(
+                "LOSS.LAMBDA_PRIOR with data parallelism: the prior chunk "
+                "splits the global batch, not a rank's")
         loss, terms = self.loss_fn()(batch, generator, draws)
         loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in terms.items()}
+        loss, terms = loss.detach(), {k: v.detach() for k, v in terms.items()}
+        self._reduced = None
+        if mesh.is_initialized():
+            names = list(terms)
+            out = mesh.all_reduce_mean(
+                self._fp32_grads() + [loss] + [terms[k] for k in names])
+            n = len(self.params)
+            self._reduced = out[:n]
+            loss = out[n]
+            terms = dict(zip(names, out[n + 1:]))
+        return loss, terms
+
+    def _fp32_grads(self) -> List[torch.Tensor]:
+        """Each trainable parameter's ``.grad`` in fp32, zero where it got
+        none."""
+        return [torch.zeros_like(m) if p.grad is None else p.grad.float()
+                for p, m in zip(self.params, self.masters)]
 
     def apply_grads(self):
-        """One AdamW step of the masters from the ``.grad`` in fp32 (zero
-        where a parameter got none), then the rounded masters into the
-        model's parameters."""
-        grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
-                 for p, m in zip(self.params, self.masters)]
+        """One AdamW step of the masters from the gradients in fp32 (the
+        ranks' mean under a group, else ``.grad``; zero where a parameter
+        got none), then the rounded masters into the model's
+        parameters."""
+        grads = self._reduced if self._reduced is not None \
+            else self._fp32_grads()
+        self._reduced = None
         with torch.no_grad():
             updates = self.optimizer.update(grads, self.state, self.masters)
             torch._foreach_add_(self.masters, updates)

@@ -149,9 +149,11 @@ def test_trans_dec_post_norm_raises_in_both():
 
 
 def test_causal_attn_raises_in_both():
+    """The same error in both: JAX's factory raises ValueError (a value
+    JAX rejects), and so does the port's from_cfg."""
     with pytest.raises(ValueError, match="CAUSAL_ATTN"):
         build_denoiser(ablation={"CAUSAL_ATTN": True})
-    with pytest.raises(NotImplementedError, match="CAUSAL_ATTN"):
+    with pytest.raises(ValueError, match="CAUSAL_ATTN"):
         C.from_cfg(OmegaConf.merge(C.tiny_config("diffusion"),
                                    OmegaConf.from_dotlist(
                                        ["TRAIN.ABLATION.CAUSAL_ATTN=true"])))

@@ -158,11 +158,21 @@ def test_serve_block_and_optimizer_knobs():
 
 
 @pytest.mark.parametrize("override,key", [
-    ("TRAIN.ABLATION.CAUSAL_ATTN=true", "CAUSAL_ATTN"),
     ("model.denoiser.params.normalize_before=false", "normalize_before"),
+    # JAX builds no tensor-parallel layout from it: no JAX CLI reads
+    # TPU.MESH.MODEL
     ("TPU.MESH.MODEL=2", "TPU.MESH.MODEL"),
+    # JAX pops it and samples fixed_small (factory.py:178,
+    # convofusion.py:158)
     ("model.scheduler.params.variance_type=fixed_large", "variance_type"),
+    # JAX reads both and drops them: the trunk stays frozen, the last
+    # layer's states are used (factory.py:141-161)
     ("model.text_encoder.params.finetune=true", "finetune"),
+    ("model.text_encoder.params.last_hidden_state=true",
+     "last_hidden_state"),
+    # JAX passes no rate to the audio MLP, which keeps 0.1
+    # (factory.py:164-173)
+    ("model.audio_encoder.params.dropout=0.2", "audio_encoder.params.dropout"),
 ])
 def test_unsupported_knob_raises(override, key):
     with pytest.raises(NotImplementedError, match=key):
@@ -201,6 +211,9 @@ def test_ablation_knob_builds(override, path, want):
     ("model.denoiser.params.arch=mlp", "denoiser.params.arch"),
     ("model.motion_vae.params.position_embedding=rotary",
      "motion_vae.params.position_embedding"),
+    # JAX raises ValueError: the reference's knob fails in torch
+    # (factory.py:106-116)
+    ("TRAIN.ABLATION.CAUSAL_ATTN=true", "CAUSAL_ATTN"),
 ])
 def test_a_value_jax_rejects_raises(override, key):
     with pytest.raises(ValueError, match=key):
@@ -234,12 +247,15 @@ def test_stage_one_skips_the_denoiser_knobs():
     (["model.vae_type=no", "TRAIN.ABLATION.VAE_TYPE=convofusion"],
      ("vae_type",), "no"),
     ([], ("vae_type",), "convofusion"),
+    (["model.text_encoder.params.dropout=0.1"], ("text_encoder", "dropout"),
+     0.1),
 ])
 def test_ported_knob_is_read(overrides, path, want):
-    """``fuse_streams``, ``remat``, ``TPU.REMAT`` and ``VAE_TYPE: no``
-    reach the dict (JAX convofusion.py:84-110, :149-153): ``model.vae_type``
-    wins over ``TRAIN.ABLATION.VAE_TYPE``, YAML's unquoted ``no`` (False)
-    reads 'no'; the rest of the dict is PRODUCTION's."""
+    """``fuse_streams``, ``remat``, ``TPU.REMAT``, ``VAE_TYPE: no`` and the
+    T5 trunk's dropout reach the dict (JAX convofusion.py:84-110, :149-153,
+    factory.py:158): ``model.vae_type`` wins over
+    ``TRAIN.ABLATION.VAE_TYPE``, YAML's unquoted ``no`` (False) reads 'no';
+    the rest of the dict is PRODUCTION's."""
     got = C.from_cfg(_load(EXPERIMENTS[0], DDIM_50 + overrides))
     node = got
     for key in path:

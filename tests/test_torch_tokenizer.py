@@ -160,20 +160,29 @@ def test_proto_round_trip_and_synthesis_match_jax(models):
 
 
 def test_charsmap_model_refuses_what_it_cannot_normalize(tmp_path):
-    """A model with a Precompiled charsmap: printable ASCII tokenizes as
-    without one; any other character raises instead of an approximation."""
+    """A model with a Precompiled charsmap (the synthesized one's mappings
+    on the toy vocab) tokenizes printable ASCII as without one, and the
+    characters the port once refused exactly as JAX does; a charsmap whose
+    trie is empty (on which ``tokenizers`` panics at the first text) is
+    refused when the tokenizer is built."""
     model = toy_model()
     plain = tmp_path / "plain.model"
     plain.write_bytes(sp.serialize_model_proto(model))
-    model.precompiled_charsmap = b"\x00" * 16
+    model.precompiled_charsmap = sp.build_charsmap(sp.SYNTHETIC_CHARSMAP)
     charsmap = tmp_path / "charsmap.model"
     charsmap.write_bytes(sp.serialize_model_proto(model))
     a = tok.SentencePieceTokenizer(str(plain), max_length=32)
     b = tok.SentencePieceTokenizer(str(charsmap), max_length=32)
+    want = jax_tok.SentencePieceTokenizer(str(charsmap), max_length=32)
     _assert_same(a(["hello, world!"]), b(["hello, world!"]))
-    for text in ("héllo", "tab\there", "ﬁx"):
-        with pytest.raises(NotImplementedError, match="charsmap"):
-            b([text])
+    texts = ["héllo", "tab\there", "ﬁx", "it’s “so”", "ｈｅｌｌｏ\u00a0x"]
+    _assert_same(b(texts), want(texts))
+    _assert_same(b(texts, pad_to=PAD_TO), want(texts, pad_to=PAD_TO))
+    model.precompiled_charsmap = b"\x00" * 16
+    broken = tmp_path / "broken.model"
+    broken.write_bytes(sp.serialize_model_proto(model))
+    with pytest.raises(ValueError, match="charsmap"):
+        tok.SentencePieceTokenizer(str(broken), max_length=32)
 
 
 def test_find_and_make_tokenizer(models, tmp_path, monkeypatch):

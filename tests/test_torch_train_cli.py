@@ -19,7 +19,8 @@ geometry, fp32, on the CPU.
   ``encode_vae_posterior`` on weights carried by ``compat/from_jax``
   (within 1e-5), and the posterior cache in eval mode while a training
   step has the model in train mode.
-- Resume, the VAE transplant, SIGTERM in a subprocess, TPU.MULTIHOST.
+- Resume, the VAE transplant, SIGTERM in a subprocess, TPU.MULTIHOST
+  without torchrun's environment.
 """
 import glob
 import json
@@ -333,8 +334,14 @@ def test_resume_and_transplant(workdir):
     assert files == ["epoch=0.ckpt", "epoch=1.ckpt", "epoch=2.ckpt"]
 
 
-def test_multihost_raises(workdir):
-    with pytest.raises(NotImplementedError, match="TPU.MULTIHOST"):
+def test_multihost_raises(workdir, monkeypatch):
+    """TPU.MULTIHOST without torchrun's environment raises, naming what is
+    missing (2-rank training: test_torch_distributed_cli.py)."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="TPU.MULTIHOST=true needs "
+                                           "torchrun's environment: RANK"):
         cli_train.main(_argv(workdir, "vae", "mh", "TPU.MULTIHOST=true",
                              "--device", "cpu"))
 
