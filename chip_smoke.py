@@ -186,9 +186,26 @@ step kernel must be among them):
                characters: one batch of 32 at DDIM-50, 50 launches, the
                card's token ids equal to the host tokenizer's, ms to
                tokenize 32 texts with and without the charsmap
+ 19. tools    - tensor parallelism: one production-geometry stage-2 step,
+               fp32 batch 4, dropout 0, through the Trainer with a
+               create_mesh(1, 1) mesh and apply_tp under a world-size-1
+               NCCL group, against the plain Trainer on the card: step 1's
+               loss and every gradient within phase 11's bounds, the losses
+               of 3 AdamW steps too, describe_tp's counts, ms a step each
+               (one card holds one NCCL rank: the 2- and 4-rank TP steps are
+               proven with gloo on the CPU, tests/test_torch_tp*.py); the
+               host tools: BEAT-skeleton BVH takes of 7,200 frames (60 s at
+               120 fps) through beat_getjoints.convert_speaker on the card
+               and on the CPU (joint positions within 1e-4, the float64
+               kinematics within 1e-9, ms a file in parse and FK); a
+               5-person 120 s session through make_utterance_dataset on the
+               card and on the CPU (the same set directories, every file
+               byte-equal; sets and ms); the asset manifest: freeze, then
+               verify with one file changed and one added, and the CLI's
+               exit code 1
 Then the kernel against its plain version at any other shape the path
 phases launched it with, the whole run's wall time, a JSON line of per-kernel numbers
-(launches summed over phases 5-18 that ran, and each phase's count under
+(launches summed over phases 5-19 that ran, and each phase's count under
 launches_by_phase, every timed shape under shapes; the dpmpp and training
 phases launch no step kernel)
 and, last, the result line {"ok": true, "device": {...}}.
@@ -262,12 +279,20 @@ from convofusion_tpu_torch.ops import layers
 from convofusion_tpu_torch.ops.fused_streams import fuse_denoiser_params
 from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
 from convofusion_tpu_torch.parallel import mesh as dist_mesh
+from convofusion_tpu_torch.parallel import tp as tp_lib
+from convofusion_tpu_torch.scripts import beat_getjoints, synthetic
+from convofusion_tpu_torch.scripts import bvh as bvh_lib
+from convofusion_tpu_torch.scripts.make_utterance_dataset import (
+    process_session,
+)
+from convofusion_tpu_torch.scripts.transcribe import NullTranscriber
 from convofusion_tpu_torch.serving import (
     GestureRequest,
     build_service,
     serve_http,
 )
 from convofusion_tpu_torch.train import checkpoint as ckpt_lib
+from convofusion_tpu_torch.utils import assets as assets_lib
 from convofusion_tpu_torch.train import overfit
 from convofusion_tpu_torch.train.trainer import (
     Trainer,
@@ -394,6 +419,9 @@ UNGUIDED_STEPS = 4
 VARIANT_PARITY_BATCH, VARIANT_PARITY_STEPS = 4, 4
 VARIANT_LATENT_ATOL = 2e-3
 VARIANT_WARMUP, VARIANT_TURNS = 1, 1
+# the warm-up call before timed turns (phases 16, 17): DDIM-2, not -50
+# (the first call's one-time costs come within its first step)
+WARMUP_STEPS = 2
 OVERFIT_EPOCHS = 2
 # the raw-motion (vae_type 'no') latents the step kernel takes: (B, 128,
 # 189) at phase 16's batches
@@ -429,6 +457,9 @@ ABLATION_OVERRIDES = ["model.motion_vae.params.normalize_before=false",
 # decomposed accent among plain ones
 DISTRIBUTED_FILES, DISTRIBUTED_EPOCHS, DISTRIBUTED_RESUME_ATOL = 16, 2, 1e-6
 T5_DROPOUT, T5_DROPOUT_STEPS = 0.1, 3
+# phase 19: BEAT takes of 60 s at 120 fps, a 120 s 5-person DnD session
+BVH_FILES, BVH_FRAMES, BVH_ATOL, FK_ATOL = 3, 7200, 1e-4, 1e-9
+SESSION_SECONDS = 120
 CHARSMAP_WORDS = ("hello", "there", "friend", "story", "brave", "knights",
                   "dragons", "dice", "laugh", "night", "it\u2019s",
                   "\u201cfine\u201d", "caf\u00e9", "na\u00efve",
@@ -2659,7 +2690,8 @@ def fused_variant(smi, device):
     """The fused five-stream layout at the production width: weights from
     the unfused model through the converter; fp32 batch 4 DDIM-10 on the
     card against the CPU and against the unfused layout on the card; then
-    bf16 batch 96 DDIM-50 against the unfused layout, in turns."""
+    bf16 batch 96 DDIM-50 against the unfused layout, in turns after a
+    DDIM-2 warm-up of each."""
     cfg = copy.deepcopy(PRODUCTION)
     cfg["scheduler"].update(variant="ddim", num_inference_timesteps=STEPS)
     fcfg = copy.deepcopy(cfg)
@@ -2704,7 +2736,8 @@ def fused_variant(smi, device):
         for name, model in models.items():
             before = gs_mod.guided_step.launches
             t0 = time.perf_counter()
-            motion, _ = model.sample(batch, gen)
+            motion, _ = model.sample(batch, gen,
+                                     STEPS if turn else WARMUP_STEPS)
             _sync(device)
             dt = time.perf_counter() - t0
             counts[name] += gs_mod.guided_step.launches - before
@@ -2714,8 +2747,8 @@ def fused_variant(smi, device):
                                    f"not finite")
             if turn:
                 times[name].append(dt)
-    want = {"unfused": STEPS * (1 + VARIANT_TURNS) if on_card else 0,
-            "fused": 0}
+    want = {"unfused": (WARMUP_STEPS + STEPS * VARIANT_TURNS) if on_card
+            else 0, "fused": 0}
     if counts != want:
         raise RuntimeError(f"variants: step-kernel launches {counts}, want "
                            f"{want}")
@@ -3139,8 +3172,8 @@ def _profile_reverse(model, batch, gen):
 
 def step_paths(smi, device):
     """TPU.PALLAS_STEP false against true in sample(): the production
-    model, bf16 batch 96 DDIM-50, a warm-up and STEP_PATH_TURNS timed calls
-    of each path in turns of alternating order (50 launches a kernel call,
+    model, bf16 batch 96 DDIM-50, a DDIM-2 warm-up and STEP_PATH_TURNS
+    timed calls of each path in turns of alternating order (50 launches a kernel call,
     none a plain one), and a profile of a few steps of each; then fp32
     batch 2: one reverse step of both paths within 1e-5, and DDIM-10 of
     both within phase 4's bounds."""
@@ -3153,16 +3186,17 @@ def step_paths(smi, device):
     # a warm-up of each, then turns in alternating order: kernel, plain,
     # plain, kernel, ...
     for turn in range(1 + STEP_PATH_TURNS):
+        steps = STEPS if turn else WARMUP_STEPS
         for name in (("kernel", "plain") if turn % 2 else
                      ("plain", "kernel")):
             model.use_step_kernel = name == "kernel"
             before = gs_mod.guided_step.launches
             t0 = time.perf_counter()
-            motion, _ = model.sample(batch, gen)
+            motion, _ = model.sample(batch, gen, steps)
             _sync(device)
             dt = time.perf_counter() - t0
             n = gs_mod.guided_step.launches - before
-            if n != (STEPS if name == "kernel" and on_card else 0) or \
+            if n != (steps if name == "kernel" and on_card else 0) or \
                     tuple(motion.shape) != (BATCH, 128, 189) or \
                     not torch.isfinite(motion).all():
                 raise RuntimeError(f"ablations {name} step path: {n} "
@@ -3630,6 +3664,215 @@ def phase_distributed(smi, device="cuda"):
     PHASE_RESULTS["distributed"] = row
 
 
+def _tp_run(device, batch_raw, draws, layout):
+    """TRAIN_PARITY_STEPS fp32 stage-2 steps through the Trainer (placed on
+    ``layout`` when given): the losses, step 1's whole gradients, ms a
+    step (steps 2-3, synchronised) and the Trainer."""
+    model = Convofusion(without_dropout(PRODUCTION), dtype="float32",
+                        device=device, seed=0)
+    batch = train_batch(model, batch_raw)
+    trainer = Trainer(model, mesh=layout)
+    trainer.init_state()
+    losses, times, grads = [], [], None
+    for step in range(TRAIN_PARITY_STEPS):
+        _sync(device)
+        t0 = time.perf_counter()
+        with trainer.training():
+            loss, _ = trainer.compute_grads(batch, None, draws[step])
+            if grads is None:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in zip(trainer.names, trainer.params)
+                         if p.grad is not None}
+            trainer.apply_grads()
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    if layout is not None:
+        axis = tp_lib.model_axis(model)
+        grads = {n: tp_lib.full_tensor(g, model.tp_placements[n][1], axis)
+                 for n, g in grads.items()}
+    return losses, {n: g.cpu() for n, g in grads.items()}, \
+        statistics.median(times[1:]) * 1e3, model
+
+
+def tp_step(smi, device="cuda"):
+    """One production stage-2 step (and 3 AdamW steps) through the Trainer
+    with a (1, 1) ('data', 'model') mesh and the tensor-parallel placement
+    under a world-size-1 group (NCCL on the card) against the plain
+    Trainer: phase 11's bounds."""
+    b = TRAIN_PARITY_BATCH
+    raw = synthetic_raw_batch(191, b, mel_frames=PRODUCTION["mel_frames"])
+    draws = train_draws(np.random.default_rng(192), "diffusion", b,
+                        TRAIN_PARITY_STEPS, PRODUCTION["latent_dim"][1])
+    l_plain, g_plain, ms_plain, _ = _tp_run(device, raw, draws, None)
+    with torchrun_env():
+        dev = dist_mesh.init_distributed({"TPU": {"MULTIHOST": True}},
+                                         "cpu" if device == "cpu" else None)
+        try:
+            layout = dist_mesh.create_mesh(1, 1)
+            l_tp, g_tp, ms_tp, model = _tp_run(dev, raw, draws, layout)
+            counts = tp_lib.describe_tp(model, layout)
+            backend = torch.distributed.get_backend()
+            del model
+        finally:
+            dist_mesh.shutdown()
+    d_loss = abs(l_tp[0] - l_plain[0]) / abs(l_plain[0])
+    worst, worst_name = _grad_worst(g_tp, g_plain)
+    d_fit = max(abs(a - c) / abs(c) for a, c in zip(l_tp, l_plain))
+    log(f"# tools: TP stage-2 step, production fp32 batch {b}, "
+        f"create_mesh(1, 1) + apply_tp under a world-size-1 {backend} group "
+        f"on {smi}: {counts['sharded']} tensors split "
+        f"({counts['sharded_elements']} elements), {counts['replicated']} "
+        f"replicated ({counts['replicated_elements']}); step-1 loss "
+        f"{l_plain[0]:.6g}, relative gap {d_loss:.3g} (tolerance "
+        f"{TRAIN_LOSS_RTOL}); {len(g_plain)} gradients, the worst at "
+        f"{worst:.3g} of its tolerance ({worst_name}); {TRAIN_PARITY_STEPS} "
+        f"losses {[round(x, 6) for x in l_tp]} against "
+        f"{[round(x, 6) for x in l_plain]}, relative gap {d_fit:.3g}; "
+        f"{ms_tp:.2f} ms a step against {ms_plain:.2f} ms plain")
+    log("# tools: one card holds one NCCL rank: the 2-rank (1, 2) and "
+        "4-rank (2, 2) / (1, 4) TP steps are proven with gloo on the CPU "
+        "(tests/test_torch_tp.py, tests/test_torch_tp_mesh.py)")
+    if set(g_tp) != set(g_plain) or not d_loss <= TRAIN_LOSS_RTOL or \
+            not worst <= 1.0 or not d_fit <= TRAIN_FIT_RTOL or \
+            not all(np.isfinite(l_tp)) or counts["sharded"] == 0:
+        raise RuntimeError(f"tools: the TP step differs from the plain "
+                           f"step (loss {d_loss}, gradient {worst_name} at "
+                           f"{worst}, losses {d_fit})")
+    return {"ms_tp": ms_tp, "ms_plain": ms_plain, "counts": counts}
+
+
+def bvh_conversion(smi, device="cuda"):
+    """BVH_FILES BEAT-skeleton takes of BVH_FRAMES frames through
+    convert_speaker on the card and on the CPU: joint positions within
+    BVH_ATOL, the float64 kinematics within FK_ATOL; ms a file split into
+    parse and FK."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bvh") as tmp:
+        spk = os.path.join(tmp, "beat", "2")
+        os.makedirs(spk)
+        paths = [synthetic.write_beat_bvh(os.path.join(spk, f"take{i}.bvh"),
+                                          BVH_FRAMES, seed=i)
+                 for i in range(BVH_FILES)]
+        sides = {"card": device, "host": "cpu"}
+        seconds, fk = {}, {}
+        for side, dev in sides.items():
+            t0 = time.perf_counter()
+            n = beat_getjoints.convert_speaker(spk, os.path.join(tmp, side),
+                                               dev)
+            seconds[side] = time.perf_counter() - t0
+            if n != BVH_FILES:
+                raise RuntimeError(f"tools: {side} converted {n} files")
+        gap = max(float(np.abs(
+            np.load(os.path.join(tmp, "card", f"take{i}.npy"))
+            - np.load(os.path.join(tmp, "host", f"take{i}.npy"))).max())
+            for i in range(BVH_FILES))
+        shape = np.load(os.path.join(tmp, "card", "take0.npy")).shape
+        t0 = time.perf_counter()
+        data = bvh_lib.parse_bvh(paths[0])
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        for side, dev in sides.items():
+            _sync(dev)
+            t0 = time.perf_counter()
+            pos, _ = bvh_lib.world_positions(data, dev)
+            _sync(dev)
+            fk[side] = ((time.perf_counter() - t0) * 1e3, pos.cpu())
+    fk_gap = float((fk["card"][1] - fk["host"][1]).abs().max())
+    log(f"# tools: BVH {BVH_FILES} takes x {BVH_FRAMES} frames "
+        f"({len(data.joints)} joints, {data.frames.shape[1]} channels) -> "
+        f"{shape} float32 each: convert_speaker {seconds['card']:.2f} s on "
+        f"{smi}, {seconds['host']:.2f} s on the CPU; max|gap| {gap:.3g} (tol "
+        f"{BVH_ATOL}); float64 FK max|gap| {fk_gap:.3g} (tol {FK_ATOL}); a "
+        f"file: parse {parse_ms:.1f} ms, FK {fk['card'][0]:.1f} ms on the "
+        f"card, {fk['host'][0]:.1f} ms on the CPU")
+    if not gap <= BVH_ATOL or not fk_gap <= FK_ATOL:
+        raise RuntimeError(f"tools: the card's BVH conversion differs "
+                           f"({gap}, FK {fk_gap})")
+    return {"convert_s": seconds["card"], "convert_cpu_s": seconds["host"],
+            "parse_ms": parse_ms, "fk_ms": fk["card"][0],
+            "fk_cpu_ms": fk["host"][0]}
+
+
+def _tree_bytes(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def utterance_sets(smi, device="cuda"):
+    """A SESSION_SECONDS 5-person session through process_session (silence
+    scans on the device) on the card and on the CPU: the same set
+    directories, every .npy / .wav / .txt byte-equal."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_utt") as tmp:
+        sess = synthetic.write_session(os.path.join(tmp, "sessions", "g1"),
+                                       SESSION_SECONDS, seed=11)
+        sets, secs, trees = {}, {}, {}
+        for side, dev in (("card", device), ("host", "cpu")):
+            out = os.path.join(tmp, side)
+            t0 = time.perf_counter()
+            sets[side] = process_session(sess, out,
+                                         transcriber=NullTranscriber(),
+                                         device=dev)
+            secs[side] = time.perf_counter() - t0
+            trees[side] = _tree_bytes(out)
+    same = trees["card"] == trees["host"]
+    kinds = sorted({os.path.splitext(k)[1] for k in trees["card"]})
+    log(f"# tools: utterance sets from a {SESSION_SECONDS} s 5-person "
+        f"session: {sets['card']} sets ({len(trees['card'])} files {kinds}) "
+        f"in {secs['card'] * 1e3:.1f} ms on {smi}, {sets['host']} in "
+        f"{secs['host'] * 1e3:.1f} ms on the CPU; every file byte-equal: "
+        f"{same}")
+    if not same or not sets["card"] or kinds != [".npy", ".txt", ".wav"]:
+        raise RuntimeError("tools: the card's utterance sets differ from "
+                           "the CPU's")
+    return {"sets": sets["card"], "ms": secs["card"] * 1e3,
+            "cpu_ms": secs["host"] * 1e3}
+
+
+def asset_manifest():
+    """freeze, then verify with one file changed and one added: 'changed'
+    and 'untracked', and the --verify CLI exits 1."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_assets") as tmp, \
+            asset_root(tmp):
+        os.makedirs(os.path.join(tmp, "t5-base"))
+        for rel, data in (("t5-base/spiece.model", b"spiece"),
+                          ("eval/last_499.bin", b"\x00" * 4096)):
+            os.makedirs(os.path.dirname(os.path.join(tmp, rel)),
+                        exist_ok=True)
+            with open(os.path.join(tmp, rel), "wb") as f:
+                f.write(data)
+        frozen = assets_lib.freeze()
+        with open(os.path.join(tmp, "t5-base", "spiece.model"), "wb") as f:
+            f.write(b"spiecf")
+        with open(os.path.join(tmp, "stray.txt"), "w") as f:
+            f.write("x")
+        verdict = assets_lib.verify()
+        with contextlib.redirect_stdout(io.StringIO()):
+            code = assets_lib.main(["--verify"])
+    log(f"# tools: asset manifest: froze {len(frozen)} files; verify "
+        f"{verdict}; --verify exit {code}")
+    if verdict != {"t5-base/spiece.model": "changed",
+                   "eval/last_499.bin": "ok", "stray.txt": "untracked"} \
+            or code != 1:
+        raise RuntimeError("tools: the asset manifest's verdict is wrong")
+    return {"verify_exit": code}
+
+
+def phase_tools(smi, device="cuda"):
+    """Phase 19: tensor parallelism and the host tools."""
+    row = {}
+    for name, fn in (("tp_step", lambda: tp_step(smi, device)),
+                     ("bvh", lambda: bvh_conversion(smi, device)),
+                     ("utterance_sets", lambda: utterance_sets(smi, device)),
+                     ("assets", asset_manifest)):
+        t0 = time.perf_counter()
+        row[name] = fn()
+        log(f"# tools: {name} part in {time.perf_counter() - t0:.1f} s")
+    PHASE_RESULTS["tools"] = row
+
+
 def phase_main(smi):
     model = Convofusion(PRODUCTION, dtype="bfloat16", seed=1)
     raw = synthetic_raw_batch(21, BATCH, mel_frames=PRODUCTION["mel_frames"])
@@ -3733,7 +3976,7 @@ PHASES = {4: "parity", 5: "main", 6: "weg_parity", 7: "serve",
           8: "rollout_parity", 9: "rollout", 10: "dpmpp",
           11: "train_parity", 12: "train", 13: "checkpoint", 14: "test_cli",
           15: "train_cli", 16: "variants", 17: "ablations",
-          18: "distributed"}
+          18: "distributed", 19: "tools"}
 # the phases whose runs launch the step kernel (the others must not)
 PATH_PHASES = {5, 6, 7, 8, 9, 13, 14, 15, 16, 17, 18}
 
@@ -3755,7 +3998,7 @@ def parse_phases(spec: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
-    ap.add_argument("--phases", default="1-18", type=parse_phases,
+    ap.add_argument("--phases", default="1-19", type=parse_phases,
                     help="e.g. '1-3,13' (default every phase; 1-3 always "
                          "run)")
     chosen = ap.parse_args(argv).phases
@@ -3789,7 +4032,8 @@ def main(argv=None):
             15: lambda: phase_train_cli(smi),
             16: lambda: phase_variants(smi),
             17: lambda: phase_ablations(smi),
-            18: lambda: phase_distributed(smi)}
+            18: lambda: phase_distributed(smi),
+            19: lambda: phase_tools(smi)}
     by_phase = {}
     for number in sorted(chosen - {1, 2, 3}):
         gs_mod.guided_step.launches = 0

@@ -37,6 +37,10 @@ path in ``convofusion_tpu/``):
   data/                   BEAT/DnD datasets, collates, loader, fixture
                           trees, TextGrid, wav and mel (host and batch)
   native/                 the host C++ mel kernel (g++, ctypes)
+  parallel/               data parallelism (mesh.py), tensor parallelism
+                          (tp.py), the dp x tp dry run (dryrun.py)
+  scripts/                host tools: BVH FK, BEAT joints, silence,
+                          utterance sets, transcription, visualisation
   utils/                  quaternions, geometry, logger, SampleTimer
   data/synthetic.py       seeded synthetic batches (also long-form)
 

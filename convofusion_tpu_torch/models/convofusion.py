@@ -152,23 +152,23 @@ def vae_posterior(vae: nn.Module, motion: torch.Tensor
 def _draw(draws: Optional[Dict], name: str, make, device, axis: int = 0):
     """``draws[name]`` (a tensor or an array) moved to ``device`` if
     given, else ``make(k)`` with the batch axis ``axis`` k times this
-    rank's batch.  Under a data-parallel group of k ranks that draws the
-    global batch's values and keeps this rank's rows
-    (``parallel/mesh.local_rows``), as JAX draws over the global batch."""
+    rank's batch.  Under k data ranks that draws the global batch's values
+    and keeps this rank's rows (``parallel/mesh.local_rows``), as JAX draws
+    over the global batch."""
     if draws is not None and name in draws:
         value = draws[name]
         if not torch.is_tensor(value):
             value = torch.from_numpy(np.array(value))
         return value.to(device)
-    world = mesh.world_size()
+    world = mesh.data_size()
     return mesh.local_rows(make(world), axis) if world > 1 else make(1)
 
 
 def _masks_from_generator(loss):
     """A training loss whose ``Dropout`` masks draw from its ``generator``
     argument (JAX splits the dropout key off the step's key,
-    convofusion_tpu/models/convofusion.py:288-291,501-507); under a group
-    of several ranks, from the rank's own stream
+    convofusion_tpu/models/convofusion.py:288-291,501-507); under several
+    data ranks, from the data rank's own stream
     (``parallel/mesh.mask_generator``)."""
 
     @functools.wraps(loss)

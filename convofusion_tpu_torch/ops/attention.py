@@ -12,6 +12,12 @@ them (scaled_dot_product_attention returns none).  Attention dropout
 (``dropout``, the JAX module's rate) drops the softmax weights before they
 meet the values; the weights returned are the ones before dropout
 (``convofusion_tpu/ops/attention.py:88-98``).
+
+Placed by ``parallel/tp.apply_tp`` (``tp`` set), the module holds model
+rank r's thirds ``[q_r; k_r; v_r]`` of the packed projection and a
+row-parallel ``out_proj``: with heads that divide by the model ranks it
+attends over its own heads, else (the single-head streams) over the
+all-gathered q/k/v, passing on its slice of the output.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ def _softmax(logits, dtype):
 
 
 class MultiheadAttention(nn.Module):
+    tp = None       # the model axis, once parallel/tp.apply_tp placed it
+
     def __init__(self, d_model: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
@@ -65,8 +73,11 @@ class MultiheadAttention(nn.Module):
         return self.in_proj_weight.dtype
 
     def _proj(self, x, lo, hi):
-        d = self.d_model
-        return F.linear(x.to(self.dtype), self.in_proj_weight[lo * d:hi * d],
+        d = self.in_proj_weight.shape[0] // 3     # this rank's share of q
+        x = x.to(self.dtype)
+        if self.tp is not None:
+            x = self.tp.copy_to(x)
+        return F.linear(x, self.in_proj_weight[lo * d:hi * d],
                         self.in_proj_bias[lo * d:hi * d])
 
     def q_proj(self, x):
@@ -91,7 +102,13 @@ class MultiheadAttention(nn.Module):
         else:
             q, k, v = (self._proj(query, 0, 1), self._proj(key, 1, 2),
                        self._proj(value, 2, 3))
-        b, tq, d = q.shape
+        tp = self.tp
+        own_heads = tp is not None and h % tp.size == 0
+        if own_heads:
+            h //= tp.size
+        elif tp is not None:
+            q, k, v = (tp.gather_from(t) for t in (q, k, v))
+        b, tq, _ = q.shape
         tk = k.shape[1]
         q = q.reshape(b, tq, h, hd).transpose(1, 2)
         k = k.reshape(b, tk, h, hd).transpose(1, 2)
@@ -103,9 +120,15 @@ class MultiheadAttention(nn.Module):
                 key_padding_mask[:, None, None, :], _BIG_NEG)
         weights = _softmax(logits, self.dtype)
         out = (self.attn_dropout(weights) @ v).transpose(1, 2).reshape(
-            b, tq, d)
+            b, tq, h * hd)
+        if tp is not None and not own_heads:
+            out = tp.scatter_to(out)
         out = self.out_proj(out)
-        return out, (weights.mean(dim=1) if need_weights else None)
+        if not need_weights:
+            return out, None
+        if own_heads:        # the mean over every rank's heads
+            return out, tp.reduce_from(weights.sum(dim=1)) / self.num_heads
+        return out, weights.mean(dim=1)
 
     def grouped_attend(self, q_group, k, v, key_padding_mask=None):
         """Single-head attention of G guidance branches sharing keys.
@@ -116,6 +139,8 @@ class MultiheadAttention(nn.Module):
         (out (G, B, Tq, D), weights (G, B, Tq, Tk))."""
         if self.num_heads != 1:
             raise ValueError("grouped_attend is single-head")
+        if self.tp is not None:     # this rank's features: attend on all
+            q_group, k, v = (self.tp.gather_from(t) for t in (q_group, k, v))
         scale = _sqrt_in(self.d_model, q_group.dtype)
         shared_kv = k.shape[0] == 1 and q_group.shape[1] != 1
         if shared_kv:
@@ -125,4 +150,7 @@ class MultiheadAttention(nn.Module):
             logits = logits.masked_fill(
                 key_padding_mask[None, :, None, :], _BIG_NEG)
         weights = _softmax(logits, self.dtype)
-        return self.attn_dropout(weights) @ v, weights
+        out = self.attn_dropout(weights) @ v
+        if self.tp is not None:
+            out = self.tp.scatter_to(out)
+        return out, weights

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from convofusion_tpu_torch.parallel.tp import linear as parallel_linear
+
 
 # False while a seeded model is built: its init_weights overwrites every
 # Linear and Embedding weight and every packed attention projection, so
@@ -51,13 +53,19 @@ def default_init_enabled() -> bool:
 
 
 class Linear(nn.Linear):
-    """``nn.Dense(dtype=...)``: the input is cast to the weight's dtype."""
+    """``nn.Dense(dtype=...)``: the input is cast to the weight's dtype.
+    ``parallel/tp.apply_tp`` sets ``tp`` on a column- or row-parallel
+    layer, whose forward is then ``parallel/tp.linear``."""
+
+    tp = None
 
     def reset_parameters(self):
         if _DEFAULT_INIT.get():
             super().reset_parameters()
 
     def forward(self, x):
+        if self.tp is not None:
+            return parallel_linear(self, x)
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
@@ -121,7 +129,13 @@ class Dropout(nn.Module):
     with no op launched, unless the module trains and ``p > 0``.  The mask
     is a Bernoulli(1 - p) draw from the generator of the enclosing
     :func:`dropout_generator` block, and the kept values are scaled by
-    1 / (1 - p)."""
+    1 / (1 - p).  ``shard`` = (model axis, dim), set by
+    ``parallel/tp.apply_tp``, marks the input as this rank's slice along
+    ``dim`` of an activation split over the model ranks: the mask is drawn
+    at the whole activation's shape and sliced, the draw one process
+    makes."""
+
+    shard = None
 
     def __init__(self, p: float = 0.0):
         super().__init__()
@@ -130,8 +144,16 @@ class Dropout(nn.Module):
     def forward(self, x):
         if self.training and self.p > 0.0:
             keep = 1.0 - self.p
-            mask = torch.empty_like(x).bernoulli_(
-                keep, generator=_DROPOUT_GENERATOR.get())
+            gen = _DROPOUT_GENERATOR.get()
+            if self.shard is None:
+                mask = torch.empty_like(x).bernoulli_(keep, generator=gen)
+            else:
+                axis, dim = self.shard
+                n = x.shape[dim]
+                shape = list(x.shape)
+                shape[dim] = n * axis.size
+                mask = x.new_empty(shape).bernoulli_(
+                    keep, generator=gen).narrow(dim, axis.rank * n, n)
             return (x * mask).mul_(1.0 / keep)
         return x
 

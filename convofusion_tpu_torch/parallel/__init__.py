@@ -1,1 +1,2 @@
-"""Data parallelism over torch.distributed (``parallel/mesh.py``)."""
+"""Data and tensor parallelism over torch.distributed (``parallel/mesh.py``,
+``parallel/tp.py``; ``parallel/dryrun.py``, the dp and dp x tp dry run)."""

@@ -21,18 +21,27 @@ fp32 bucket (``train/trainer.py``).
   waits on the coordination service rather than a device collective.
 * :func:`local_data_parallel` answers "no sharding" with one process a
   device, as JAX does on one chip; :func:`local_device_count` is 1.
+* :func:`create_mesh` lays the group out as JAX's (n_data, n_model)
+  ('data', 'model') mesh (``convofusion_tpu/parallel/mesh.py:20-29``): a
+  ``torch.distributed`` DeviceMesh whose model rows are consecutive ranks,
+  as JAX reshapes its device list.  It becomes the process's layout:
+  :func:`data_rank`, :func:`data_size`, :func:`local_rows`,
+  :func:`mask_generator` and :func:`all_reduce_mean` then answer for the
+  'data' axis alone, and ``parallel/tp.py`` splits the parameters over
+  'model'.  Without a mesh the data axis is the whole group.
 * JAX's ``compile_synced`` has no counterpart: nothing is compiled ahead of
   a step, so no rank can wait on another's compile.
 
 Randomness under a group: each step's draws (noise, timesteps, VAE eps,
 modality-dropout groups) are drawn for the global batch from a generator
-every rank shares, and each rank keeps its rows (:func:`local_rows`), so
-the ranks' work together is one process's work on the global batch.  Layer
-dropout masks (``ops/layers.Dropout``, the T5 trunk's too) come from a
-stream of each rank's own (:func:`mask_generator`), seeded from the seed
-and the rank: drawing them at the global shape and keeping a slice would
-double that work.  With one rank nothing changes: the masks come from the
-loss's generator.
+every rank shares, and each data rank keeps its rows (:func:`local_rows`),
+so the ranks' work together is one process's work on the global batch.
+Layer dropout masks (``ops/layers.Dropout``, the T5 trunk's too) come from
+a stream of each data rank's own (:func:`mask_generator`), seeded from the
+seed and the data rank: drawing them at the global batch and keeping a
+slice would double that work.  The model ranks of one data row share that
+stream, so the activations they all hold stay equal.  With one data rank
+nothing changes: the masks come from the loss's generator.
 """
 from __future__ import annotations
 
@@ -46,8 +55,9 @@ import torch.distributed as dist
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 DEFAULT_TIMEOUT_S = 1800.0
 
-# the gloo side group of the process's group, set by init_distributed
-_STATE: Dict = {"side": None}
+# the gloo side group of the process's group, set by init_distributed, and
+# the process's ('data', 'model') layout, set by create_mesh
+_STATE: Dict = {"side": None, "mesh": None}
 # the per-rank dropout streams by device, and their seed
 _MASKS: Dict = {"seed": None, "streams": {}}
 
@@ -62,6 +72,51 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if is_initialized() else 1
+
+
+def create_mesh(n_data: int = -1, n_model: int = 1, device=None):
+    """The live group as an (n_data, n_model) DeviceMesh named ('data',
+    'model'), rank ``d * n_model + m`` at (d, m); ``n_data`` -1 takes the
+    rest of the world.  ``device``: the mesh's device type, by default the
+    group's ('cuda' under NCCL, else 'cpu').  The mesh becomes this
+    process's layout until :func:`shutdown`.  Raises without a group and
+    on a world that does not factor."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not is_initialized():
+        raise RuntimeError("create_mesh needs a live torch.distributed group "
+                           "(init_distributed, or torchrun's)")
+    n = world_size()
+    if n_data == -1 and n_model >= 1:
+        n_data = n // n_model
+    if n_model < 1 or n_data < 1 or n_data * n_model != n:
+        raise ValueError(f"{n} ranks cannot form a ({n_data}, {n_model}) "
+                         f"mesh")
+    if device is None:
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    layout = init_device_mesh(torch.device(device).type, (n_data, n_model),
+                              mesh_dim_names=("data", "model"))
+    _STATE["mesh"] = layout
+    return layout
+
+
+def data_rank() -> int:
+    """This process's index on the 'data' axis (its rank without a
+    mesh)."""
+    layout = _STATE["mesh"]
+    return layout.get_local_rank("data") if layout is not None else rank()
+
+
+def data_size() -> int:
+    """The 'data' axis' length (the world without a mesh)."""
+    layout = _STATE["mesh"]
+    return layout.size(0) if layout is not None else world_size()
+
+
+def data_group():
+    """The group of this rank's 'data' axis (None: the whole world)."""
+    layout = _STATE["mesh"]
+    return layout.get_group("data") if layout is not None else None
 
 
 def is_main() -> bool:
@@ -111,10 +166,11 @@ def init_distributed(cfg, device=None) -> Optional[torch.device]:
 
 
 def shutdown() -> None:
-    """Leave the group (no-op without one) and forget the mask streams."""
+    """Leave the group (no-op without one) and forget the mesh and the mask
+    streams."""
     if is_initialized():
         dist.destroy_process_group()
-    _STATE["side"] = None
+    _STATE.update(side=None, mesh=None)
     _MASKS.update(seed=None, streams={})
 
 
@@ -153,15 +209,15 @@ def host_mean(values: Dict[str, float]) -> Dict[str, float]:
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The tensors averaged over the ranks, in fp32: one flattened bucket,
-    one collective.  The results are fp32 views of the bucket.  Without a
-    group, the tensors in fp32."""
+    """The tensors averaged over the data ranks, in fp32: one flattened
+    bucket, one collective over the 'data' axis.  The results are fp32
+    views of the bucket.  Without a group, the tensors in fp32."""
     tensors = [t.detach().float() for t in tensors]
     if not is_initialized():
         return tensors
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    flat.div_(world_size())
+    dist.all_reduce(flat, group=data_group())
+    flat.div_(data_size())
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view(t.shape))
@@ -171,18 +227,18 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 def local_rows(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """This rank's rows of a global-batch tensor along ``axis``: the
-    ``rank``-th of ``world_size`` equal blocks."""
-    world = world_size()
+    ``data_rank``-th of ``data_size`` equal blocks."""
+    world = data_size()
     if world == 1:
         return x
     n = x.shape[axis] // world
-    return x.narrow(axis, rank() * n, n)
+    return x.narrow(axis, data_rank() * n, n)
 
 
 def rank_seed(seed: int, r: Optional[int] = None) -> int:
-    """A seed for rank ``r`` (this rank by default) from ``seed``: ``seed``
-    itself for rank 0."""
-    r = rank() if r is None else r
+    """A seed for data rank ``r`` (this one by default) from ``seed``:
+    ``seed`` itself for rank 0."""
+    r = data_rank() if r is None else r
     return (int(seed) + r * 0x9E3779B97F4A7C15) % (1 << 63)
 
 
@@ -196,11 +252,11 @@ def seed_mask_streams(seed: int) -> None:
 def mask_generator(generator: Optional[torch.Generator], device
                    ) -> Optional[torch.Generator]:
     """The generator a loss's dropout masks draw from: ``generator`` with
-    one rank; under a group of several, this rank's own stream on
-    ``device``, seeded by :func:`seed_mask_streams` (else from
-    ``generator``'s initial seed) and the rank, so that the shared
-    ``generator`` advances alike on every rank."""
-    if world_size() == 1:
+    one data rank; with several, this data rank's own stream on ``device``,
+    seeded by :func:`seed_mask_streams` (else from ``generator``'s initial
+    seed) and the data rank, so that the shared ``generator`` advances
+    alike on every rank."""
+    if data_size() == 1:
         return generator
     device = torch.device(device)
     key = (device.type, device.index)

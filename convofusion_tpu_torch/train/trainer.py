@@ -9,6 +9,14 @@ bucket, before the optimizer's global-norm clip sees them: what JAX's
 ``psum`` over the data mesh gives.  Frozen subtrees take part in no
 collective; with one rank the mean of one copy changes no bit.
 
+With a ('data', 'model') mesh (``parallel/mesh.create_mesh``) the Trainer
+places the model by JAX's tensor-parallel rules (``parallel/tp.py``) and
+does what optax does over sharded arrays: each rank keeps masters and
+moments for the elements it holds, the gradient mean runs over the 'data'
+axis alone, and ``clip_by_global_norm`` sees the global norm, the squares
+of split tensors summed over the 'model' axis and the replicated ones
+counted once.
+
 - ``frozen_names``: the T5 trunk never trains (reference t5.py:35-37), and
   stage 2 freezes the whole VAE (reference convofusion.py:78-82).  Frozen
   parameters get no update and no weight decay, and no optimizer state.
@@ -37,7 +45,7 @@ import torch
 from torch import nn
 
 from convofusion_tpu_torch.models.convofusion import Convofusion
-from convofusion_tpu_torch.parallel import mesh
+from convofusion_tpu_torch.parallel import mesh, tp
 
 
 def frozen_names(stage: str) -> Tuple[str, ...]:
@@ -112,15 +120,18 @@ class AdamW:
         return AdamWState(mu=[torch.zeros_like(p) for p in params],
                           nu=[torch.zeros_like(p) for p in params])
 
-    def clip(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def clip(self, grads: Sequence[torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """``optax.clip_by_global_norm``: the gradients unchanged when
-        their global norm is below ``grad_clip``, else g / norm * c, decided
-        on the device (``clip_grad_norm_`` would divide by norm + 1e-6)."""
+        their global norm (``norm``, else that of ``grads``) is below
+        ``grad_clip``, else g / norm * c, decided on the device
+        (``clip_grad_norm_`` would divide by norm + 1e-6)."""
         grads = list(grads)
         if not self.grad_clip:
             return grads
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         keep = norm < self.grad_clip
         one = torch.ones_like(norm)
         return torch._foreach_mul(
@@ -128,9 +139,11 @@ class AdamW:
             torch.where(keep, one, one * self.grad_clip))
 
     def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
-               params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """The updates to add to ``params``; advances ``state``."""
-        grads = self.clip(grads)
+               params: Sequence[torch.Tensor],
+               norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """The updates to add to ``params``; advances ``state``.  ``norm``:
+        the gradients' global norm where ``grads`` are shards of it."""
+        grads = self.clip(grads, norm)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
@@ -165,16 +178,26 @@ class Trainer:
     stage (``model.stage``).  ``cfg`` defaults to the model's; its
     ``train['optim']`` block configures the optimizer.  Call
     :meth:`init_state` after loading weights (:meth:`fit_steps` and
-    :meth:`train_step` call it on first use)."""
+    :meth:`train_step` call it on first use).  ``mesh`` (a ('data',
+    'model') ``DeviceMesh``) places the model by the tensor-parallel rules
+    first (``parallel/tp.apply_tp``); the trainer then steps this rank's
+    shards."""
 
-    def __init__(self, model: Convofusion, cfg: Optional[Dict] = None):
+    def __init__(self, model: Convofusion, cfg: Optional[Dict] = None,
+                 mesh=None):
         self.model = model
         self.cfg = model.cfg if cfg is None else cfg
         self.stage = model.stage
         self.optimizer = make_optimizer(self.cfg)
+        if mesh is not None:
+            tp.apply_tp(model, mesh)
+        # the 'model' axis and each trainable parameter's placement on it
+        self.axis = tp.model_axis(model)
         named = trainable_parameters(model, self.stage)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.placements = [model.tp_placements[n][1] if self.axis else None
+                           for n in self.names]
         self.masters: Optional[List[torch.Tensor]] = None
         self.state: Optional[AdamWState] = None
         # the rank-averaged fp32 gradients of the last compute_grads
@@ -233,15 +256,18 @@ class Trainer:
         state dict in the model's names) holds the parameter, that tensor
         in fp32: a bf16 model loaded from fp32 weights then trains from
         those fp32 values, as JAX's fp32 parameters do, not from their
-        bf16 rounding."""
+        bf16 rounding.  On a placed model a whole tensor in ``weights``
+        gives this rank its shard."""
         weights = weights or {}
         masters = []
-        for n, p in zip(self.names, self.params):
+        for n, p, place in zip(self.names, self.params, self.placements):
             w = weights.get(n)
             if w is None:
                 masters.append(p.detach() if p.dtype == torch.float32
                                else p.detach().float())
                 continue
+            if self.axis is not None and tuple(w.shape) != tuple(p.shape):
+                w = tp.local_shard(w, place, self.axis.size, self.axis.rank)
             if tuple(w.shape) != tuple(p.shape):
                 raise ValueError(f"init_state: {n} has shape "
                                  f"{tuple(w.shape)}, the parameter "
@@ -290,7 +316,7 @@ class Trainer:
         terms), detached 0-dim tensors.  Under a group the returned loss and
         terms, and the gradients :meth:`apply_grads` steps with, are the
         means over the ranks (``.grad`` keeps this rank's own)."""
-        if mesh.world_size() > 1 and \
+        if mesh.data_size() > 1 and \
                 float(self.cfg.get("train", {}).get("loss", {}).get(
                     "lambda_prior", 0.0)):
             raise NotImplementedError(
@@ -325,7 +351,11 @@ class Trainer:
             else self._fp32_grads()
         self._reduced = None
         with torch.no_grad():
-            updates = self.optimizer.update(grads, self.state, self.masters)
+            norm = self._global_norm(grads) \
+                if self.axis is not None and self.optimizer.grad_clip \
+                else None
+            updates = self.optimizer.update(grads, self.state, self.masters,
+                                            norm)
             torch._foreach_add_(self.masters, updates)
             if self._lowp:
                 torch._foreach_copy_([p for p, _ in self._lowp],
@@ -334,6 +364,23 @@ class Trainer:
             p.grad = None
         # cached uncond encodes (CachedSampler) belong to the old weights
         self.model.weights_version += 1
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of the whole gradient of a placed model: the split
+        tensors' squares summed over the model ranks, the replicated
+        ones' (equal on every model rank) counted once."""
+        split = [g for g, place in zip(grads, self.placements)
+                 if not isinstance(place, tp.Replicate)]
+        whole = [g for g, place in zip(grads, self.placements)
+                 if isinstance(place, tp.Replicate)]
+
+        def squares(ts):
+            if not ts:
+                return torch.zeros((), device=self.model.device)
+            return torch.stack(torch._foreach_norm(ts)).square().sum()
+
+        total = tp.reduce_sum(squares(split), self.axis) + squares(whole)
+        return total.sqrt()
 
     def train_step(self, batch, generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict] = None):

@@ -127,8 +127,8 @@ def test_port_imports_no_jax():
     nor the JAX package comes along, the config system, the checkpoints,
     the asset drop, the tokenizers, the data pipeline, the test CLI, the
     learning proof, the fused streams, the model-type dispatch, the mask
-    helpers and the data-parallel mesh included (each keeps its own copy),
-    and neither do the
+    helpers, the data-parallel mesh, the tensor-parallel rules and the host
+    tools included (each keeps its own copy), and neither do the
     tokenizer packages the JAX side uses as its oracle."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -144,7 +144,11 @@ def test_port_imports_no_jax():
         "'data.fixture', 'utils.quaternion', 'utils.geometry', "
         "'utils.logger', 'utils.profiling', 'cli.test', 'train.overfit', "
         "'train.sampler_quality', 'ops.fused_streams', 'models.get_model', "
-        "'utils.masks', 'parallel', 'parallel.mesh')]\n"
+        "'utils.masks', 'parallel', 'parallel.mesh', 'parallel.tp', "
+        "'parallel.dryrun', 'scripts.bvh', 'scripts.beat_getjoints', "
+        "'scripts.silence', 'scripts.transcribe', "
+        "'scripts.make_utterance_dataset', 'scripts.visualize', "
+        "'scripts.synthetic')]\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'convofusion_tpu', "

@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (``test_torch_distributed*``):
+"""One rank of the port's data- and tensor-parallel tests
+(``test_torch_distributed*``, ``test_torch_tp.py``):
 ``python tests/torch_distributed_worker.py <scenario> <rank> <world>
 <port> <out_dir> [args...]``.  Each rank joins a gloo group on localhost
 through ``parallel/mesh.init_distributed`` (torchrun's environment set
@@ -15,11 +16,12 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
 
-from convofusion_tpu_torch.config import TINY  # noqa: E402
+from convofusion_tpu_torch.config import TINY, TINY_VAE  # noqa: E402
 from convofusion_tpu_torch.parallel import mesh  # noqa: E402
 
 B = 4            # a rank's batch
 STEPS = 3
+CLIP = 0.05      # a global-norm clip below the tiny model's step-1 norm
 # the test CLI's run: DDIM-3, WEG's refinement capped at 2
 TEST_OVERRIDES = ["model.scheduler.variant=ddim",
                   "model.scheduler.num_inference_timesteps=3",
@@ -107,6 +109,103 @@ def train_drawn(r: int, world: int, global_b: int):
                                       torch.Generator().manual_seed(9),
                                       log_every=1)
     return np.asarray(losses), model.state_dict()
+
+
+def tiny_tp(stage: str, grad_clip: float, dropout: float = 0.0):
+    """TINY (TINY_VAE for stage 'vae') at ``dropout`` with the optimizer's
+    global-norm clip at ``grad_clip`` (0: off)."""
+    cfg = tiny(dropout)
+    if stage == "vae":
+        cfg["train"] = copy.deepcopy(TINY_VAE["train"])
+    cfg["train"]["optim"]["grad_clip"] = grad_clip
+    return cfg
+
+
+def train_tp(stage: str, cfg, n_data: int, n_model: int, global_b: int):
+    """``STEPS`` Trainer steps of ``stage`` on an (n_data, n_model) mesh of
+    the live group (a world of one without a group: the plain Trainer),
+    each data rank on its rows of a global batch of ``global_b`` with the
+    global draws fed.  Returns the losses, the whole gradients of step 1
+    and the whole final weights (gathered over the model ranks)."""
+    from convofusion_tpu_torch.data.synthetic import (
+        prepare_arrays,
+        synthetic_raw_batch,
+    )
+    from convofusion_tpu_torch.models.convofusion import Convofusion
+    from convofusion_tpu_torch.parallel import tp
+    from convofusion_tpu_torch.train.trainer import Trainer
+
+    model = Convofusion(cfg, device="cpu", seed=0, stage=stage)
+    layout = mesh.create_mesh(n_data, n_model) if mesh.is_initialized() \
+        else None
+    d = mesh.data_rank()
+    raw = synthetic_raw_batch(0, global_b)
+    batch = ({"motion": torch.from_numpy(raw["motion_lsn"])}
+             if stage == "vae" else prepare_arrays(model, raw)[0])
+    batch = rows(batch, d, n_data)
+    trainer = Trainer(model, mesh=layout)
+    trainer.init_state()
+    axis = tp.model_axis(model)
+
+    def whole(name, t):
+        """``t``, this rank's shard of parameter ``name``, made whole."""
+        return t if axis is None else tp.full_tensor(
+            t.detach(), model.tp_placements[name][1], axis)
+
+    draws = global_draws(model, STEPS, global_b)
+    losses, grads = [], None
+    for step in range(STEPS):
+        gen = torch.Generator().manual_seed(100 + step)
+        with trainer.training():
+            loss, _ = trainer.compute_grads(batch, gen,
+                                            rows(draws[step], d, n_data))
+            if grads is None:
+                # the data ranks' mean where there are several
+                mean = trainer._reduced or [
+                    torch.zeros_like(p) if p.grad is None else p.grad
+                    for p in trainer.params]
+                grads = {n: whole(n, g) for n, g in zip(trainer.names, mean)}
+            trainer.apply_grads()
+        losses.append(float(loss))
+    weights = {n: whole(n, w) for n, w in model.named_parameters()}
+    return np.asarray(losses), _flat(grads), _flat(weights)
+
+
+def tp_cases(stage: str, n_data: int):
+    """name -> config of the tensor-parallel runs: without the clip, with a
+    clip that bites and, on one data rank, at dropout 0.1."""
+    cases = {"noclip": tiny_tp(stage, 0.0), "clip": tiny_tp(stage, CLIP)}
+    if n_data == 1:
+        cases["d1"] = tiny_tp(stage, 0.0, 0.1)
+    return cases
+
+
+def scenario_tp(r, world, out, n_data, stage):
+    """Tensor parallelism: :func:`tp_cases` on an (n_data, world / n_data)
+    mesh, 3 steps each."""
+    n_data = int(n_data)
+    n_model = world // n_data
+    results = {}
+    for name, cfg in tp_cases(stage, n_data).items():
+        losses, grads, weights = train_tp(stage, cfg, n_data, n_model,
+                                          n_data * B)
+        results[f"{name}/losses"] = losses
+        results.update({f"{name}/g/{k}": v for k, v in grads.items()})
+        results.update({f"{name}/w/{k}": v for k, v in weights.items()})
+    np.savez(os.path.join(out, f"tp_rank{r}.npz"), **results)
+
+
+def scenario_dryrun(r, world, out):
+    """``parallel/dryrun.dryrun`` on the live group; its results as JSON."""
+    from convofusion_tpu_torch.parallel import dryrun
+
+    result = dryrun.dryrun(torch.device("cpu"))
+    try:
+        mesh.create_mesh(world + 1, 1)
+    except ValueError as e:
+        result["bad_mesh"] = str(e)
+    with open(os.path.join(out, f"dryrun_rank{r}.json"), "w") as f:
+        json.dump(result, f)
 
 
 def _flat(state):
@@ -217,7 +316,8 @@ def main(argv):
         return
     mesh.init_distributed({"TPU": {"MULTIHOST": True}}, "cpu")
     try:
-        {"trainer": scenario_trainer}[scenario](r, world, out)
+        {"trainer": scenario_trainer, "tp": scenario_tp,
+         "dryrun": scenario_dryrun}[scenario](r, world, out, *argv[5:])
     finally:
         mesh.shutdown()
 
