@@ -293,6 +293,7 @@ from convofusion_tpu_torch.serving import (
 )
 from convofusion_tpu_torch.train import checkpoint as ckpt_lib
 from convofusion_tpu_torch.utils import assets as assets_lib
+from convofusion_tpu_torch.utils.profiling import COUNTS
 from convofusion_tpu_torch.train import overfit
 from convofusion_tpu_torch.train.trainer import (
     Trainer,
@@ -685,11 +686,11 @@ def phase_parity():
         model = Convofusion(PRODUCTION, dtype="float32", device=device,
                             seed=0)
         batch, _, _ = prepare_arrays(model, raw)
-        launches = gs_mod.guided_step.launches
+        launches = COUNTS["guided_step.launches"]
         motion, latents = model.sample(
             batch, num_inference_steps=PARITY_STEPS, init_noise=init,
             step_noise=steps)
-        if device == "cuda" and gs_mod.guided_step.launches - launches \
+        if device == "cuda" and COUNTS["guided_step.launches"] - launches \
                 != PARITY_STEPS:
             raise RuntimeError("parity run on the card missed the kernel")
         out[device] = (motion.float().cpu(), latents.cpu())
@@ -762,13 +763,13 @@ def phase_weg_parity(device="cuda"):
             for _ in range(repeats):
                 t0 = time.perf_counter()
                 model.weg_counts = type(model.weg_counts)()
-                launches = gs_mod.guided_step.launches
+                launches = COUNTS["guided_step.launches"]
                 motion, latents = model.sample(
                     batch, num_inference_steps=WEG_STEPS, init_noise=init,
                     step_noise=steps, focus={"focus_idx": fi,
                                              "focus_valid": fv},
                     weg_params=params)
-                if side != "cpu" and gs_mod.guided_step.launches \
+                if side != "cpu" and COUNTS["guided_step.launches"] \
                         - launches != WEG_STEPS:
                     raise RuntimeError("WEG parity run on the card missed "
                                        "the kernel")
@@ -993,12 +994,12 @@ def phase_serve(smi, device=None):
                                        SERVE_CLIENTS)
         _check_served(warm, "serve warm-up")
         svc.reset_stats()
-        gs_mod.guided_step.launches = 0
+        COUNTS["guided_step.launches"] = 0
         reqs = _serve_requests(SERVE_TIMED_BATCHES * BATCH, 41)
         motions, wall = _submit_from_clients(svc, reqs, SERVE_CLIENTS)
         _check_served(motions, "serve")
         st = svc.stats()
-        launches = gs_mod.guided_step.launches
+        launches = COUNTS["guided_step.launches"]
         if st["requests"] != SERVE_TIMED_BATCHES * BATCH or \
                 (on_card and launches != STEPS * st["batches"]):
             raise RuntimeError(f"serve: {st['requests']} requests in "
@@ -1072,7 +1073,7 @@ def phase_serve(smi, device=None):
             direct.setdefault(name, []).append(
                 (time.perf_counter() - t0) * 1e3)
             _check_served(list(motion.float().cpu().numpy()), "direct")
-        launches = gs_mod.guided_step.launches
+        launches = COUNTS["guided_step.launches"]
         if on_card and launches != STEPS * (http_st["batches"] + 2):
             raise RuntimeError(f"serve: {launches} kernel launches over "
                                f"{http_st['batches']} service batches and 2 "
@@ -1126,14 +1127,15 @@ def sampler_calls(device):
     call = CachedSampler.__call__
 
     def recording(self, *args, **kwargs):
-        launches = gs_mod.guided_step.launches
+        launches = COUNTS["guided_step.launches"]
         t0 = time.perf_counter()
         motion, latents = call(self, *args, **kwargs)
         if device.type == "cuda":
             torch.cuda.synchronize()
         calls.append(dict(latents=latents.cpu(),
                           seconds=time.perf_counter() - t0,
-                          launches=gs_mod.guided_step.launches - launches,
+                          launches=COUNTS["guided_step.launches"]
+                          - launches,
                           call=(self, args, kwargs)))
         return motion, latents
 
@@ -1248,7 +1250,7 @@ def phase_rollout(smi, device=None):
         timed = 0 < i <= ROLLOUT_TIMED
         parts = ROLLOUT_PARTS if timed else ROLLOUT_SHORT_PARTS
         batch, n_windows = batches[parts], 2 * parts - 1
-        before_enc, before = len(encodes), gs_mod.guided_step.launches
+        before_enc, before = len(encodes), COUNTS["guided_step.launches"]
         model.weg_counts = type(model.weg_counts)()
         t0 = time.perf_counter()
         with sampler_calls(dev) as calls:
@@ -1256,7 +1258,7 @@ def phase_rollout(smi, device=None):
                            weg_type=weg_type, verbose=False,
                            rng=random.Random(65))
         wall = time.perf_counter() - t0
-        n_launch = gs_mod.guided_step.launches - before
+        n_launch = COUNTS["guided_step.launches"] - before
         n_enc = len(encodes) - before_enc
         _check_windows(outs, (BATCH, 128, 189), "rollout")
         if on_card and n_launch != STEPS * n_windows:
@@ -1317,7 +1319,7 @@ def phase_dpmpp(smi, device="cuda"):
     raw = synthetic_raw_batch(71, b, mel_frames=cfg["mel_frames"])
     init = torch.from_numpy(np.random.default_rng(72).standard_normal(
         (b, 16, cfg["latent_dim"][1])).astype(np.float32))
-    before = gs_mod.guided_step.launches
+    before = COUNTS["guided_step.launches"]
     out = {}
     for side in (device, "cpu"):
         model = Convofusion(cfg, dtype="float32", device=side, seed=0)
@@ -1356,7 +1358,7 @@ def phase_dpmpp(smi, device="cuda"):
         if tuple(motion.shape) != (BATCH, 128, 189) or \
                 not torch.isfinite(motion).all():
             raise RuntimeError("dpmpp batch motion misshapen or not finite")
-    launches = gs_mod.guided_step.launches - before
+    launches = COUNTS["guided_step.launches"] - before
     if launches:
         raise RuntimeError(f"dpmpp launched the step kernel {launches} "
                            f"times")
@@ -1802,13 +1804,13 @@ def phase_checkpoint(smi, device=None, merged=None):
         try:
             served_differ = _bit_equal(svc.model, model,
                                        skip=ckpt_lib.TRUNK)
-            before = gs_mod.guided_step.launches
+            before = COUNTS["guided_step.launches"]
             t0 = time.perf_counter()
             motions, _ = _submit_from_clients(
                 svc, _serve_requests(svc.batch_size, 91), SERVE_CLIENTS)
             wall = time.perf_counter() - t0
             _check_served(motions, "checkpoint serve")
-            launches = gs_mod.guided_step.launches - before
+            launches = COUNTS["guided_step.launches"] - before
             st = svc.stats()
         finally:
             svc.close()
@@ -1898,9 +1900,9 @@ def launches_per_sample(calls):
     original = Convofusion.sample
 
     def counted(self, *args, **kwargs):
-        before = gs_mod.guided_step.launches
+        before = COUNTS["guided_step.launches"]
         out = original(self, *args, **kwargs)
-        calls.append(gs_mod.guided_step.launches - before)
+        calls.append(COUNTS["guided_step.launches"] - before)
         return out
 
     Convofusion.sample = counted
@@ -1964,20 +1966,21 @@ def phase_test_cli(smi, device=None):
         ckpt = ckpt_lib.save_checkpoint(os.path.join(tmp, "ckpt"), 0, model)
         on_card = model.device.type == "cuda"
         del model
-        mel_before = dict(audio.MEL_PATHS)
+        mel_before = dict(COUNTS)
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         calls = []
         with launches_per_sample(calls):
-            gs_mod.guided_step.launches = 0
+            COUNTS["guided_step.launches"] = 0
             t0 = time.perf_counter()
             run = cli_test.main(argv + [f"TEST.CHECKPOINTS={ckpt}"]
                                 + dev_arg)
             wall = time.perf_counter() - t0
-            launches = gs_mod.guided_step.launches
+            launches = COUNTS["guided_step.launches"]
         peak = torch.cuda.max_memory_allocated() if on_card else 0
-        mels = {k: audio.MEL_PATHS[k] - mel_before.get(k, 0)
+        mels = {k: COUNTS[f"melspec.{k}"]
+                - mel_before.get(f"melspec.{k}", 0)
                 for k in ("native", "numpy")}
         files = _result_files(run.out_dir)
         dirs = {os.path.dirname(f) for f in files if f.endswith("pred.npy")}
@@ -2210,7 +2213,7 @@ def phase_train_cli(smi, device=None):
                   "LOGGER.VAL_EVERY_STEPS=1", "LOGGER.SACE_CHECKPOINT_EPOCH=1",
                   "TPU.COMPUTE_DTYPE=bfloat16"]
         exp = os.path.join(tmp, "experiments", "convofusion")
-        before = gs_mod.guided_step.launches
+        before = COUNTS["guided_step.launches"]
 
         # stage 1
         t0 = time.perf_counter()
@@ -2330,7 +2333,7 @@ def phase_train_cli(smi, device=None):
             raise RuntimeError(f"train_cli: resume from {latest} started at "
                                f"{st3.start_epoch}: {st3.epochs}")
         _metric_rows(os.path.join(exp, "cf"), "resume")
-        train_launches = gs_mod.guided_step.launches - before
+        train_launches = COUNTS["guided_step.launches"] - before
         if train_launches:
             raise RuntimeError(f"train_cli: training launched the step "
                                f"kernel {train_launches} times")
@@ -2595,7 +2598,7 @@ def unguided_parity(device=None):
         np.float32))
     steps = torch.from_numpy(rng.standard_normal(
         (UNGUIDED_STEPS, b, 16, lat)).astype(np.float32))
-    before = gs_mod.guided_step.launches
+    before = COUNTS["guided_step.launches"]
     out = {}
     for side in (device, "cpu"):
         model = Convofusion(cfg, dtype="float32", device=side, seed=0)
@@ -2608,7 +2611,7 @@ def unguided_parity(device=None):
                 step_noise=steps if variant == "ddim" else None)
             out[side, variant] = (motion.float().cpu(), latents.cpu())
         del model
-    launches = gs_mod.guided_step.launches - before
+    launches = COUNTS["guided_step.launches"] - before
     for variant in ("ddim", "dpmpp_2m"):
         (m_dev, l_dev), (m_cpu, l_cpu) = out[device, variant], \
             out["cpu", variant]
@@ -2654,11 +2657,11 @@ def _fp32_sample(cfg, side, raw, init, steps, state_dict=None):
     if state_dict is not None:
         model.load_state_dict(state_dict)
     batch, _, _ = prepare_arrays(model, raw)
-    before = gs_mod.guided_step.launches
+    before = COUNTS["guided_step.launches"]
     motion, latents = model.sample(batch, num_inference_steps=len(steps),
                                    init_noise=init, step_noise=steps)
     return ((motion.float().cpu(), latents.cpu()),
-            gs_mod.guided_step.launches - before)
+            COUNTS["guided_step.launches"] - before)
 
 
 def _sync(device):
@@ -2734,13 +2737,13 @@ def fused_variant(smi, device):
     counts = {k: 0 for k in models}
     for turn in range(1 + VARIANT_TURNS):
         for name, model in models.items():
-            before = gs_mod.guided_step.launches
+            before = COUNTS["guided_step.launches"]
             t0 = time.perf_counter()
             motion, _ = model.sample(batch, gen,
                                      STEPS if turn else WARMUP_STEPS)
             _sync(device)
             dt = time.perf_counter() - t0
-            counts[name] += gs_mod.guided_step.launches - before
+            counts[name] += COUNTS["guided_step.launches"] - before
             if tuple(motion.shape) != (BATCH, 128, 189) or \
                     not torch.isfinite(motion).all():
                 raise RuntimeError(f"variants {name}: motion misshapen or "
@@ -2868,12 +2871,12 @@ def raw_motion_variant(smi, device):
     gen = torch.Generator(device=device).manual_seed(102)
     times = []
     for call in range(2):
-        before = gs_mod.guided_step.launches
+        before = COUNTS["guided_step.launches"]
         t0 = time.perf_counter()
         motion, latents = model.sample(batch, gen)
         _sync(device)
         times.append(time.perf_counter() - t0)
-        n = gs_mod.guided_step.launches - before
+        n = COUNTS["guided_step.launches"] - before
         if torch.device(device).type != "cuda":
             n = STEPS          # the plain version off the card
         if n != STEPS or tuple(motion.shape) != (BATCH, 128, 189) or \
@@ -3057,10 +3060,10 @@ def trans_enc_parity(device):
             grads = {n: p.grad.detach().cpu().clone()
                      for n, p in model.named_parameters()
                      if p.grad is not None}
-        before = gs_mod.guided_step.launches
+        before = COUNTS["guided_step.launches"]
         motion, latents = model.sample(batch, num_inference_steps=len(steps),
                                        init_noise=init, step_noise=steps)
-        n = gs_mod.guided_step.launches - before
+        n = COUNTS["guided_step.launches"] - before
         # guided sampling: no work, a ValueError naming trans_enc
         model.guidance_scale, model.do_classifier_free_guidance = 7.5, True
         try:
@@ -3071,7 +3074,7 @@ def trans_enc_parity(device):
                 raise
         else:
             raise RuntimeError("ablations trans_enc: guided sample() ran")
-        if gs_mod.guided_step.launches != before + n or n:
+        if COUNTS["guided_step.launches"] != before + n or n:
             raise RuntimeError(f"ablations trans_enc: {n} launches")
         out[side] = (float(loss), grads,
                      (motion.float().cpu(), latents.cpu()))
@@ -3190,12 +3193,12 @@ def step_paths(smi, device):
         for name in (("kernel", "plain") if turn % 2 else
                      ("plain", "kernel")):
             model.use_step_kernel = name == "kernel"
-            before = gs_mod.guided_step.launches
+            before = COUNTS["guided_step.launches"]
             t0 = time.perf_counter()
             motion, _ = model.sample(batch, gen, steps)
             _sync(device)
             dt = time.perf_counter() - t0
-            n = gs_mod.guided_step.launches - before
+            n = COUNTS["guided_step.launches"] - before
             if n != (steps if name == "kernel" and on_card else 0) or \
                     tuple(motion.shape) != (BATCH, 128, 189) or \
                     not torch.isfinite(motion).all():
@@ -3881,17 +3884,17 @@ def phase_main(smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    gs_mod.guided_step.launches = 0
+    COUNTS["guided_step.launches"] = 0
     times = []
     for call in range(1 + TIMED_CALLS):
-        before = gs_mod.guided_step.launches
+        before = COUNTS["guided_step.launches"]
         t0 = time.perf_counter()
         motion, latents = model.sample(batch, gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if gs_mod.guided_step.launches - before != STEPS:
+        if COUNTS["guided_step.launches"] - before != STEPS:
             raise RuntimeError(
-                f"call {call}: {gs_mod.guided_step.launches - before} "
+                f"call {call}: {COUNTS['guided_step.launches'] - before} "
                 f"kernel launches, want {STEPS}")
         if tuple(motion.shape) != (BATCH, 128, 189) or \
                 not torch.isfinite(motion).all() or \
@@ -3902,7 +3905,7 @@ def phase_main(smi):
             times.append(dt)
         log(f"# main: call {call} {'(warm-up) ' if not call else ''}"
             f"{dt * 1e3:.1f} ms")
-    launches = gs_mod.guided_step.launches
+    launches = COUNTS["guided_step.launches"]
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
     log(f"# main: bf16 batch {BATCH} DDIM-{STEPS} 7-way guidance on {smi}: "
@@ -4015,7 +4018,7 @@ def main(argv=None):
 
     def run_dpmpp():
         dpmpp_case = phase_dpmpp(smi)
-        launches = gs_mod.guided_step.launches
+        launches = COUNTS["guided_step.launches"]
         dpmpp_against_ddim(*dpmpp_case)
         return launches
 
@@ -4036,7 +4039,7 @@ def main(argv=None):
             19: lambda: phase_tools(smi)}
     by_phase = {}
     for number in sorted(chosen - {1, 2, 3}):
-        gs_mod.guided_step.launches = 0
+        COUNTS["guided_step.launches"] = 0
         t0 = time.perf_counter()
         launches = runs[number]()
         log(f"# phase {number} {PHASES[number]}: "
@@ -4045,7 +4048,7 @@ def main(argv=None):
             continue       # a parity check, not the main path
         name = PHASES[number]
         by_phase[name] = (launches if isinstance(launches, int)
-                          else gs_mod.guided_step.launches)
+                          else COUNTS["guided_step.launches"])
         if number not in PATH_PHASES and by_phase[name]:
             raise RuntimeError(f"{name} launched the step kernel "
                                f"{by_phase[name]} times")

@@ -15,7 +15,6 @@ Wav IO uses the stdlib ``wave`` module (8/16/32-bit PCM).
 """
 from __future__ import annotations
 
-import collections
 import wave
 from functools import lru_cache
 
@@ -23,9 +22,7 @@ import numpy as np
 import torch
 
 from convofusion_tpu_torch import native
-
-# calls of melspectrogram by the path that computed them
-MEL_PATHS = collections.Counter()
+from convofusion_tpu_torch.utils import profiling
 
 
 # ----------------------------------------------------------------- mel scale
@@ -112,15 +109,16 @@ def melspectrogram(y: np.ndarray, sr: int = 16000, n_fft: int = 2048,
     librosa (the reference transposes immediately, dataset.py:517).
 
     Through the native C++ kernel (``native/``) when it is available —
-    the same math, OpenMP over frames; numpy otherwise.  ``MEL_PATHS``
-    counts the calls each path took."""
+    the same math, OpenMP over frames; numpy otherwise.
+    ``profiling.COUNTS['melspec.native']`` and ``['melspec.numpy']``
+    count the calls each path took."""
     fb = mel_filterbank(sr, n_fft, n_mels)
     out = native.melspec_power(np.asarray(y, np.float32), fb, n_fft,
                                hop_length)
     if out is not None:
-        MEL_PATHS["native"] += 1
+        profiling.count("melspec.native")
         return out
-    MEL_PATHS["numpy"] += 1
+    profiling.count("melspec.numpy")
     power = stft_power(y, n_fft, hop_length)
     return power @ fb.T
 

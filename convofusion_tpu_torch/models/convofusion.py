@@ -101,6 +101,7 @@ from convofusion_tpu_torch.ops.transformer import (
     NUM_BRANCHES,
 )
 from convofusion_tpu_torch.parallel import mesh
+from convofusion_tpu_torch.utils import profiling
 
 STAGES = ("vae", "diffusion", "vae_diffusion")
 # modality-dropout groups a training batch is cut into, besides the rows
@@ -364,17 +365,19 @@ class Convofusion(nn.Module):
 
     # ------------------------------------------------------ condition encoding
     def encode_text(self, ids, tmask):
-        emb, _ = self.text_encoder(ids, tmask)
+        with profiling.span("t5.encode"):
+            emb, _ = self.text_encoder(ids, tmask)
         return emb
 
     def encode_conditions(self, spk_ids, spk_tmask, lsn_ids, lsn_tmask,
                           melspec_lsn, apb, lsn_id):
         """Returns (cond dict, mask dict); masks are pad masks (True =
         pad) for the two text streams."""
-        tspk = self.encode_text(spk_ids, spk_tmask)
-        tlsn = self.encode_text(lsn_ids, lsn_tmask)
-        alsn = self.audio_encoder(melspec_lsn)
-        cond = self.condition_fuser(tspk, alsn, tlsn, apb, lsn_id)
+        with profiling.span("encode_conditions"):
+            tspk = self.encode_text(spk_ids, spk_tmask)
+            tlsn = self.encode_text(lsn_ids, lsn_tmask)
+            alsn = self.audio_encoder(melspec_lsn)
+            cond = self.condition_fuser(tspk, alsn, tlsn, apb, lsn_id)
         return cond, {"spkemb": ~spk_tmask, "tlsn": ~lsn_tmask}
 
     def encode_uncond(self, batch):
@@ -396,7 +399,7 @@ class Convofusion(nn.Module):
         run can cache (JAX :336-355): in eval mode, so without the trunk's
         dropout."""
         trunk = self.text_encoder.text_model
-        with torch.no_grad(), _eval(trunk):
+        with torch.no_grad(), _eval(trunk), profiling.span("t5.encode"):
             return trunk(ids, tmask)
 
     def project_trunk(self, trunk):
@@ -732,44 +735,59 @@ class Convofusion(nn.Module):
                                                          int(ts[0]))
         prev_d, prev_lambda = torch.zeros_like(latents), 0.0
         is_ddpm = 1.0 if variant == "ddpm" else 0.0
-        for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
-            if preseq is not None:
-                noised = self.noise_scheduler.add_noise(
-                    preseq, noise0 if i == 0 else noise_later, t)
-                latents = torch.cat([noised, latents[:, n_pre:]], dim=1)
-            if refine is not None:
-                latents = refine(latents, i, t)
-            if tiled:
-                # the fused layout: every branch's rows in one forward
-                eps, att = self.denoiser(
-                    latents.repeat(NUM_BRANCHES, 1, 1), t, cond7, masks7)
-                eps = self.guidance_combine(eps, batch_size)
-                att = {s: a[-batch_size:] for s, a in att.items()}
-            elif guided:
-                noise_pred7, att = self.denoiser.guided(
-                    latents, t, cond_real, cond_unc, masks_real, masks_unc)
-                if not use_kernel:
-                    eps = self.guidance_combine_branches(noise_pred7)
-            else:
-                # one branch, the real conditions (JAX :654-655,837-839)
-                eps, att = self.denoiser(latents, t, cond_real, masks_real)
-            if captured is not None:
-                captured.append(att)
-            if is_dpmpp:
-                latents, _, prev_d, prev_lambda = \
-                    self.scheduler.dpmpp_2m_step(
-                        eps, t, pt, latents, prev_d, prev_lambda, i == 0)
-                continue
-            noise = (draw() if step_noise is None
-                     else step_noise[i].to(dev, torch.float32))
-            if use_kernel:
-                alpha_t, alpha_prev = self.scheduler.alpha_prods(t, pt)
-                latents = guided_step(
-                    noise_pred7, latents, noise, alpha_t, alpha_prev,
-                    self.guidance_scale, is_ddpm, 1.0 if t > 0 else 0.0, 1.0)
-            else:
-                latents, _ = self.scheduler.step(eps, t, pt, latents,
-                                                 noise=noise)
+        span = profiling.span
+        with span("diffusion_reverse"):
+            for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
+                with span("reverse_step", i=i, t=t):
+                    if preseq is not None:
+                        noised = self.noise_scheduler.add_noise(
+                            preseq, noise0 if i == 0 else noise_later, t)
+                        latents = torch.cat([noised, latents[:, n_pre:]],
+                                            dim=1)
+                    if refine is not None:
+                        latents = refine(latents, i, t)
+                    with span("denoiser"):
+                        if tiled:
+                            # the fused layout: every branch's rows in one
+                            # forward
+                            eps, att = self.denoiser(
+                                latents.repeat(NUM_BRANCHES, 1, 1), t, cond7,
+                                masks7)
+                            eps = self.guidance_combine(eps, batch_size)
+                            att = {s: a[-batch_size:] for s, a in att.items()}
+                        elif guided:
+                            noise_pred7, att = self.denoiser.guided(
+                                latents, t, cond_real, cond_unc, masks_real,
+                                masks_unc)
+                            if not use_kernel:
+                                eps = self.guidance_combine_branches(
+                                    noise_pred7)
+                        else:
+                            # one branch, the real conditions (JAX
+                            # :654-655,837-839)
+                            eps, att = self.denoiser(latents, t, cond_real,
+                                                     masks_real)
+                    if captured is not None:
+                        captured.append(att)
+                    with span("step_update"):
+                        if is_dpmpp:
+                            latents, _, prev_d, prev_lambda = \
+                                self.scheduler.dpmpp_2m_step(
+                                    eps, t, pt, latents, prev_d, prev_lambda,
+                                    i == 0)
+                            continue
+                        noise = (draw() if step_noise is None
+                                 else step_noise[i].to(dev, torch.float32))
+                        if use_kernel:
+                            alpha_t, alpha_prev = self.scheduler.alpha_prods(
+                                t, pt)
+                            latents = guided_step(
+                                noise_pred7, latents, noise, alpha_t,
+                                alpha_prev, self.guidance_scale, is_ddpm,
+                                1.0 if t > 0 else 0.0, 1.0)
+                        else:
+                            latents, _ = self.scheduler.step(
+                                eps, t, pt, latents, noise=noise)
         if captured is None:
             return latents
         return latents, {s: torch.stack([a[s] for a in captured])
@@ -872,27 +890,29 @@ class Convofusion(nn.Module):
         :meth:`diffusion_reverse`)."""
         b = batch["lsn_ids"].shape[0]
         self._check_guided()
-        cond_real, masks_real = self.encode_conditions(
-            batch["spk_ids"], batch["spk_tmask"], batch["lsn_ids"],
-            batch["lsn_tmask"], batch["melspec_lsn"],
-            batch["active_passive_lsn"], batch["lsn_id"])
-        cond_unc, masks_unc = (uncond_cache if uncond_cache is not None
-                               else self.encode_uncond(batch))
-        weg = (None if focus is None else self.weg_inputs(
-            focus, cond_real, masks_real, cond_unc, masks_unc))
-        out = self.diffusion_reverse(
-            cond_real, masks_real, cond_unc, masks_unc, b,
-            num_inference_steps, generator, init_noise, step_noise, weg,
-            weg_params, preseq, capture_attention)
-        latents = out if capture_attention == "none" else out[0]
-        if self.vae is None:
-            motion = latents            # the identity decode (JAX :928-931)
-        else:
-            # (B, 16, D) -> (2, B, 8, D): tokens alternate body, hands per
-            # chunk
-            z = latents.reshape(b, self.n_chunks, 2, self.latent_dim)
-            z = torch.stack([z[:, :, 0], z[:, :, 1]], dim=0)
-            motion = self.vae.decode(z, self.max_len)
+        with profiling.span("sample", rows=b):
+            cond_real, masks_real = self.encode_conditions(
+                batch["spk_ids"], batch["spk_tmask"], batch["lsn_ids"],
+                batch["lsn_tmask"], batch["melspec_lsn"],
+                batch["active_passive_lsn"], batch["lsn_id"])
+            cond_unc, masks_unc = (uncond_cache if uncond_cache is not None
+                                   else self.encode_uncond(batch))
+            weg = (None if focus is None else self.weg_inputs(
+                focus, cond_real, masks_real, cond_unc, masks_unc))
+            out = self.diffusion_reverse(
+                cond_real, masks_real, cond_unc, masks_unc, b,
+                num_inference_steps, generator, init_noise, step_noise, weg,
+                weg_params, preseq, capture_attention)
+            latents = out if capture_attention == "none" else out[0]
+            if self.vae is None:
+                motion = latents        # the identity decode (JAX :928-931)
+            else:
+                # (B, 16, D) -> (2, B, 8, D): tokens alternate body, hands
+                # per chunk
+                z = latents.reshape(b, self.n_chunks, 2, self.latent_dim)
+                z = torch.stack([z[:, :, 0], z[:, :, 1]], dim=0)
+                with profiling.span("vae.decode"):
+                    motion = self.vae.decode(z, self.max_len)
         if capture_attention == "none":
             return motion, latents
         return motion, latents, out[1]

@@ -22,6 +22,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from convofusion_tpu_torch.utils import profiling
+
 NUM_BRANCHES = 7
 PLANES = 6            # branches 0-5 are read; branch 6 has weight 0
 VEC = 8               # elements a thread takes per iteration (csrc kVec)
@@ -280,11 +282,11 @@ def _launch(noise_pred7, latents, noise, coefs, read_noise, geom):
     if err != 0:
         raise RuntimeError(f"guided_step kernel launch failed: CUDA error "
                            f"{err}")
-    guided_step.launches += 1
+    profiling.count("guided_step.launches")
     guided_step.shapes.add((tuple(latents.shape), noise_pred7.dtype))
     return out
 
 
-# launches, and the (latents shape, plane dtype) pairs launched with
-guided_step.launches = 0
+# the (latents shape, plane dtype) pairs launched with: a coverage check,
+# not a count (the launches count in profiling.COUNTS)
 guided_step.shapes = set()

@@ -209,6 +209,7 @@ class GestureService:
     def stats(self) -> Dict:
         with self._stats_lock:
             lat = sorted(self._latencies)
+            waits = sorted(self._queue_waits)
             batch_ms = sorted(self._batch_ms)
             cap = self._n_batches * self.batch_size
             return {
@@ -219,6 +220,9 @@ class GestureService:
                 "occupancy": (self._rows_used / cap) if cap else 0.0,
                 "latency_p50_ms": _percentile(lat, 0.50) * 1e3,
                 "latency_p95_ms": _percentile(lat, 0.95) * 1e3,
+                # from submit() to the close of the batch's collection
+                "queue_wait_ms_p50": _percentile(waits, 0.50) * 1e3,
+                "queue_wait_ms_p95": _percentile(waits, 0.95) * 1e3,
                 # from the device thread's start on a batch to its motion
                 # on the host
                 "batch_ms_p50": _percentile(batch_ms, 0.50),
@@ -234,6 +238,7 @@ class GestureService:
             self._n_rejected = 0
             self._rows_used = 0
             self._latencies: List[float] = []
+            self._queue_waits: List[float] = []
             self._batch_ms: List[float] = []
             self._weg = [0, 0]
 
@@ -307,6 +312,10 @@ class GestureService:
             if batch is None:
                 self._ready.put(None)
                 return
+            now = time.perf_counter()
+            with self._stats_lock:
+                self._queue_waits.extend(now - t for _, _, t in batch)
+                del self._queue_waits[:-4096]
             try:
                 arrays, focus = self._build([r for r, _, _ in batch])
             except Exception as e:

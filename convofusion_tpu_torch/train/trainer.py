@@ -46,6 +46,7 @@ from torch import nn
 
 from convofusion_tpu_torch.models.convofusion import Convofusion
 from convofusion_tpu_torch.parallel import mesh, tp
+from convofusion_tpu_torch.utils import profiling
 
 
 def frozen_names(stage: str) -> Tuple[str, ...]:
@@ -322,8 +323,10 @@ class Trainer:
             raise NotImplementedError(
                 "LOSS.LAMBDA_PRIOR with data parallelism: the prior chunk "
                 "splits the global batch, not a rank's")
-        loss, terms = self.loss_fn()(batch, generator, draws)
-        loss.backward()
+        with profiling.span("train.forward"):
+            loss, terms = self.loss_fn()(batch, generator, draws)
+        with profiling.span("train.backward"):
+            loss.backward()
         loss, terms = loss.detach(), {k: v.detach() for k, v in terms.items()}
         self._reduced = None
         if mesh.is_initialized():
@@ -347,21 +350,22 @@ class Trainer:
         ranks' mean under a group, else ``.grad``; zero where a parameter
         got none), then the rounded masters into the model's
         parameters."""
-        grads = self._reduced if self._reduced is not None \
-            else self._fp32_grads()
-        self._reduced = None
-        with torch.no_grad():
-            norm = self._global_norm(grads) \
-                if self.axis is not None and self.optimizer.grad_clip \
-                else None
-            updates = self.optimizer.update(grads, self.state, self.masters,
-                                            norm)
-            torch._foreach_add_(self.masters, updates)
-            if self._lowp:
-                torch._foreach_copy_([p for p, _ in self._lowp],
-                                     [m for _, m in self._lowp])
-        for p in self.params:
-            p.grad = None
+        with profiling.span("train.optimizer"):
+            grads = self._reduced if self._reduced is not None \
+                else self._fp32_grads()
+            self._reduced = None
+            with torch.no_grad():
+                norm = self._global_norm(grads) \
+                    if self.axis is not None and self.optimizer.grad_clip \
+                    else None
+                updates = self.optimizer.update(grads, self.state,
+                                                self.masters, norm)
+                torch._foreach_add_(self.masters, updates)
+                if self._lowp:
+                    torch._foreach_copy_([p for p, _ in self._lowp],
+                                         [m for _, m in self._lowp])
+            for p in self.params:
+                p.grad = None
         # cached uncond encodes (CachedSampler) belong to the old weights
         self.model.weights_version += 1
 

@@ -20,7 +20,7 @@ from convofusion_tpu.utils import geometry as jax_geo
 from convofusion_tpu.utils import quaternion as jax_quat
 from convofusion_tpu_torch import native
 from convofusion_tpu_torch.data import audio, dataset, text
-from convofusion_tpu_torch.utils import geometry, quaternion
+from convofusion_tpu_torch.utils import geometry, profiling, quaternion
 
 SR = 16000
 # the torch batch mel: fp32 FFT and matmul against JAX's, relative to the
@@ -65,18 +65,20 @@ def test_melspectrogram_native_and_numpy_paths_match_jax(signals,
     is counted."""
     assert native.available(), native.status()
     assert jax_native.available()
-    before = dict(audio.MEL_PATHS)
+    before = dict(profiling.COUNTS)
     for y in signals:
         np.testing.assert_array_equal(audio.melspectrogram(y),
                                       jax_audio.melspectrogram(y))
         np.testing.assert_array_equal(audio.mel_db(y), jax_audio.mel_db(y))
-    assert audio.MEL_PATHS["native"] - before.get("native", 0) == 4
+    assert profiling.COUNTS["melspec.native"] - \
+        before.get("melspec.native", 0) == 4
     monkeypatch.setattr(native, "melspec_power", lambda *a: None)
     monkeypatch.setattr(jax_native, "melspec_power", lambda *a: None)
     for y in signals:
         np.testing.assert_array_equal(audio.melspectrogram(y),
                                       jax_audio.melspectrogram(y))
-    assert audio.MEL_PATHS["numpy"] - before.get("numpy", 0) == 2
+    assert profiling.COUNTS["melspec.numpy"] - \
+        before.get("melspec.numpy", 0) == 2
 
 
 def test_batch_mel_matches_jax(signals):
