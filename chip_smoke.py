@@ -22,8 +22,11 @@ step kernel must be among them):
                the kernel) against sample() on the CPU (plain version)
   5. main    - production geometry, bf16, batch 96, DDIM-50, 7-way
                guidance through Convofusion.sample: one warm-up and two
-               timed calls; (96, 128, 189) finite motion and exactly 50
-               kernel launches per call; clips/s, ms/call, peak memory,
+               timed calls; (96, 128, 189) finite motion, exactly 50
+               kernel launches and 50 replays of the guided denoiser's
+               CUDA graph per call (one capture); clips/s, ms/call, peak
+               memory; at batch 32 and 96 the graphed sample() against
+               the eager guided loop from one noise, bit-equal;
                one call split into encode / reverse / decode, and a
                profile of a few reverse steps, which gives the step
                kernel's device time inside the loop (in_path_us)
@@ -268,6 +271,7 @@ from convofusion_tpu_torch.models.convofusion import (
 )
 from convofusion_tpu_torch.models import weg as weg_lib
 from convofusion_tpu_torch.models.audioenc import TextAudioController
+from convofusion_tpu_torch.models import denoiser as denoiser_mod
 from convofusion_tpu_torch.models.denoiser import Denoiser, EmbedAction
 from convofusion_tpu_torch.models.sentencepiece import write_synthetic_spiece
 from convofusion_tpu_torch.models.tokenizer import (
@@ -304,6 +308,9 @@ from convofusion_tpu_torch.train.trainer import (
 # bench.py:26-29 (batch, steps); timed calls of phases 5 and 10 (cut
 # from 3 to keep the whole run in its time)
 BATCH, STEPS, TIMED_CALLS = 96, 50, 2
+# phase 5: the batches at which graphed sampling is held to eager (the
+# sampling cell's 32 and the main path's 96)
+GRAPH_BATCHES = (32, BATCH)
 KERNEL_TOL = 1e-5
 TIMING_RUNS = 200
 PROFILE_STEPS = 5
@@ -3885,9 +3892,11 @@ def phase_main(smi):
     torch.cuda.reset_peak_memory_stats()
 
     COUNTS["guided_step.launches"] = 0
+    captures = COUNTS["denoiser.graph_captures"]
     times = []
     for call in range(1 + TIMED_CALLS):
         before = COUNTS["guided_step.launches"]
+        replays = COUNTS["denoiser.graph_replays"]
         t0 = time.perf_counter()
         motion, latents = model.sample(batch, gen)
         torch.cuda.synchronize()
@@ -3896,6 +3905,10 @@ def phase_main(smi):
             raise RuntimeError(
                 f"call {call}: {COUNTS['guided_step.launches'] - before} "
                 f"kernel launches, want {STEPS}")
+        if COUNTS["denoiser.graph_replays"] - replays != STEPS:
+            raise RuntimeError(
+                f"call {call}: {COUNTS['denoiser.graph_replays'] - replays}"
+                f" guided graph replays, want {STEPS}")
         if tuple(motion.shape) != (BATCH, 128, 189) or \
                 not torch.isfinite(motion).all() or \
                 not torch.isfinite(latents).all():
@@ -3906,6 +3919,10 @@ def phase_main(smi):
         log(f"# main: call {call} {'(warm-up) ' if not call else ''}"
             f"{dt * 1e3:.1f} ms")
     launches = COUNTS["guided_step.launches"]
+    if COUNTS["denoiser.graph_captures"] - captures != 1:
+        raise RuntimeError(
+            f"{COUNTS['denoiser.graph_captures'] - captures} guided graph "
+            f"captures over {1 + TIMED_CALLS} calls at one geometry, want 1")
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
     log(f"# main: bf16 batch {BATCH} DDIM-{STEPS} 7-way guidance on {smi}: "
@@ -3913,6 +3930,7 @@ def phase_main(smi):
         f"{TIMED_CALLS}), peak memory {peak / 2**30:.2f} GiB, "
         f"{launches} kernel launches over {1 + TIMED_CALLS} calls, "
         f"|motion| <= {float(motion.float().abs().max()):.3g}")
+    graph_against_eager(model)
 
     # one more call split by layer, synchronising between the parts
     with torch.inference_mode():
@@ -3957,6 +3975,61 @@ def phase_main(smi):
     log(f"# profile: guided_step in the loop: {in_path_us:.2f} us a launch "
         f"(device time over the {PROFILE_STEPS} launches)")
     return launches, in_path_us
+
+
+@contextlib.contextmanager
+def eager_guided():
+    """Every guided denoiser call eager inside the block: the reverse loop
+    as it was before the CUDA graphs."""
+    devices = denoiser_mod.CAPTURE_DEVICES
+    denoiser_mod.CAPTURE_DEVICES = ()
+    try:
+        yield
+    finally:
+        denoiser_mod.CAPTURE_DEVICES = devices
+
+
+def graph_against_eager(model):
+    """sample() with the guided denoiser replayed from its graph against
+    the eager loop, from one noise, at each of GRAPH_BATCHES: bit-equal
+    motion and latents, 50 replays and 50 kernel launches a graphed call,
+    none and 50 an eager one, and the wall time of each."""
+    for b in GRAPH_BATCHES:
+        raw = synthetic_raw_batch(23 + b, b,
+                                  mel_frames=PRODUCTION["mel_frames"])
+        batch, _, _ = prepare_arrays(model, raw)
+        gen = torch.Generator(device=model.device).manual_seed(24)
+        shape = (b, model.latent_tokens, model.latent_dim)
+        init = torch.randn(shape, generator=gen, device=model.device)
+        steps = torch.randn((STEPS,) + shape, generator=gen,
+                            device=model.device)
+        out, ms = {}, {}
+        for name in ("graphed", "eager", "graphed"):
+            launches = COUNTS["guided_step.launches"]
+            replays = COUNTS["denoiser.graph_replays"]
+            with eager_guided() if name == "eager" else \
+                    contextlib.nullcontext():
+                t0 = time.perf_counter()
+                out[name] = model.sample(batch, init_noise=init,
+                                         step_noise=steps)
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t0) * 1e3
+            counts = (COUNTS["denoiser.graph_replays"] - replays,
+                      COUNTS["guided_step.launches"] - launches)
+            want = (0 if name == "eager" else STEPS, STEPS)
+            if counts != want:
+                raise RuntimeError(f"graph check, batch {b}, {name}: "
+                                   f"(replays, launches) {counts}, want "
+                                   f"{want}")
+        gaps = [float((g.float() - e.float()).abs().max())
+                for g, e in zip(out["graphed"], out["eager"])]
+        log(f"# main: batch {b} graphed against eager guided loop: max "
+            f"|diff| motion {gaps[0]:.3g}, latents {gaps[1]:.3g}; "
+            f"{ms['graphed']:.1f} ms graphed (the second call), "
+            f"{ms['eager']:.1f} ms eager")
+        if any(gaps):
+            raise RuntimeError(f"batch {b}: the graphed sampler is not "
+                               f"bit-equal to the eager one: {gaps}")
 
 
 def _device_us(event):

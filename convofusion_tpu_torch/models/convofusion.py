@@ -23,9 +23,13 @@ Per ``sample()``: the conditions are encoded once (T5 x2, the mel MLP and
 the fuser; the uncond branch at batch 1), then each of the N reverse steps
 is one 7-branch ``Denoiser.guided`` call followed by one launch of the
 fused guidance + scheduler step kernel (``ops/guided_step.py``), then the
-VAE decodes (B, 16, D) latents to (B, 128, 189) motion.  With WEG, each
-step first differentiates a text-only denoiser pass w.r.t. the latents and
-moves them (``models/weg.py``); the step kernel is not differentiated.
+VAE decodes (B, 16, D) latents to (B, 128, 189) motion.  On the card the
+guided call is one replay of its CUDA graph, captured once per input
+geometry (``models/denoiser.GuidedGraphs``); the step kernel, whose
+coefficients change every step, is launched eagerly after it.  With WEG,
+each step first differentiates a text-only denoiser pass w.r.t. the
+latents and moves them (``models/weg.py``); the step kernel is not
+differentiated.
 With ``preseq`` each step first overwrites the leading latent tokens with
 the previous window's, re-noised to the step's level.  DPM-Solver++ takes
 the plain guidance combine and its own update instead of the kernel, as
@@ -73,6 +77,7 @@ from convofusion_tpu_torch.models.condfuser import TextAudioMotionFuser
 from convofusion_tpu_torch.models.denoiser import (
     ONE_TENSOR_CONDITIONS,
     Denoiser,
+    GuidedGraphs,
 )
 from convofusion_tpu_torch.models.t5 import T5TextEncoder
 from convofusion_tpu_torch.models.tokenizer import (
@@ -284,8 +289,11 @@ class Convofusion(nn.Module):
              for g in range(NUM_BRANCHES)]), persistent=False)
         self.weg_parameters = cfg.get("weg_parameters", {})
         self.weg_counts = WegCounts()
-        # bumped by load_state_dict: CachedSampler drops its uncond encodes
+        # bumped by load_state_dict and by a move or cast of the weights:
+        # CachedSampler drops its uncond encodes, and the guided denoiser
+        # its graphs
         self.weights_version = 0
+        self.guided_graphs = GuidedGraphs()
         if seed is not None:
             init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
@@ -335,6 +343,12 @@ class Convofusion(nn.Module):
                         assign: bool = False):
         out = super().load_state_dict(state_dict, strict=strict,
                                       assign=assign)
+        self.weights_version += 1
+        return out
+
+    def _apply(self, fn, recurse=True):
+        # to(), cuda(), half(), ...: the weights may take new storage
+        out = super()._apply(fn, recurse)
         self.weights_version += 1
         return out
 
@@ -736,7 +750,16 @@ class Convofusion(nn.Module):
         prev_d, prev_lambda = torch.zeros_like(latents), 0.0
         is_ddpm = 1.0 if variant == "ddpm" else 0.0
         span = profiling.span
-        with span("diffusion_reverse"):
+        # the guided call of every step, replayed from a CUDA graph where
+        # the inputs allow (models/denoiser.GuidedGraphs); a tensor-parallel
+        # placement stays eager (parallel/tp.placed_mesh's test: importing
+        # that module loads torch.distributed.tensor, seconds of set-up)
+        guided_call = (self.guided_graphs.bound(
+            self.denoiser, self.weights_version, latents, cond_real,
+            cond_unc, masks_real, masks_unc,
+            placed=getattr(self, "tp_mesh", None) is not None)
+            if guided and not tiled else contextlib.nullcontext())
+        with span("diffusion_reverse"), guided_call as guided_denoiser:
             for i, (t, pt) in enumerate(zip(ts.tolist(), prev_ts.tolist())):
                 with span("reverse_step", i=i, t=t):
                     if preseq is not None:
@@ -756,9 +779,7 @@ class Convofusion(nn.Module):
                             eps = self.guidance_combine(eps, batch_size)
                             att = {s: a[-batch_size:] for s, a in att.items()}
                         elif guided:
-                            noise_pred7, att = self.denoiser.guided(
-                                latents, t, cond_real, cond_unc, masks_real,
-                                masks_unc)
+                            noise_pred7, att = guided_denoiser(latents, t)
                             if not use_kernel:
                                 eps = self.guidance_combine_branches(
                                     noise_pred7)
@@ -768,7 +789,9 @@ class Convofusion(nn.Module):
                             eps, att = self.denoiser(latents, t, cond_real,
                                                      masks_real)
                     if captured is not None:
-                        captured.append(att)
+                        # a graph's maps are rewritten by its next replay
+                        captured.append({s: a.clone() for s, a in
+                                         att.items()})
                     with span("step_update"):
                         if is_dpmpp:
                             latents, _, prev_d, prev_lambda = \

@@ -29,9 +29,16 @@ batched into one (``FusedDenoiserDecoder``; JAX :55-90): ``forward`` and
 ``text_only`` run the same math, and the guided and K/V paths, which need
 the per-stream layers, raise (JAX asserts, :270-271).  ``remat``
 recomputes each layer's activations in a training backward pass.
+
+``GuidedGraphs`` replays ``guided`` from CUDA graphs: one capture of the
+whole 7-branch call (~1,800 small kernels) per input geometry, then one
+graph launch a reverse step in place of the kernels' launches one by one.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -50,12 +57,17 @@ from convofusion_tpu_torch.ops.transformer import (
     FusedDenoiserDecoder,
     SkipTransformerEncoder,
 )
+from convofusion_tpu_torch.utils import profiling
 
 ARCHS = ("trans_dec", "trans_enc")
 # the conditions trans_enc takes as one tensor (JAX :109-116, :148-153);
 # any other name means the five streams
 TEXT_CONDITIONS = ("text", "text_uncond")
 ONE_TENSOR_CONDITIONS = TEXT_CONDITIONS + ("action",)
+# device types a guided call is captured on; elsewhere it runs eagerly
+CAPTURE_DEVICES = ("cuda",)
+# input geometries a model keeps captured (the service pads to one)
+GRAPH_CACHE_SIZE = 4
 
 
 def _is_scalar(timesteps) -> bool:
@@ -233,6 +245,137 @@ class Denoiser(nn.Module):
         out7, att = self.decoder.guided(x7, mem_real, mem_unc, time_emb,
                                         masks_real, masks_unc, kvs)
         return self.latent_proj(out7), att
+
+
+class GuidedGraph:
+    """:meth:`Denoiser.guided` at one input geometry over static input
+    buffers: captured by its first call, replayed by every call.  A call
+    copies the latents in, fills the timestep and launches the graph; the
+    conditions are copied in once a reverse loop (:meth:`bind`).  The
+    outputs, (noise_pred7, att), are the graph's own tensors, in the pool
+    the model's graphs share: the next replay of any of them may overwrite
+    them."""
+
+    def __init__(self, denoiser: Denoiser, capture, latents, *conditions):
+        self._denoiser, self._capture = denoiser, capture
+        # normal tensors even when made under inference_mode, so that a
+        # later loop without it can still copy into them
+        with torch.inference_mode(False):
+            self.latents = torch.empty_like(latents)
+            # a 0-dim timestep is shared (_embed_sample): single-row uncond
+            # memories stay at batch 1, as with a Python int
+            self.t = torch.zeros((), dtype=torch.long, device=latents.device)
+            # cond_real, cond_unc, masks_real, masks_unc
+            self.inputs = tuple(
+                None if c is None else {k: torch.empty_like(v)
+                                        for k, v in c.items()}
+                for c in conditions)
+        self._graph = self.outputs = None
+
+    def bind(self, *conditions) -> None:
+        """Copies cond_real, cond_unc, masks_real, masks_unc in."""
+        for dst, src in zip(self.inputs, conditions):
+            for k, v in (src or {}).items():
+                dst[k].copy_(v)
+
+    def __call__(self, latents, t):
+        self.latents.copy_(latents)
+        self.t.fill_(t)
+        if self._graph is None:
+            # normal output tensors, as the buffers
+            with torch.inference_mode(False), torch.no_grad():
+                self._graph, self.outputs = self._capture(
+                    lambda: self._denoiser.guided(self.latents, self.t,
+                                                  *self.inputs),
+                    self.latents.device)
+            profiling.count("denoiser.graph_captures")
+        self._graph.replay()
+        profiling.count("denoiser.graph_replays")
+        return self.outputs
+
+
+def _geometry(tensors):
+    return None if tensors is None else tuple(
+        (k, tuple(v.shape), v.dtype) for k, v in sorted(tensors.items()))
+
+
+class GuidedGraphs:
+    """A model's :class:`GuidedGraph` per input geometry (device, the
+    latents' shape and dtype, each condition's and mask's shape and dtype),
+    at most ``GRAPH_CACHE_SIZE``, least recently used out first, and the
+    one memory pool their captures share.  ``weights_version`` is part of
+    the key: a new version drops every graph, which read the old weights'
+    storage.  One reverse loop at a time holds the graphs, since they
+    share their pool; a loop in another thread meanwhile runs eagerly."""
+
+    def __init__(self):
+        self._graphs: "collections.OrderedDict[tuple, GuidedGraph]" = \
+            collections.OrderedDict()
+        self._version = None
+        self._pool = None
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def bound(self, denoiser: Denoiser, weights_version: int, latents,
+              cond_real, cond_unc, masks_real=None, masks_unc=None,
+              kvs=None, placed: bool = False):
+        """Yields ``run(latents, t) -> (noise_pred7, att)``, ``denoiser
+        .guided`` over these conditions for the steps of one reverse loop:
+        a graph's replay where the inputs allow capture, else the eager
+        call, which counts ``denoiser.graph_eager``.  Eager: latents off a
+        CUDA card, the module in training mode (dropout draws), grad
+        enabled, ``kvs`` given, a tensor-parallel placement (``placed``:
+        its collectives stay eager), or another loop holding the graphs."""
+        conditions = (cond_real, cond_unc, masks_real, masks_unc)
+        eager = (latents.device.type not in CAPTURE_DEVICES
+                 or denoiser.training or torch.is_grad_enabled()
+                 or kvs is not None or placed)
+        if eager or not self._lock.acquire(blocking=False):
+            def run(lat, t):
+                profiling.count("denoiser.graph_eager")
+                return denoiser.guided(lat, t, *conditions, kvs=kvs)
+
+            yield run
+            return
+        try:
+            graph = self._entry(denoiser, weights_version, latents,
+                                conditions)
+            graph.bind(*conditions)
+            yield graph
+        finally:
+            self._lock.release()
+
+    def _entry(self, denoiser, weights_version, latents, conditions):
+        if weights_version != self._version:
+            self._graphs.clear()
+            self._version = weights_version
+        key = (latents.device, tuple(latents.shape), latents.dtype) + \
+            tuple(_geometry(c) for c in conditions)
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            graph = GuidedGraph(denoiser, self._capture, latents,
+                                *conditions)
+        self._graphs[key] = graph
+        while len(self._graphs) > GRAPH_CACHE_SIZE:
+            self._graphs.popitem(last=False)
+        return graph
+
+    def _capture(self, fn, device):
+        """``fn()`` as one CUDA graph in the shared pool, after one eager
+        warm-up on the capture's side stream; returns (graph, the outputs
+        each replay rewrites).  ``thread_local``: other threads (the
+        service's clients) may use the card meanwhile."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            fn()
+        with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                              capture_error_mode="thread_local"):
+            out = fn()
+        return graph, out
 
 
 class EmbedAction(nn.Module):
