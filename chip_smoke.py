@@ -83,12 +83,17 @@ step kernel must be among them):
                stage 2 at batch 64 with token ids, stage 2 at batch 64 with
                the cached T5 trunk and VAE posterior (bench.py --cached-text
                --cached-vae), stage 1 at batch 128; each 3 warm-up and 6
-               timed steps (median ms a step, clips/s), peak memory, and 2
-               profiled steps (kernels a step, the card's busy share), and
-               one profiled step with F.dropout's fused kernel (the kernels
-               that masks from the step's generator add); every loss
-               finite; then stage 1 on one fixed batch for 20 steps, whose
-               last 5 losses must average below its first 5
+               timed steps (median ms a step, clips/s; replayed from the
+               training step's two CUDA graphs from the second step on, the
+               graph counters printed), peak memory, 3 graphed steps against
+               3 eager ones from one state (losses and masters bit-equal,
+               one replay of each graph a step), 2 profiled eager steps
+               (kernels a step, the card's busy share against the graphed
+               median step), and one profiled eager step with F.dropout's
+               fused kernel (the kernels that masks from the step's
+               generator add); every loss finite; then stage 1 on one fixed
+               batch for 20 steps, whose last 5 losses must average below
+               its first 5
  13. checkpoint - the production stage-2 model from the YAML config
                (load_config + from_cfg), bf16: saved without the T5 trunk,
                in the foreground and the background (ms, MiB), loaded into
@@ -271,7 +276,6 @@ from convofusion_tpu_torch.models.convofusion import (
 )
 from convofusion_tpu_torch.models import weg as weg_lib
 from convofusion_tpu_torch.models.audioenc import TextAudioController
-from convofusion_tpu_torch.models import denoiser as denoiser_mod
 from convofusion_tpu_torch.models.denoiser import Denoiser, EmbedAction
 from convofusion_tpu_torch.models.sentencepiece import write_synthetic_spiece
 from convofusion_tpu_torch.models.tokenizer import (
@@ -297,6 +301,7 @@ from convofusion_tpu_torch.serving import (
 )
 from convofusion_tpu_torch.train import checkpoint as ckpt_lib
 from convofusion_tpu_torch.utils import assets as assets_lib
+from convofusion_tpu_torch.utils import cuda_graphs
 from convofusion_tpu_torch.utils.profiling import COUNTS
 from convofusion_tpu_torch.train import overfit
 from convofusion_tpu_torch.train.trainer import (
@@ -368,6 +373,10 @@ TRAIN_GRAD_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3
 # config_vae_beatdnd.yaml:17), warm-up, timed (cut from 20, then 10) and
 # profiled steps, and the stage-1 learning check's steps (cut from 50)
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 6, 2, 20
+# phase 12: graphed steps held bit-equal to as many eager ones
+TRAIN_COMPARED = 3
+TRAIN_GRAPH_COUNTERS = ("train.graph_captures", "train.graph_replays",
+                        "train.graph_eager")
 TRAIN_DIFFUSION_BATCH = PRODUCTION["train"]["batch_size"]
 TRAIN_VAE_BATCH = PRODUCTION_VAE["train"]["batch_size"]
 # phase 13: the YAML scheduler is DDPM-1000 (modules/scheduler.yaml:1-11);
@@ -1533,9 +1542,10 @@ def cached_layout(model, batch):
 
 
 def time_training(name, model, batch, smi, seed):
-    """TRAIN_WARMUP + TRAIN_TIMED steps, each ending in a sync, then
-    TRAIN_PROFILED steps under the profiler.  Returns the step losses (on
-    the device) and a summary."""
+    """TRAIN_WARMUP + TRAIN_TIMED steps, each ending in a sync (graphed
+    on the card from the second), TRAIN_COMPARED graphed steps against as
+    many eager ones from one state, then TRAIN_PROFILED eager steps under
+    the profiler.  Returns a summary."""
     dev = model.device
     on_card = dev.type == "cuda"
     b = (batch["motion"] if model.stage == "vae"
@@ -1547,6 +1557,7 @@ def time_training(name, model, batch, smi, seed):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
+    counts = _graph_counts()
     with trainer.training():
         for i in range(TRAIN_WARMUP + TRAIN_TIMED):
             t0 = time.perf_counter()
@@ -1557,9 +1568,12 @@ def time_training(name, model, batch, smi, seed):
             losses.append(loss)
             if i >= TRAIN_WARMUP:
                 times.append(time.perf_counter() - t0)
+        counts = _graph_counts(counts)
+        graphed_against_eager(trainer, batch, gen, name)
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if on_card else [])
-        with profile(activities=activities) as prof:
+        # eager: each kernel launched and counted on its own
+        with eager_graphs(), profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(TRAIN_PROFILED):
                 loss, _ = trainer.compute_grads(batch, gen)
@@ -1570,19 +1584,24 @@ def time_training(name, model, batch, smi, seed):
             wall_ms = (time.perf_counter() - t0) * 1e3
         split = split_step(trainer, batch, gen, on_card)
         check_no_host_wait(trainer, batch, gen, on_card, name)
-        with default_generator_dropout(), profile(
+        with eager_graphs(), default_generator_dropout(), profile(
                 activities=activities) as fused_prof:
             trainer.compute_grads(batch, gen)
             trainer.apply_grads()
             if on_card:
                 torch.cuda.synchronize()
     fused_kernels = sum(e.count for e in fused_prof.key_averages()
-                        if e.device_type == DeviceType.CUDA)
+                        if e.device_type == DeviceType.CUDA
+                        and not e.is_user_annotation)
     averages = prof.key_averages()
-    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+    # device rows but the spans' device-side ranges, which cover the gaps
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     # kernel time a step from the profiled steps; the profiler slows the
-    # host, so the busy share divides it by the unprofiled median step
+    # host, so the busy share divides the union of the kernels' intervals
+    # by the unprofiled median step
     device_ms = sum(_device_us(e) for e in kernels) / 1e3 / TRAIN_PROFILED
+    busy_ms = _union_ms(prof.events()) / TRAIN_PROFILED
     n_kernels = sum(e.count for e in kernels) // TRAIN_PROFILED
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     med = statistics.median(times)
@@ -1590,17 +1609,20 @@ def time_training(name, model, batch, smi, seed):
         raise RuntimeError(f"train {name}: a loss is not finite")
     summary = dict(ms=med * 1e3, clips_per_s=b / med, peak_gib=peak / 2**30,
                    kernels=n_kernels, fused_dropout_kernels=fused_kernels,
-                   device_ms=device_ms,
-                   busy=device_ms / (med * 1e3))
+                   device_ms=device_ms, busy_ms=busy_ms,
+                   busy=busy_ms / (med * 1e3), graph_counts=counts)
     log(f"# train: {name}, batch {b}, bf16 + fp32 masters, on {smi}: "
         f"{med * 1e3:.2f} ms a step (median of {TRAIN_TIMED}; "
         f"{min(times) * 1e3:.2f}-{max(times) * 1e3:.2f}), "
         f"{b / med:.1f} clips/s, peak memory {peak / 2**30:.2f} GiB, "
         f"{n_kernels} kernels a step, {device_ms:.2f} ms of kernel time a "
-        f"step, the card busy {device_ms / (med * 1e3):.1%} of the median "
-        f"step (kernel time from {TRAIN_PROFILED} profiled steps, which took "
-        f"{wall_ms / TRAIN_PROFILED:.1f} ms each under the profiler); losses "
-        f"{float(losses[0]):.4g} -> {float(losses[-1]):.4g}")
+        f"step summed by kernel, {busy_ms:.2f} ms in which one runs, "
+        f"the card busy {busy_ms / (med * 1e3):.1%} of the median step "
+        f"(kernel time from {TRAIN_PROFILED} profiled eager steps, "
+        f"which took {wall_ms / TRAIN_PROFILED:.1f} ms each under the "
+        f"profiler); losses {float(losses[0]):.4g} -> "
+        f"{float(losses[-1]):.4g}; graph counters over the "
+        f"{TRAIN_WARMUP + TRAIN_TIMED} timed steps {counts}")
     log(f"# train: {name}: {n_kernels} kernels a step with the dropout "
         f"masks drawn from the step's generator, {fused_kernels} with "
         f"F.dropout's fused kernel from the default generator (one profiled "
@@ -1618,6 +1640,58 @@ def time_training(name, model, batch, smi, seed):
         log(f"#   host {e.self_cpu_time_total / 1e3 / TRAIN_PROFILED:8.3f} "
             f"ms a step {e.count // TRAIN_PROFILED:5d}x  {e.key[:80]}")
     return summary
+
+
+def _graph_counts(before=None):
+    """The training graphs' counters, or their change since ``before``."""
+    now = {k.split(".")[1]: COUNTS[k] for k in TRAIN_GRAPH_COUNTERS}
+    return now if before is None else {k: v - before[k]
+                                       for k, v in now.items()}
+
+
+def graphed_against_eager(trainer, batch, gen, name):
+    """TRAIN_COMPARED eager steps, then as many graphed ones from the same
+    state (the masters and moments, the weights rounded from them, the
+    mask generator): bit-equal losses and masters required, and on the
+    card one replay of each graph a graphed step, no capture (the timed
+    steps captured) and no eager call."""
+    state = {k: ({n: t.clone() for n, t in v.items()}
+                 if isinstance(v, dict) else v)
+             for k, v in trainer.state_dict().items()}
+    gen_state = gen.get_state()
+    out = {}
+    for mode in ("eager", "graphed"):
+        trainer.load_state_dict(state)
+        gen.set_state(gen_state)
+        before = _graph_counts()
+        with eager_graphs() if mode == "eager" else \
+                contextlib.nullcontext():
+            losses = []
+            for _ in range(TRAIN_COMPARED):
+                loss, _ = trainer.compute_grads(batch, gen)
+                trainer.apply_grads()
+                losses.append(loss)
+        out[mode] = (torch.stack(losses), [m.clone() for m in
+                                           trainer.masters],
+                     _graph_counts(before))
+    (l_e, m_e, c_e), (l_g, m_g, c_g) = out["eager"], out["graphed"]
+    differ = [n for n, a, b in zip(trainer.names, m_e, m_g)
+              if not torch.equal(a, b)]
+    log(f"# train: {name}: {TRAIN_COMPARED} graphed steps against as many "
+        f"eager ones from one state: losses {l_g.tolist()} / "
+        f"{l_e.tolist()}, bit-equal {torch.equal(l_g, l_e)}; "
+        f"{len(m_g) - len(differ)} of {len(m_g)} masters bit-equal; graph "
+        f"counters graphed {c_g}, eager {c_e}")
+    if not torch.equal(l_g, l_e) or differ:
+        raise RuntimeError(f"train {name}: graphed steps differ from eager "
+                           f"ones: losses {l_g.tolist()} / {l_e.tolist()}, "
+                           f"masters {differ[:4]}")
+    if trainer.model.device.type == "cuda":
+        want = {"graph_captures": 0, "graph_replays": 2 * TRAIN_COMPARED,
+                "graph_eager": 0}
+        if c_g != want:
+            raise RuntimeError(f"train {name}: graph counters {c_g}, want "
+                               f"{want}")
 
 
 @contextlib.contextmanager
@@ -3978,15 +4052,15 @@ def phase_main(smi):
 
 
 @contextlib.contextmanager
-def eager_guided():
-    """Every guided denoiser call eager inside the block: the reverse loop
-    as it was before the CUDA graphs."""
-    devices = denoiser_mod.CAPTURE_DEVICES
-    denoiser_mod.CAPTURE_DEVICES = ()
+def eager_graphs():
+    """Nothing captured inside the block: every guided denoiser call and
+    every training step eager, as before the CUDA graphs."""
+    devices = cuda_graphs.CAPTURE_DEVICES
+    cuda_graphs.CAPTURE_DEVICES = ()
     try:
         yield
     finally:
-        denoiser_mod.CAPTURE_DEVICES = devices
+        cuda_graphs.CAPTURE_DEVICES = devices
 
 
 def graph_against_eager(model):
@@ -4007,7 +4081,7 @@ def graph_against_eager(model):
         for name in ("graphed", "eager", "graphed"):
             launches = COUNTS["guided_step.launches"]
             replays = COUNTS["denoiser.graph_replays"]
-            with eager_guided() if name == "eager" else \
+            with eager_graphs() if name == "eager" else \
                     contextlib.nullcontext():
                 t0 = time.perf_counter()
                 out[name] = model.sample(batch, init_noise=init,
@@ -4030,6 +4104,20 @@ def graph_against_eager(model):
         if any(gaps):
             raise RuntimeError(f"batch {b}: the graphed sampler is not "
                                f"bit-equal to the eager one: {gaps}")
+
+
+def _union_ms(events) -> float:
+    """Milliseconds in which some kernel, copy or memset of ``events``
+    runs (not the spans' device-side ranges)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 def _device_us(event):

@@ -57,15 +57,13 @@ from convofusion_tpu_torch.ops.transformer import (
     FusedDenoiserDecoder,
     SkipTransformerEncoder,
 )
-from convofusion_tpu_torch.utils import profiling
+from convofusion_tpu_torch.utils import cuda_graphs, profiling
 
 ARCHS = ("trans_dec", "trans_enc")
 # the conditions trans_enc takes as one tensor (JAX :109-116, :148-153);
 # any other name means the five streams
 TEXT_CONDITIONS = ("text", "text_uncond")
 ONE_TENSOR_CONDITIONS = TEXT_CONDITIONS + ("action",)
-# device types a guided call is captured on; elsewhere it runs eagerly
-CAPTURE_DEVICES = ("cuda",)
 # input geometries a model keeps captured (the service pads to one)
 GRAPH_CACHE_SIZE = 4
 
@@ -312,7 +310,7 @@ class GuidedGraphs:
         self._graphs: "collections.OrderedDict[tuple, GuidedGraph]" = \
             collections.OrderedDict()
         self._version = None
-        self._pool = None
+        self._pool = cuda_graphs.GraphPool()
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
@@ -327,7 +325,7 @@ class GuidedGraphs:
         enabled, ``kvs`` given, a tensor-parallel placement (``placed``:
         its collectives stay eager), or another loop holding the graphs."""
         conditions = (cond_real, cond_unc, masks_real, masks_unc)
-        eager = (latents.device.type not in CAPTURE_DEVICES
+        eager = (latents.device.type not in cuda_graphs.CAPTURE_DEVICES
                  or denoiser.training or torch.is_grad_enabled()
                  or kvs is not None or placed)
         if eager or not self._lock.acquire(blocking=False):
@@ -362,20 +360,8 @@ class GuidedGraphs:
 
     def _capture(self, fn, device):
         """``fn()`` as one CUDA graph in the shared pool, after one eager
-        warm-up on the capture's side stream; returns (graph, the outputs
-        each replay rewrites).  ``thread_local``: other threads (the
-        service's clients) may use the card meanwhile."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            fn()
-        with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                              capture_error_mode="thread_local"):
-            out = fn()
-        return graph, out
+        warm-up (``utils/cuda_graphs.GraphPool.capture``)."""
+        return self._pool.capture(fn, device)
 
 
 class EmbedAction(nn.Module):

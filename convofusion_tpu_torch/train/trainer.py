@@ -24,14 +24,20 @@ counted once.
   decay) after ``optax.clip_by_global_norm`` when ``grad_clip`` > 0, with a
   constant or ``warmup_cosine_decay_schedule`` learning rate.  The step
   count, the bias corrections and the learning rate are host numbers, so a
-  step reads nothing from the card; the clip decides on the card.
+  step reads nothing from the card; the clip decides on the card.  The
+  trainer hands the learning rate and the bias corrections to the update
+  as 0-dim device tensors, filled before each step, so that one captured
+  update serves every step.
 - ``Trainer``: each trainable parameter has an fp32 master and fp32
   moments.  A step casts each ``.grad`` to fp32, steps the masters, and
   copies the masters back, rounded, into the model's parameters; an fp32
   parameter is its own master.  That is what JAX computes for fp32
   parameters cast to bf16 at each use: the cast's VJP rounds the cotangent
   to bf16, and the fp32 parameter steps.  The model keeps its compute-
-  dtype weights, so every sampling path runs as before.
+  dtype weights, so every sampling path runs as before.  On a CUDA card
+  a step replays two CUDA graphs per input geometry
+  (``train/step_graphs.py``) where the inputs allow capture, and runs
+  eagerly elsewhere.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from torch import nn
 
 from convofusion_tpu_torch.models.convofusion import Convofusion
 from convofusion_tpu_torch.parallel import mesh, tp
+from convofusion_tpu_torch.train.step_graphs import StepGraphs
 from convofusion_tpu_torch.utils import profiling
 
 
@@ -139,23 +146,39 @@ class AdamW:
             torch._foreach_div(grads, torch.where(keep, one, norm)),
             torch.where(keep, one, one * self.grad_clip))
 
+    def scalars(self, count: int) -> Tuple[float, float, float]:
+        """(-learning rate, 1 - b1**t, 1 - b2**t) of the update after
+        ``count`` updates (t = count + 1), host numbers; the bias
+        corrections in fp32, as optax computes them."""
+        f32 = np.float32
+        t = f32(count + 1)
+        return (-self.schedule(count),
+                float(f32(1.0) - np.power(f32(self.b1), t)),
+                float(f32(1.0) - np.power(f32(self.b2), t)))
+
     def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
                params: Sequence[torch.Tensor],
                norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """The updates to add to ``params``; advances ``state``.  ``norm``:
         the gradients' global norm where ``grads`` are shards of it."""
+        scalars = self.scalars(state.count)
+        state.count += 1
+        return self.step(grads, state, params, scalars, norm)
+
+    def step(self, grads: Sequence[torch.Tensor], state: AdamWState,
+             params: Sequence[torch.Tensor], scalars,
+             norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """:meth:`update`'s work on the device, leaving ``state.count`` as
+        it is: ``scalars`` is :meth:`scalars` of the count, as host
+        numbers or as 0-dim fp32 tensors on the device, which give the
+        same bits."""
+        neg_lr, bc1, bc2 = scalars
         grads = self.clip(grads, norm)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(state.nu, b2)
         torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
-        lr = self.schedule(state.count)
-        state.count += 1
-        # bias corrections 1 - b**count in fp32, as optax computes them
-        f32 = np.float32
-        bc1 = float(f32(1.0) - np.power(f32(b1), f32(state.count)))
-        bc2 = float(f32(1.0) - np.power(f32(b2), f32(state.count)))
         denom = torch._foreach_div(state.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -164,7 +187,7 @@ class AdamW:
         if self.weight_decay:
             torch._foreach_add_(updates, list(params),
                                 alpha=self.weight_decay)
-        torch._foreach_mul_(updates, -lr)
+        torch._foreach_mul_(updates, neg_lr)
         return updates
 
 
@@ -203,6 +226,15 @@ class Trainer:
         self.state: Optional[AdamWState] = None
         # the rank-averaged fp32 gradients of the last compute_grads
         self._reduced: Optional[List[torch.Tensor]] = None
+        # a layer recomputed in the backward pass copies the mask
+        # generator's state (ops/layers.checkpointed): no capture
+        self.remat = any(getattr(m, "remat", False)
+                         for m in model.modules())
+        # the step's graph pairs, and the pair the last compute_grads used
+        self.graphs = StepGraphs()
+        self._graph = None
+        # AdamW.scalars of each step: -lr, the two bias corrections
+        self._scalars: List[torch.Tensor] = []
 
     def state_dict(self) -> Dict:
         """The optimizer's state by parameter name: the fp32 masters, the
@@ -288,6 +320,12 @@ class Trainer:
                 torch._foreach_copy_([p for p, _ in self._lowp],
                                      [m for _, m in self._lowp])
         self.state = self.optimizer.init(self.masters)
+        self._scalars = [torch.zeros((), dtype=torch.float32,
+                                     device=self.model.device)
+                         for _ in range(3)]
+        # the graphs read the old masters, moments and scalars
+        self.graphs.clear()
+        self._graph = None
         return self.state
 
     @contextlib.contextmanager
@@ -316,58 +354,87 @@ class Trainer:
         trainable parameters; inside :meth:`training`.  Returns (loss,
         terms), detached 0-dim tensors.  Under a group the returned loss and
         terms, and the gradients :meth:`apply_grads` steps with, are the
-        means over the ranks (``.grad`` keeps this rank's own)."""
+        means over the ranks (``.grad`` keeps this rank's own).  On a card
+        the step replays its geometry's graphs
+        (``train/step_graphs.StepGraphs.lookup``), or runs eagerly and
+        counts ``train.graph_eager``."""
         if mesh.data_size() > 1 and \
                 float(self.cfg.get("train", {}).get("loss", {}).get(
                     "lambda_prior", 0.0)):
             raise NotImplementedError(
                 "LOSS.LAMBDA_PRIOR with data parallelism: the prior chunk "
                 "splits the global batch, not a rank's")
-        with profiling.span("train.forward"):
-            loss, terms = self.loss_fn()(batch, generator, draws)
-        with profiling.span("train.backward"):
-            loss.backward()
-        loss, terms = loss.detach(), {k: v.detach() for k, v in terms.items()}
         self._reduced = None
+        self._graph = self.graphs.lookup(self, batch, generator, draws)
+        if self._graph is not None:
+            return self._graph.compute_grads(self, batch, draws)
+        profiling.count("train.graph_eager")
+        loss, terms = self.loss_and_backward(batch, generator, draws)
         if mesh.is_initialized():
             names = list(terms)
             out = mesh.all_reduce_mean(
-                self._fp32_grads() + [loss] + [terms[k] for k in names])
+                self._fp32([p.grad for p in self.params]) + [loss]
+                + [terms[k] for k in names])
             n = len(self.params)
             self._reduced = out[:n]
             loss = out[n]
             terms = dict(zip(names, out[n + 1:]))
         return loss, terms
 
-    def _fp32_grads(self) -> List[torch.Tensor]:
-        """Each trainable parameter's ``.grad`` in fp32, zero where it got
-        none."""
-        return [torch.zeros_like(m) if p.grad is None else p.grad.float()
-                for p, m in zip(self.params, self.masters)]
+    def loss_and_backward(self, batch, generator, draws):
+        """The loss and its backward: (loss, terms), detached."""
+        with profiling.span("train.forward"):
+            loss, terms = self.loss_fn()(batch, generator, draws)
+        with profiling.span("train.backward"):
+            loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in terms.items()}
+
+    def _fp32(self, grads: Sequence[Optional[torch.Tensor]]
+              ) -> List[torch.Tensor]:
+        """Each gradient in fp32, zero where a parameter got none."""
+        return [torch.zeros_like(m) if g is None else g.float()
+                for g, m in zip(grads, self.masters)]
 
     def apply_grads(self):
         """One AdamW step of the masters from the gradients in fp32 (the
         ranks' mean under a group, else ``.grad``; zero where a parameter
         got none), then the rounded masters into the model's
-        parameters."""
+        parameters.  Replays the optimizer graph after a graphed
+        :meth:`compute_grads`."""
+        graph, self._graph = self._graph, None
         with profiling.span("train.optimizer"):
-            grads = self._reduced if self._reduced is not None \
-                else self._fp32_grads()
+            values = self.optimizer.scalars(self.state.count)
+            self.state.count += 1
+            for t, v in zip(self._scalars, values):
+                t.fill_(v)
+            if graph is not None:
+                graph.apply_grads(self)
+            else:
+                profiling.count("train.graph_eager")
+                grads = self._reduced if self._reduced is not None \
+                    else [p.grad for p in self.params]
+                self.optimizer_step(grads)
             self._reduced = None
-            with torch.no_grad():
-                norm = self._global_norm(grads) \
-                    if self.axis is not None and self.optimizer.grad_clip \
-                    else None
-                updates = self.optimizer.update(grads, self.state,
-                                                self.masters, norm)
-                torch._foreach_add_(self.masters, updates)
-                if self._lowp:
-                    torch._foreach_copy_([p for p, _ in self._lowp],
-                                         [m for _, m in self._lowp])
             for p in self.params:
                 p.grad = None
         # cached uncond encodes (CachedSampler) belong to the old weights
         self.model.weights_version += 1
+
+    def optimizer_step(self, grads: Sequence[Optional[torch.Tensor]]
+                       ) -> None:
+        """:meth:`apply_grads`' device work from the step's gradients
+        (None where a parameter got none) and the filled scalars."""
+        grads = self._fp32(grads)
+        with torch.no_grad():
+            norm = self._global_norm(grads) \
+                if self.axis is not None and self.optimizer.grad_clip \
+                else None
+            updates = self.optimizer.step(grads, self.state, self.masters,
+                                          self._scalars, norm)
+            torch._foreach_add_(self.masters, updates)
+            if self._lowp:
+                torch._foreach_copy_([p for p, _ in self._lowp],
+                                     [m for _, m in self._lowp])
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The L2 norm of the whole gradient of a placed model: the split

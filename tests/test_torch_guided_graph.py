@@ -29,7 +29,7 @@ from convofusion_tpu_torch.data.synthetic import (
 )
 from convofusion_tpu_torch.models import denoiser as denoiser_mod
 from convofusion_tpu_torch.models.convofusion import Convofusion
-from convofusion_tpu_torch.utils import profiling
+from convofusion_tpu_torch.utils import cuda_graphs, profiling
 
 STEPS = 4
 KEYS = ("spk_ids", "spk_tmask", "lsn_ids", "lsn_tmask", "melspec_lsn",
@@ -94,7 +94,7 @@ def graphs_on_cpu(monkeypatch):
     """Capture allowed on the CPU through the stand-in; yields the list of
     captures."""
     captures = []
-    monkeypatch.setattr(denoiser_mod, "CAPTURE_DEVICES", ("cpu", "cuda"))
+    monkeypatch.setattr(cuda_graphs, "CAPTURE_DEVICES", ("cpu", "cuda"))
     monkeypatch.setattr(denoiser_mod.GuidedGraphs, "_capture",
                         stand_in(captures))
     return captures
@@ -265,7 +265,7 @@ def test_diffusion_reverse_bit_equal_on_cpu(cpu_model, monkeypatch,
     eager = _reverse(m, batch, capture_attention)
     assert counts()["graph_eager"] == STEPS
     captures = []
-    monkeypatch.setattr(denoiser_mod, "CAPTURE_DEVICES", ("cpu",))
+    monkeypatch.setattr(cuda_graphs, "CAPTURE_DEVICES", ("cpu",))
     monkeypatch.setattr(denoiser_mod.GuidedGraphs, "_capture",
                         stand_in(captures))
     counts = Counts()
@@ -343,7 +343,7 @@ def eager(monkeypatch):
     @contextlib.contextmanager
     def off():
         with monkeypatch.context() as mp:
-            mp.setattr(denoiser_mod, "CAPTURE_DEVICES", ())
+            mp.setattr(cuda_graphs, "CAPTURE_DEVICES", ())
             yield
 
     return off
