@@ -8,6 +8,7 @@ picks some (default all; 1-3 always run, and one phase that launches the
 step kernel must be among them):
   1. device  - require CUDA; print the card's name and power limit; TF32 off
   2. build   - nvcc the hand-written kernels from convofusion_tpu_torch/csrc
+               (the guided step, AdamW)
   3. kernel  - at the main path's B=96 shapes (latents (96, 16, 128) and,
                for raw motion, (96, 128, 189)) and at the batches the other
                path phases give it (PATH_BATCHES, RAW_MOTION_BATCHES), every
@@ -91,9 +92,22 @@ step kernel must be among them):
                (kernels a step, the card's busy share against the graphed
                median step), and one profiled eager step with F.dropout's
                fused kernel (the kernels that masks from the step's
-               generator add); every loss finite; then stage 1 on one fixed
-               batch for 20 steps, whose last 5 losses must average below
-               its first 5
+               generator add); every loss finite; the AdamW kernel:
+               adamw.launches 1 an eager step and none a replay, one
+               kernel in the optimizer graph (two profiled steps) and its
+               time there; at stage 2 with ids and at stage 1, after the
+               peak memory is read, the kernel against the plain foreach
+               chain over 4 steps of the stage's whole trainable set from
+               the trainer's state (clip off, clip with its own norm, clip
+               with a given norm; every 7th gradient absent): masters,
+               moments and weights bit-equal, or within 4 fp32 ulps and
+               one bf16 ulp, the op that differs named; and CUDA-event
+               times back to back of the kernel (a chunk sweep), of the
+               plain chain replayed from one CUDA graph and of
+               torch._fused_adamw_ (a yardstick the port never calls)
+               against the byte bound; then stage 1 on
+               one fixed batch for 20 steps, whose last 5 losses must
+               average below its first 5
  13. checkpoint - the production stage-2 model from the YAML config
                (load_config + from_cfg), bf16: saved without the T5 trunk,
                in the foreground and the background (ms, MiB), loaded into
@@ -282,6 +296,7 @@ from convofusion_tpu_torch.models.tokenizer import (
     SentencePieceTokenizer,
     focus_word_indices,
 )
+from convofusion_tpu_torch.ops import adamw
 from convofusion_tpu_torch.ops import guided_step as gs_mod
 from convofusion_tpu_torch.ops import layers
 from convofusion_tpu_torch.ops.fused_streams import fuse_denoiser_params
@@ -376,7 +391,17 @@ TRAIN_WARMUP, TRAIN_TIMED, TRAIN_PROFILED, LEARN_STEPS = 3, 6, 2, 20
 # phase 12: graphed steps held bit-equal to as many eager ones
 TRAIN_COMPARED = 3
 TRAIN_GRAPH_COUNTERS = ("train.graph_captures", "train.graph_replays",
-                        "train.graph_eager")
+                        "train.graph_eager", "adamw.launches")
+# phase 12: the AdamW kernel against the plain chain: steps, each step's
+# gradient scale (the clip at ADAMW_CLIP keeps some steps and scales
+# others), every ADAMW_ABSENT_EVERY-th gradient absent; gaps allowed where
+# the clip's norm is the kernel's own (the pre-pass sums in another order);
+# launches timed back to back, and the chunk sizes swept
+ADAMW_STEPS, ADAMW_SCALES, ADAMW_CLIP = 4, (1e-3, 1e-4, 1e-2, 1e-3), 1.0
+ADAMW_ABSENT_EVERY = 7
+ADAMW_FP32_ULPS, ADAMW_BF16_ULPS = 4, 1
+ADAMW_TIMED = 20
+ADAMW_CHUNKS = (2048, 4096, 8192, 16384, 32768)
 TRAIN_DIFFUSION_BATCH = PRODUCTION["train"]["batch_size"]
 TRAIN_VAE_BATCH = PRODUCTION_VAE["train"]["batch_size"]
 # phase 13: the YAML scheduler is DDPM-1000 (modules/scheduler.yaml:1-11);
@@ -510,12 +535,14 @@ def phase_device() -> str:
 
 
 def phase_build():
-    t0 = time.perf_counter()
-    report = gs_mod.build()
-    log(f"# build: guided_step.cu in {time.perf_counter() - t0:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"#   {line.strip()}")
+    for name, build in (("guided_step.cu", gs_mod.build),
+                        ("adamw.cu", adamw.build)):
+        t0 = time.perf_counter()
+        report = build()
+        log(f"# build: {name} in {time.perf_counter() - t0:.2f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"#   {line.strip()}")
 
 
 def _event_median_ms(fn, flush):
@@ -1541,11 +1568,13 @@ def cached_layout(model, batch):
     return out
 
 
-def time_training(name, model, batch, smi, seed):
+def time_training(name, model, batch, smi, seed, adamw_checks=True):
     """TRAIN_WARMUP + TRAIN_TIMED steps, each ending in a sync (graphed
     on the card from the second), TRAIN_COMPARED graphed steps against as
-    many eager ones from one state, then TRAIN_PROFILED eager steps under
-    the profiler.  Returns a summary."""
+    many eager ones from one state, the optimizer graph's kernels, then
+    TRAIN_PROFILED eager steps under the profiler; with ``adamw_checks``,
+    after the step's peak memory is read, the AdamW kernel against its
+    plain version and its times.  Returns a summary."""
     dev = model.device
     on_card = dev.type == "cuda"
     b = (batch["motion"] if model.stage == "vae"
@@ -1569,7 +1598,14 @@ def time_training(name, model, batch, smi, seed):
             if i >= TRAIN_WARMUP:
                 times.append(time.perf_counter() - t0)
         counts = _graph_counts(counts)
+        # the warm-up step launches the AdamW kernel, the capture records
+        # it (counted once), the replays launch none from the host
+        if on_card and counts["launches"] != 2:
+            raise RuntimeError(f"train {name}: {counts['launches']} AdamW "
+                               f"launches counted over the timed steps, "
+                               f"want 2")
         graphed_against_eager(trainer, batch, gen, name)
+        optimizer_graph_kernels(trainer, batch, gen, name)
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if on_card else [])
         # eager: each kernel launched and counted on its own
@@ -1639,6 +1675,9 @@ def time_training(name, model, batch, smi, seed):
                     reverse=True)[:8]:
         log(f"#   host {e.self_cpu_time_total / 1e3 / TRAIN_PROFILED:8.3f} "
             f"ms a step {e.count // TRAIN_PROFILED:5d}x  {e.key[:80]}")
+    if adamw_checks:
+        adamw_against_plain(trainer, name)
+        adamw_times(trainer, name)
     return summary
 
 
@@ -1687,11 +1726,221 @@ def graphed_against_eager(trainer, batch, gen, name):
                            f"ones: losses {l_g.tolist()} / {l_e.tolist()}, "
                            f"masters {differ[:4]}")
     if trainer.model.device.type == "cuda":
+        # the AdamW kernel: one launch an eager step, none in a replay
         want = {"graph_captures": 0, "graph_replays": 2 * TRAIN_COMPARED,
-                "graph_eager": 0}
+                "graph_eager": 0, "launches": 0}
         if c_g != want:
             raise RuntimeError(f"train {name}: graph counters {c_g}, want "
                                f"{want}")
+        if c_e["launches"] != TRAIN_COMPARED:
+            raise RuntimeError(f"train {name}: {c_e['launches']} AdamW "
+                               f"launches in {TRAIN_COMPARED} eager steps")
+
+
+def optimizer_graph_kernels(trainer, batch, gen, name):
+    """Two graphed steps under the profiler: the device kernels inside each
+    ``train.optimizer`` span's device-side range (``apply_grads``) must be
+    the AdamW kernel, the optimizer graph's replay, and the three fills of
+    the step's scalars; logs the kernel's device time there."""
+    if trainer.model.device.type != "cuda":
+        return
+    # a profile that caught no device range at all is retried: the
+    # profiler drops a window's device events now and then
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                trainer.compute_grads(batch, gen)
+                trainer.apply_grads()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ranges = [e.time_range for e in events if e.is_user_annotation
+                  and e.name == "train.optimizer"]
+        if len(ranges) == 2:
+            break
+    else:
+        raise RuntimeError(f"train {name}: the profiler caught {len(ranges)} "
+                           f"device ranges of train.optimizer in 3 tries")
+    times = []
+    for r in ranges:
+        inside = [e for e in events if not e.is_user_annotation
+                  and r.start <= e.time_range.start < r.end]
+        ours = [e for e in inside if "adamw_kernel" in e.name]
+        others = [e.name for e in inside if e not in ours
+                  and "fill" not in e.name.lower()]
+        if len(ours) != 1 or others:
+            raise RuntimeError(f"train {name}: the optimizer graph's replay "
+                               f"ran {len(ours)} AdamW kernels and "
+                               f"{others[:4]}")
+        times.append(ours[0].device_time_total)
+    log(f"# train: {name}: the optimizer graph's replay is one AdamW kernel "
+        f"of {times[0]:.1f} / {times[1]:.1f} us (two graphed steps; the "
+        f"step's three scalar fills beside it)")
+
+
+def _clones(ts):
+    return [None if t is None else t.detach().clone() for t in ts]
+
+
+def _ulps(a, b):
+    """The largest gap of a and b in units of b's spacing, in b's dtype."""
+    if a is None:
+        return 0.0
+    inf = torch.full_like(b, float("inf"))
+    spacing = (torch.nextafter(b.abs(), inf) - b.abs()).float()
+    return float(((a.float() - b.float()).abs() / spacing).max())
+
+
+def adamw_against_plain(trainer, name):
+    """The AdamW kernel (``adamw.adamw_step``) against the plain chain
+    (``adamw.adamw_reference``) on clones of the trainer's masters, moments
+    and weights over ADAMW_STEPS steps of seeded gradients in the
+    parameters' dtypes: the clip off, with its own norm (the plain version
+    given the kernel's, ``adamw.prepass_norm``) and with a given norm.
+    Logs each array's max |diff| and ulps; raises beyond ADAMW_FP32_ULPS /
+    ADAMW_BF16_ULPS, naming the arrays that differ."""
+    dev = trainer.model.device
+    if dev.type != "cuda":
+        return
+    opt = trainer.optimizer
+    gen = torch.Generator(device=dev).manual_seed(46)
+    grads = [[None if i % ADAMW_ABSENT_EVERY == 3 else
+              (torch.randn(p.shape, generator=gen, device=dev)
+               * scale).to(p.dtype)
+              for i, p in enumerate(trainer.params)]
+             for scale in ADAMW_SCALES[:ADAMW_STEPS]]
+    start = (trainer.masters, trainer.state.mu, trainer.state.nu,
+             [None if p.dtype == torch.float32 else p
+              for p in trainer.params])
+    for case, (clip, given) in {"clip off": (0.0, False),
+                                "clip, own norm": (ADAMW_CLIP, False),
+                                "clip, given norm": (ADAMW_CLIP, True)
+                                }.items():
+        kernel = [_clones(ts) for ts in start]
+        plain = [_clones(ts) for ts in start]
+        norms = []
+        for step, g in enumerate(grads):
+            scalars = [torch.tensor(v, dtype=torch.float32, device=dev)
+                       for v in opt.scalars(step)]
+            fp32 = [torch.zeros_like(m) if x is None else x.float()
+                    for x, m in zip(g, kernel[0])]
+            own = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(fp32)))
+            norm = own if given else None
+            table = adamw.make_table(g, *kernel)
+            adamw.adamw_step(g, *kernel, scalars, opt.weight_decay, clip,
+                             norm, table)
+            if clip and not given:
+                norm = adamw.prepass_norm(table.partials)
+                norms.append((float(norm), _ulps(norm, own),
+                              bool(norm < clip)))
+            adamw.adamw_reference(g, *plain, scalars, opt.weight_decay,
+                                  clip, norm)
+        torch.cuda.synchronize()
+        gaps, differ = {}, []
+        for what, got, want in zip(("masters", "mu", "nu", "weights"),
+                                   kernel, plain):
+            pairs = [(a, b) for a, b in zip(got, want) if b is not None]
+            # one host read an array; ulps only where something differs
+            diff = float(torch.stack([(a.float() - b.float()).abs().max()
+                                      for a, b in pairs]).max()) \
+                if pairs else 0.0
+            ulps = max(_ulps(a, b) for a, b in pairs) if diff else 0.0
+            gaps[what] = (diff, ulps)
+            if diff:
+                differ.append(what)
+        n = sum(m.numel() for m in start[0])
+        log(f"# train: {name}: AdamW kernel against the plain chain, "
+            f"{case}, {ADAMW_STEPS} steps over {len(start[0])} tensors "
+            f"({n / 1e6:.2f} M parameters): max |diff| (ulps) " + ", ".join(
+                f"{k} {d:.3g} ({u:.1f})" for k, (d, u) in gaps.items())
+            + (f"; the pre-pass norm (value, ulps from the chain's, kept): "
+               f"{norms}" if norms else ""))
+        if differ:
+            log(f"# train: {name}: {case}: differ in {differ}: mu is "
+                f"_foreach_add_'s, nu _foreach_addcmul_'s, the masters "
+                f"alone the update's division, sqrt, decay or add, the "
+                f"weights alone the bf16 rounding")
+        if max(gaps[k][1] for k in ("masters", "mu", "nu")) > \
+                ADAMW_FP32_ULPS or gaps["weights"][1] > ADAMW_BF16_ULPS:
+            raise RuntimeError(f"train {name}: {case}: the AdamW kernel "
+                               f"differs from the plain chain: {gaps}")
+
+
+def _graph_ms_each(fn):
+    """CUDA-event ms a replay of ``fn`` captured as one CUDA graph, over
+    ADAMW_TIMED replays back to back after 3 (after one eager call on a
+    side stream): the device's time, without the host's launch work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for _ in range(3):
+        graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ADAMW_TIMED):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / ADAMW_TIMED
+
+
+def adamw_times(trainer, name):
+    """Ms a step back to back over the trainer's trainable set (every
+    gradient present, in the parameters' dtypes), each replayed from one
+    CUDA graph: the AdamW kernel at each of ADAMW_CHUNKS against the byte
+    bound; the plain chain (the earlier optimizer graph, its fp32 casts
+    and bf16 copies included); torch._fused_adamw_ over fp32 masters,
+    moments and gradients, a yardstick the port never calls."""
+    dev = trainer.model.device
+    if dev.type != "cuda":
+        return
+    opt = trainer.optimizer
+    gen = torch.Generator(device=dev).manual_seed(47)
+    grads = [(torch.randn(p.shape, generator=gen, device=dev)
+              * 1e-3).to(p.dtype) for p in trainer.params]
+    state = [_clones(ts) for ts in (
+        trainer.masters, trainer.state.mu, trainer.state.nu,
+        [None if p.dtype == torch.float32 else p for p in trainer.params])]
+    scalars = [torch.tensor(v, dtype=torch.float32, device=dev)
+               for v in opt.scalars(0)]
+    wd = opt.weight_decay
+    nbytes = sum(g.numel() * (g.element_size() + 24
+                              + (2 if w is not None else 0))
+                 for g, w in zip(grads, state[3]))
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    sweep = {}
+    for chunk in ADAMW_CHUNKS:
+        table = adamw.make_table(grads, *state, chunk=chunk)
+        sweep[chunk] = _graph_ms_each(lambda: adamw.adamw_step(
+            grads, *state, scalars, wd, 0.0, None, table))
+    plain_ms = _graph_ms_each(lambda: adamw.adamw_reference(
+        grads, *state, scalars, wd, 0.0))
+    fp32 = [g.float() for g in grads]
+    steps = [torch.ones((), dtype=torch.float32, device=dev)
+             for _ in grads]
+    fused_ms = _graph_ms_each(lambda: torch._fused_adamw_(
+        state[0], fp32, state[1], state[2], [], steps, lr=7e-5, beta1=0.9,
+        beta2=0.999, weight_decay=wd, eps=1e-8, amsgrad=False,
+        maximize=False))
+    best = min(sweep, key=sweep.get)
+    log(f"# train: {name}: AdamW over {len(grads)} tensors, "
+        f"{nbytes / 1e9:.3f} GB a step, bound {bound_ms:.3f} ms at "
+        f"3.35 TB/s; back to back from CUDA graphs, ms a step: the kernel "
+        f"at chunk " + ", ".join(f"{c} {t:.3f}" for c, t in sweep.items())
+        + f" (best {best}: {bound_ms / sweep[best]:.1%} of the bound; "
+        f"chunk {adamw.CHUNK}: {bound_ms / sweep[adamw.CHUNK]:.1%}); the "
+        f"plain chain {plain_ms:.3f}; torch._fused_adamw_ (fp32 "
+        f"gradients) {fused_ms:.3f}")
+    PHASE_RESULTS.setdefault("adamw", {})[name] = dict(
+        tensors=len(grads), gb=nbytes / 1e9, bound_ms=bound_ms,
+        kernel_ms=sweep, plain_graph_ms=plain_ms, fused_adamw_ms=fused_ms)
 
 
 @contextlib.contextmanager
@@ -1769,8 +2018,10 @@ def phase_train(smi, device=None):
     del model, batch
     model = Convofusion(PRODUCTION, dtype="bfloat16", device=device, seed=2)
     batch = cached_layout(model, train_batch(model, raw2))
+    # the same trainable set as with ids: the AdamW kernel is checked there
     rows["stage2_cached"] = time_training(
-        "stage 2, cached T5 trunk and VAE posterior", model, batch, smi, 42)
+        "stage 2, cached T5 trunk and VAE posterior", model, batch, smi, 42,
+        adamw_checks=False)
     del model, batch
     raw1 = synthetic_raw_batch(43, TRAIN_VAE_BATCH,
                                mel_frames=PRODUCTION["mel_frames"])

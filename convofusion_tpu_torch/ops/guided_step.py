@@ -7,21 +7,18 @@ fused_guided_step`` (kernel ``_kernel``, :36-77).  On CPU tensors it runs
 ``csrc/guided_step.cu`` or raises.  Both take their per-step scalars from
 ``step_coefs``, computed once a step on the host in the op order of
 ``pallas_step.py:54-75``.  ``_launch_geometry`` cuts the latents into the
-kernel's tiles and bulk copies.  The kernel is built with ``nvcc`` for
-``sm_90a`` into ``_build/`` at first use and loaded with ctypes.
+kernel's tiles and bulk copies.  The kernel is built by ``ops/nvcc.py`` at
+first use and loaded with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple, Tuple
 
 import torch
 
+from convofusion_tpu_torch.ops import nvcc
 from convofusion_tpu_torch.utils import profiling
 
 NUM_BRANCHES = 7
@@ -38,17 +35,8 @@ MAX_SHARED_BYTES = 48 * 1024 - 8
 TILE = {2: 1536, 4: 1024}
 THREADS = 256
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-SOURCE = CSRC / "guided_step.cu"
-LIBRARY = _PKG / "_build" / "libguided_step.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no --use_fast_math and no contracted multiply-adds: the kernel
-    # rounds as guided_step_reference does
-    "-fmad=false",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-]
+SOURCE = nvcc.CSRC / "guided_step.cu"
+LIBRARY = nvcc.BUILD / "libguided_step.so"
 
 
 class StepCoefs(NamedTuple):
@@ -167,34 +155,10 @@ def _launch_geometry(n: int, elem_size: int, tile: int,
     return Geometry(tile, blocks, threads, shared, tuple(copies))
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin): cannot build the kernel")
-    return nvcc
-
-
 def build() -> str:
-    """Compile ``csrc/guided_step.cu`` into ``_build/`` unless a library
-    newer than every file under ``csrc/`` is there.  Returns the
-    compiler's output (register and spill report), or '' when nothing was
-    built."""
-    newest = max(p.stat().st_mtime for p in CSRC.rglob("*") if p.is_file())
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
-        return ""
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return res.stdout + res.stderr
+    """Compile ``csrc/guided_step.cu`` (``nvcc.build``); the compiler's
+    report, or '' when the library is up to date."""
+    return nvcc.build(SOURCE, LIBRARY)
 
 
 class _CStepCoefs(ctypes.Structure):

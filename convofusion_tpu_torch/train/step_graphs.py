@@ -8,10 +8,11 @@ thousand: the host's dispatch of them, not the card, set the pace.  A
   masks from the registered mask generator) and its backward into the
   graph's own gradient tensors; its outputs are the detached loss, the
   terms and those gradients;
-- the optimizer graph, ``Trainer.apply_grads``: the fp32 gradient casts,
-  the global-norm clip, AdamW's moments, the masters' update and their
-  rounded copy into the model's weights, reading the learning rate and
-  both bias corrections from the trainer's device scalars.
+- the optimizer graph, ``Trainer.apply_grads``: one launch of the AdamW
+  kernel (``ops/adamw.py``; two with a clip that computes its own norm)
+  over the grads graph's gradients, reading the learning rate and both
+  bias corrections from the trainer's device scalars; its work list is
+  made before the capture and kept with the graph.
 
 A geometry's first step runs eagerly on the pool's side stream (the
 warm-up, and a real step); its second captures both graphs and replays
@@ -82,7 +83,7 @@ class StepGraph:
         self._pool, self.generator = pool, generator
         self.batch, self.draws = _buffers(batch), _buffers(draws)
         self.warm = False
-        self._grads = self._optimizer = None
+        self._grads = self._optimizer = self._table = None
         # the grads graph's (loss, terms, gradients)
         self.outputs = None
 
@@ -127,8 +128,10 @@ class StepGraph:
             return
         if self._optimizer is None:
             grads = self.outputs[2]
+            self._table = trainer.optimizer_table(grads)
             self._optimizer, _ = self._pool.capture(
-                lambda: trainer.optimizer_step(grads), device, warmup=False)
+                lambda: trainer.optimizer_step(grads, self._table), device,
+                warmup=False)
             profiling.count("train.graph_captures")
         self._optimizer.replay()
         profiling.count("train.graph_replays")

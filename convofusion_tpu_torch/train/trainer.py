@@ -29,9 +29,11 @@ counted once.
   as 0-dim device tensors, filled before each step, so that one captured
   update serves every step.
 - ``Trainer``: each trainable parameter has an fp32 master and fp32
-  moments.  A step casts each ``.grad`` to fp32, steps the masters, and
+  moments.  A step reads each ``.grad`` as fp32, steps the masters, and
   copies the masters back, rounded, into the model's parameters; an fp32
-  parameter is its own master.  That is what JAX computes for fp32
+  parameter is its own master.  On a CUDA card that step is one pass of
+  the hand-written kernel (``ops/adamw.py``), elsewhere the
+  ``torch._foreach`` chain.  That is what JAX computes for fp32
   parameters cast to bf16 at each use: the cast's VJP rounds the cotangent
   to bf16, and the fp32 parameter steps.  The model keeps its compute-
   dtype weights, so every sampling path runs as before.  On a CUDA card
@@ -51,6 +53,7 @@ import torch
 from torch import nn
 
 from convofusion_tpu_torch.models.convofusion import Convofusion
+from convofusion_tpu_torch.ops import adamw
 from convofusion_tpu_torch.parallel import mesh, tp
 from convofusion_tpu_torch.train.step_graphs import StepGraphs
 from convofusion_tpu_torch.utils import profiling
@@ -112,9 +115,10 @@ class AdamWState:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(c), adamw(schedule, wd))`` over a
-    list of fp32 tensors, with ``torch._foreach`` ops."""
+    list of fp32 tensors, with ``torch._foreach`` ops (``ops/adamw.py``'s
+    plain version)."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    b1, b2, eps = adamw.B1, adamw.B2, adamw.EPS
 
     def __init__(self, optim: Dict):
         if str(optim.get("type", "adamw")).lower() != "adamw":
@@ -130,21 +134,9 @@ class AdamW:
 
     def clip(self, grads: Sequence[torch.Tensor],
              norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-        """``optax.clip_by_global_norm``: the gradients unchanged when
-        their global norm (``norm``, else that of ``grads``) is below
-        ``grad_clip``, else g / norm * c, decided on the device
-        (``clip_grad_norm_`` would divide by norm + 1e-6)."""
-        grads = list(grads)
-        if not self.grad_clip:
-            return grads
-        if norm is None:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
-        keep = norm < self.grad_clip
-        one = torch.ones_like(norm)
-        return torch._foreach_mul(
-            torch._foreach_div(grads, torch.where(keep, one, norm)),
-            torch.where(keep, one, one * self.grad_clip))
+        """``optax.clip_by_global_norm`` at ``grad_clip``
+        (``adamw.clip_by_global_norm``)."""
+        return adamw.clip_by_global_norm(grads, self.grad_clip, norm)
 
     def scalars(self, count: int) -> Tuple[float, float, float]:
         """(-learning rate, 1 - b1**t, 1 - b2**t) of the update after
@@ -172,23 +164,9 @@ class AdamW:
         it is: ``scalars`` is :meth:`scalars` of the count, as host
         numbers or as 0-dim fp32 tensors on the device, which give the
         same bits."""
-        neg_lr, bc1, bc2 = scalars
-        grads = self.clip(grads, norm)
-        b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(state.mu, b1)
-        torch._foreach_add_(state.mu, grads, alpha=1.0 - b1)
-        torch._foreach_mul_(state.nu, b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - b2)
-        denom = torch._foreach_div(state.nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(state.mu, bc1)
-        torch._foreach_div_(updates, denom)
-        if self.weight_decay:
-            torch._foreach_add_(updates, list(params),
-                                alpha=self.weight_decay)
-        torch._foreach_mul_(updates, neg_lr)
-        return updates
+        return adamw.adamw_updates(self.clip(grads, norm), state.mu,
+                                   state.nu, params, scalars,
+                                   self.weight_decay)
 
 
 def make_optimizer(cfg: Dict) -> AdamW:
@@ -233,6 +211,11 @@ class Trainer:
         # the step's graph pairs, and the pair the last compute_grads used
         self.graphs = StepGraphs()
         self._graph = None
+        # the AdamW kernel's work lists of the eager steps' gradients; its
+        # compile overlaps the set-up before the first step
+        self._tables = adamw.TableCache()
+        if model.device.type == "cuda":
+            adamw.start_build()
         # AdamW.scalars of each step: -lr, the two bias corrections
         self._scalars: List[torch.Tensor] = []
 
@@ -269,9 +252,7 @@ class Trainer:
                               ("mu", self.state.mu), ("nu", self.state.nu)):
                 torch._foreach_copy_(dst, [state[part][n].to(d.device)
                                            for n, d in zip(self.names, dst)])
-            if self._lowp:
-                torch._foreach_copy_([p for p, _ in self._lowp],
-                                     [m for _, m in self._lowp])
+            self._round_weights()
         self.state.count = int(state["count"])
         self.model.weights_version += 1
 
@@ -313,20 +294,29 @@ class Trainer:
             else:
                 masters.append(w.clone())
         self.masters = masters
-        self._lowp = [(p, m) for p, m in zip(self.params, self.masters)
-                      if p.dtype != torch.float32]
-        if self._lowp:
-            with torch.no_grad():
-                torch._foreach_copy_([p for p, _ in self._lowp],
-                                     [m for _, m in self._lowp])
+        # the low-precision weights the masters are rounded into; None
+        # where the master is the parameter
+        self._weights = [None if p.dtype == torch.float32 else p
+                         for p in self.params]
+        with torch.no_grad():
+            self._round_weights()
         self.state = self.optimizer.init(self.masters)
         self._scalars = [torch.zeros((), dtype=torch.float32,
                                      device=self.model.device)
                          for _ in range(3)]
-        # the graphs read the old masters, moments and scalars
+        # the graphs and tables read the old masters, moments and scalars
         self.graphs.clear()
         self._graph = None
+        self._tables.clear()
         return self.state
+
+    def _round_weights(self) -> None:
+        """The masters, rounded, into the low-precision weights."""
+        pairs = [(w, m) for w, m in zip(self._weights, self.masters)
+                 if w is not None]
+        if pairs:
+            torch._foreach_copy_([w for w, _ in pairs],
+                                 [m for _, m in pairs])
 
     @contextlib.contextmanager
     def training(self):
@@ -420,21 +410,28 @@ class Trainer:
         # cached uncond encodes (CachedSampler) belong to the old weights
         self.model.weights_version += 1
 
-    def optimizer_step(self, grads: Sequence[Optional[torch.Tensor]]
-                       ) -> None:
+    def optimizer_step(self, grads: Sequence[Optional[torch.Tensor]],
+                       table: Optional[adamw.Table] = None) -> None:
         """:meth:`apply_grads`' device work from the step's gradients
-        (None where a parameter got none) and the filled scalars."""
-        grads = self._fp32(grads)
+        (None where a parameter got none) and the filled scalars:
+        ``adamw.adamw_step``, whose work list on a card is ``table``
+        (:meth:`optimizer_table`; a capture must be given it)."""
+        opt = self.optimizer
         with torch.no_grad():
-            norm = self._global_norm(grads) \
-                if self.axis is not None and self.optimizer.grad_clip \
-                else None
-            updates = self.optimizer.step(grads, self.state, self.masters,
-                                          self._scalars, norm)
-            torch._foreach_add_(self.masters, updates)
-            if self._lowp:
-                torch._foreach_copy_([p for p, _ in self._lowp],
-                                     [m for _, m in self._lowp])
+            norm = self._global_norm(self._fp32(grads)) \
+                if self.axis is not None and opt.grad_clip else None
+            if table is None:
+                table = self.optimizer_table(grads)
+            adamw.adamw_step(grads, self.masters, self.state.mu,
+                             self.state.nu, self._weights, self._scalars,
+                             opt.weight_decay, opt.grad_clip, norm, table)
+
+    def optimizer_table(self, grads: Sequence[Optional[torch.Tensor]]
+                        ) -> Optional[adamw.Table]:
+        """The AdamW kernel's work list over ``grads`` and this trainer's
+        masters, moments and weights; None off a card."""
+        return self._tables.get(grads, self.masters, self.state.mu,
+                                self.state.nu, self._weights)
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The L2 norm of the whole gradient of a placed model: the split

@@ -12,8 +12,9 @@ span lies on the device trace's own clock as a ``user_annotation`` and
 each idle gap of the trace can be put down to the span the host was in.
 
 Counters.  ``count(name, n)`` adds to the process-wide ``COUNTS``, always:
-``guided_step.launches`` (the step kernel), ``melspec.native`` and
-``melspec.numpy`` (the path a mel spectrogram took).  ``recording()``
+``guided_step.launches`` (the step kernel), ``adamw.launches`` (the AdamW
+kernel's host launches), ``melspec.native`` and ``melspec.numpy`` (the
+path a mel spectrogram took).  ``recording()``
 yields a :class:`Record`: the spans, and ``COUNTS``' change over the
 recording.  It stays in memory; nothing writes it out.  Nothing turns
 recording on but code.  Two tallies stay apart: ``guided_step.shapes`` is

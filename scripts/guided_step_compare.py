@@ -51,6 +51,7 @@ from convofusion_tpu_torch.data.synthetic import (  # noqa: E402
 )
 from convofusion_tpu_torch.models import convofusion as model_mod  # noqa: E402
 from convofusion_tpu_torch.ops import guided_step as gs_mod  # noqa: E402
+from convofusion_tpu_torch.ops import nvcc  # noqa: E402
 
 IN_PATH_STEPS = 10
 PROFILED_LAUNCHES = 50
@@ -61,8 +62,7 @@ log = cs.log
 def build_baseline(source: Path) -> ctypes.CDLL:
     lib_path = gs_mod.LIBRARY.parent / "baseline" / "libguided_step.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [gs_mod._find_nvcc(), *gs_mod.NVCC_FLAGS, "-o", str(lib_path),
-           str(source)]
+    cmd = [nvcc.find_nvcc(), *nvcc.FLAGS, "-o", str(lib_path), str(source)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:

@@ -15,9 +15,10 @@
   replay reruns it and writes its results into the first run's outputs,
   as a graph's replay rewrites its own tensors.
 - The tests marked ``cuda`` compare graphed with eager steps on a card
-  and skip without one; run them there with ``python -m pytest
-  --noconftest -p no:cacheprovider -m cuda tests/test_torch_train_graph.py
-  -q``.
+  (and count the AdamW kernel's launches: one an eager step, none a
+  replay; the optimizer graph's replay is that one kernel) and skip
+  without one; run them there with ``python -m pytest --noconftest -p
+  no:cacheprovider -m cuda tests/test_torch_train_graph.py -q``.
 """
 import contextlib
 import copy
@@ -392,19 +393,64 @@ def test_card_graphed_equals_eager(card, stage, with_draws):
     batches = _batches(m)
     draws = [_draws(m, i) if with_draws else None for i in range(2)]
     state = copy.deepcopy(m.state_dict())
+    launches = profiling.COUNTS["adamw.launches"]
     with _eager():
         eager = Trainer(m)
         eager.init_state()
         want = _steps(eager, batches, draws)
+    assert profiling.COUNTS["adamw.launches"] - launches == STEPS
     m.load_state_dict(state)
     counts = Counts()
+    launches = profiling.COUNTS["adamw.launches"]
     trainer = Trainer(m)
     trainer.init_state()
     got = _steps(trainer, batches, draws)
     assert counts() == {"graph_captures": 2, "graph_replays": 6,
                         "graph_eager": 0}
+    # the warm-up step's launch and the capture's
+    assert profiling.COUNTS["adamw.launches"] - launches == 2
     for key in ("loss", "terms", "grads", "state", "gen"):
         assert _equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["vae", "diffusion"])
+def test_card_optimizer_graph_is_one_kernel(card, stage):
+    """In a replayed step, the device kernels of ``apply_grads``' span are
+    the AdamW kernel and the three fills of the step's scalars."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    m = _model(stage, card)
+    batches = _batches(m, 1)
+    trainer = Trainer(m)
+    trainer.init_state()
+    gen = torch.Generator(device=card).manual_seed(7)
+    with trainer.training():
+        # a warm-up step and a capture, then replays under the profiler
+        # until it catches their device ranges (it drops a window's now
+        # and then)
+        for i in range(5):
+            if i < 2:
+                trainer.compute_grads(batches[0], gen, _draws(m, 0))
+                trainer.apply_grads()
+                continue
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                trainer.compute_grads(batches[0], gen, _draws(m, 0))
+                trainer.apply_grads()
+                torch.cuda.synchronize()
+            events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+            ranges = [e.time_range for e in events if e.is_user_annotation
+                      and e.name == "train.optimizer"]
+            if ranges:
+                break
+    names = [e.name for e in events if not e.is_user_annotation
+             and ranges[0].start <= e.time_range.start < ranges[0].end]
+    ours = [n for n in names if "adamw_kernel" in n]
+    assert len(ours) == 1, names
+    assert all("fill" in n.lower() for n in names if n not in ours), names
 
 
 @pytest.mark.cuda
