@@ -2698,7 +2698,8 @@ def recorded_updates(record):
             float(self.optimizer.schedule(self.state.count)))
         record.setdefault("grads", []).append(
             {n: g.detach().to("cpu", copy=True)
-             for n, g in zip(self.names, self.optimizer.clip(grads))})
+             for n, g in zip(self.names, adamw.clip_by_global_norm(
+                 grads, self.optimizer.grad_clip))})
         return apply(self)
 
     Trainer.apply_grads = apply_grads
@@ -2710,7 +2711,7 @@ def recorded_updates(record):
 
 def adamw_replay(opt, w0, grads, lrs):
     """The weight after AdamW steps over one element's gradients, in
-    float64 (``AdamW.update``'s formula)."""
+    float64 (``adamw.adamw_updates``' formula)."""
     w, m, v = float(w0), 0.0, 0.0
     for t, (g, lr) in enumerate(zip(grads, lrs), 1):
         m = opt.b1 * m + (1 - opt.b1) * g

@@ -2,8 +2,8 @@
 
 Port of ``Denoiser`` (``convofusion_tpu/models/denoiser.py:36-291``) and
 ``EmbedAction`` (:294-328).  Arch ``trans_dec`` (production):
-``_embed_sample``, ``_build_memory``, ``__call__``, ``text_only``,
-``precompute_step_kv``, ``forward_kv`` and ``guided`` (:117-291):
+``_embed_sample``, ``_build_memory``, ``__call__``, ``text_only`` and
+``guided`` (:117-291):
   1. project the (B, 16, latent_dim) latent tokens to d
   2. sinusoidal timestep embedding -> 2-layer MLP -> (B, 1, d)
   3. add the body/hands token-type embedding (even/odd tokens) + sine_bh PE
@@ -21,13 +21,13 @@ attention maps.  Its condition is the five streams (``text+audio`` or any
 other name but these), one text tensor ``text`` / ``text_uncond``
 (``emb_proj``: ReLU then Linear) or action ids ``action`` (``emb_proj``:
 :class:`EmbedAction`).  It has no ``decoder``, ``condition_embedding`` or
-memory PE, so ``guided``, ``text_only`` and the K/V API raise (JAX fails
-there on the missing parameters).
+memory PE, so ``guided`` and ``text_only`` raise (JAX fails there on the
+missing parameters).
 
 ``fuse_streams`` builds the trans_dec stack with the five cross-attentions
 batched into one (``FusedDenoiserDecoder``; JAX :55-90): ``forward`` and
-``text_only`` run the same math, and the guided and K/V paths, which need
-the per-stream layers, raise (JAX asserts, :270-271).  ``remat``
+``text_only`` run the same math, and the guided path, which needs the
+per-stream layers, raises (JAX asserts, :270-271).  ``remat``
 recomputes each layer's activations in a training backward pass.
 
 ``GuidedGraphs`` replays ``guided`` from CUDA graphs: one capture of the
@@ -36,7 +36,6 @@ graph launch a reverse step in place of the kernels' launches one by one.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import threading
 from typing import Dict, Optional
@@ -64,8 +63,6 @@ ARCHS = ("trans_dec", "trans_enc")
 # any other name means the five streams
 TEXT_CONDITIONS = ("text", "text_uncond")
 ONE_TENSOR_CONDITIONS = TEXT_CONDITIONS + ("action",)
-# input geometries a model keeps captured (the service pads to one)
-GRAPH_CACHE_SIZE = 4
 
 
 def _is_scalar(timesteps) -> bool:
@@ -194,54 +191,22 @@ class Denoiser(nn.Module):
             raise ValueError("text_only takes a scalar timestep")
         return self.forward(sample, timesteps, cond, cond_masks)
 
-    def precompute_step_kv(self, timesteps, cond_real, cond_unc):
-        """Every layer's memory LayerNorm + K/V for both guidance variants
-        at one scalar timestep: the latent-independent share of a step,
-        for :meth:`guided` and :meth:`forward_kv` (``kvs=``).  The time
-        embedding is one row, so single-row streams stay at batch 1."""
-        self._per_stream("precompute_step_kv")
-        if not _is_scalar(timesteps):
-            raise ValueError("precompute_step_kv takes a scalar timestep")
-        dev = self.latent_embd.weight.device
-        ts = torch.as_tensor(timesteps, device=dev).reshape(1)
-        time_emb = self.time_embedding(self.time_proj(ts).to(
-            self.latent_embd.weight.dtype))[:, None, :]
-        return self.decoder.precompute_kv(
-            self._build_memory(cond_real, time_emb, True),
-            self._build_memory(cond_unc, time_emb, True))
-
-    def forward_kv(self, sample, timesteps, kvs, cond_masks=None,
-                   select: Optional[Dict[str, str]] = None):
-        """``forward`` over :meth:`precompute_step_kv`; ``select[stream]``
-        in {'real', 'unc'} (the WEG text-only pass: tlsn 'real', the rest
-        'unc', guidance branch 1)."""
-        self._per_stream("forward_kv")
-        x, time_emb = self._embed_sample(sample, timesteps)
-        out, att = self.decoder.forward_kv(x, kvs, select, time_emb,
-                                           cond_masks)
-        return self.latent_proj(out), att
-
     def guided(self, sample, timesteps, cond_real, cond_unc,
-               masks_real=None, masks_unc=None, kvs=None):
-        """All 7 classifier-free-guidance branches at once.  ``kvs``
-        (optional): :meth:`precompute_step_kv` at this timestep, which
-        replaces the conditions.  Returns (noise_pred (7, B, T,
-        latent_dim), att[stream] (B, L, T, Tk) of the full-condition
-        branch)."""
+               masks_real=None, masks_unc=None):
+        """All 7 classifier-free-guidance branches at once.  Returns
+        (noise_pred (7, B, T, latent_dim), att[stream] (B, L, T, Tk) of the
+        full-condition branch)."""
         self._per_stream("guided")
         x, time_emb = self._embed_sample(sample, timesteps)
         x7 = x[None].expand((NUM_BRANCHES,) + x.shape)
-        if kvs is None:
-            shared = _is_scalar(timesteps)
-            mem_real = self._build_memory(cond_real, time_emb, shared)
-            # single-row uncond conditions (encode_uncond) keep the uncond
-            # memory at batch 1 through LayerNorm + K/V; grouped_attend
-            # broadcasts the shared keys/values
-            mem_unc = self._build_memory(cond_unc, time_emb, shared)
-        else:
-            mem_real = mem_unc = None
+        shared = _is_scalar(timesteps)
+        mem_real = self._build_memory(cond_real, time_emb, shared)
+        # single-row uncond conditions (encode_uncond) keep the uncond
+        # memory at batch 1 through LayerNorm + K/V; grouped_attend
+        # broadcasts the shared keys/values
+        mem_unc = self._build_memory(cond_unc, time_emb, shared)
         out7, att = self.decoder.guided(x7, mem_real, mem_unc, time_emb,
-                                        masks_real, masks_unc, kvs)
+                                        masks_real, masks_unc)
         return self.latent_proj(out7), att
 
 
@@ -254,37 +219,30 @@ class GuidedGraph:
     the model's graphs share: the next replay of any of them may overwrite
     them."""
 
-    def __init__(self, denoiser: Denoiser, capture, latents, *conditions):
-        self._denoiser, self._capture = denoiser, capture
-        # normal tensors even when made under inference_mode, so that a
-        # later loop without it can still copy into them
-        with torch.inference_mode(False):
-            self.latents = torch.empty_like(latents)
-            # a 0-dim timestep is shared (_embed_sample): single-row uncond
-            # memories stay at batch 1, as with a Python int
-            self.t = torch.zeros((), dtype=torch.long, device=latents.device)
-            # cond_real, cond_unc, masks_real, masks_unc
-            self.inputs = tuple(
-                None if c is None else {k: torch.empty_like(v)
-                                        for k, v in c.items()}
-                for c in conditions)
+    def __init__(self, denoiser: Denoiser, pool: cuda_graphs.GraphPool,
+                 latents, conditions: Dict):
+        self._denoiser, self._pool = denoiser, pool
+        self.latents = cuda_graphs.static_like(latents)
+        # a 0-dim timestep is shared (_embed_sample): single-row uncond
+        # memories stay at batch 1, as with a Python int
+        self.t = cuda_graphs.static_like(
+            latents.new_zeros((), dtype=torch.long))
+        self.conditions = cuda_graphs.static_like(conditions)
         self._graph = self.outputs = None
 
-    def bind(self, *conditions) -> None:
+    def bind(self, conditions: Dict) -> None:
         """Copies cond_real, cond_unc, masks_real, masks_unc in."""
-        for dst, src in zip(self.inputs, conditions):
-            for k, v in (src or {}).items():
-                dst[k].copy_(v)
+        cuda_graphs.copy_into(self.conditions, conditions)
 
     def __call__(self, latents, t):
         self.latents.copy_(latents)
         self.t.fill_(t)
         if self._graph is None:
-            # normal output tensors, as the buffers
+            # normal output tensors, as the inputs
             with torch.inference_mode(False), torch.no_grad():
-                self._graph, self.outputs = self._capture(
+                self._graph, self.outputs = self._pool.capture(
                     lambda: self._denoiser.guided(self.latents, self.t,
-                                                  *self.inputs),
+                                                  **self.conditions),
                     self.latents.device)
             profiling.count("denoiser.graph_captures")
         self._graph.replay()
@@ -292,23 +250,17 @@ class GuidedGraph:
         return self.outputs
 
 
-def _geometry(tensors):
-    return None if tensors is None else tuple(
-        (k, tuple(v.shape), v.dtype) for k, v in sorted(tensors.items()))
-
-
 class GuidedGraphs:
     """A model's :class:`GuidedGraph` per input geometry (device, the
-    latents' shape and dtype, each condition's and mask's shape and dtype),
-    at most ``GRAPH_CACHE_SIZE``, least recently used out first, and the
-    one memory pool their captures share.  ``weights_version`` is part of
-    the key: a new version drops every graph, which read the old weights'
-    storage.  One reverse loop at a time holds the graphs, since they
-    share their pool; a loop in another thread meanwhile runs eagerly."""
+    latents' shape and dtype, each condition's and mask's shape and dtype)
+    in a ``utils/cuda_graphs.LRU``, and the one memory pool their captures
+    share.  ``weights_version`` is part of the key: a new version drops
+    every graph, which read the old weights' storage.  One reverse loop at
+    a time holds the graphs, since they share their pool; a loop in
+    another thread meanwhile runs eagerly."""
 
     def __init__(self):
-        self._graphs: "collections.OrderedDict[tuple, GuidedGraph]" = \
-            collections.OrderedDict()
+        self._graphs = cuda_graphs.LRU()
         self._version = None
         self._pool = cuda_graphs.GraphPool()
         self._lock = threading.Lock()
@@ -316,52 +268,47 @@ class GuidedGraphs:
     @contextlib.contextmanager
     def bound(self, denoiser: Denoiser, weights_version: int, latents,
               cond_real, cond_unc, masks_real=None, masks_unc=None,
-              kvs=None, placed: bool = False):
+              placed: bool = False):
         """Yields ``run(latents, t) -> (noise_pred7, att)``, ``denoiser
         .guided`` over these conditions for the steps of one reverse loop:
         a graph's replay where the inputs allow capture, else the eager
         call, which counts ``denoiser.graph_eager``.  Eager: latents off a
-        CUDA card, the module in training mode (dropout draws), grad
-        enabled, ``kvs`` given, a tensor-parallel placement (``placed``:
-        its collectives stay eager), or another loop holding the graphs."""
-        conditions = (cond_real, cond_unc, masks_real, masks_unc)
-        eager = (latents.device.type not in cuda_graphs.CAPTURE_DEVICES
-                 or denoiser.training or torch.is_grad_enabled()
-                 or kvs is not None or placed)
-        if eager or not self._lock.acquire(blocking=False):
+        CUDA card, a condition off the latents' device, the module in
+        training mode (dropout draws), grad enabled, a tensor-parallel
+        placement (``placed``: its collectives stay eager), or another
+        loop holding the graphs."""
+        conditions = dict(cond_real=cond_real, cond_unc=cond_unc,
+                          masks_real=masks_real, masks_unc=masks_unc)
+        key = self._key(denoiser, latents, conditions, placed)
+        if key is None or not self._lock.acquire(blocking=False):
             def run(lat, t):
                 profiling.count("denoiser.graph_eager")
-                return denoiser.guided(lat, t, *conditions, kvs=kvs)
+                return denoiser.guided(lat, t, **conditions)
 
             yield run
             return
         try:
-            graph = self._entry(denoiser, weights_version, latents,
-                                conditions)
-            graph.bind(*conditions)
+            if weights_version != self._version:
+                self._graphs.clear()
+                self._version = weights_version
+            graph = self._graphs.get(key, lambda: GuidedGraph(
+                denoiser, self._pool, latents, conditions))
+            graph.bind(conditions)
             yield graph
         finally:
             self._lock.release()
 
-    def _entry(self, denoiser, weights_version, latents, conditions):
-        if weights_version != self._version:
-            self._graphs.clear()
-            self._version = weights_version
-        key = (latents.device, tuple(latents.shape), latents.dtype) + \
-            tuple(_geometry(c) for c in conditions)
-        graph = self._graphs.pop(key, None)
-        if graph is None:
-            graph = GuidedGraph(denoiser, self._capture, latents,
-                                *conditions)
-        self._graphs[key] = graph
-        while len(self._graphs) > GRAPH_CACHE_SIZE:
-            self._graphs.popitem(last=False)
-        return graph
-
-    def _capture(self, fn, device):
-        """``fn()`` as one CUDA graph in the shared pool, after one eager
-        warm-up (``utils/cuda_graphs.GraphPool.capture``)."""
-        return self._pool.capture(fn, device)
+    @staticmethod
+    def _key(denoiser, latents, conditions, placed):
+        """The graph's key, or None where :meth:`bound` runs eagerly."""
+        if (latents.device.type not in cuda_graphs.CAPTURE_DEVICES
+                or denoiser.training or torch.is_grad_enabled() or placed):
+            return None
+        try:
+            return latents.device, cuda_graphs.geometry(
+                dict(conditions, latents=latents), latents.device)
+        except cuda_graphs.Eager:
+            return None
 
 
 class EmbedAction(nn.Module):

@@ -10,13 +10,13 @@ raises.  The kernel replaces no TPU kernel (optax is XLA's); it is one pass
 in place of the chain's ~1,000 small kernels.  It takes its work from a
 device table (``Table``: a descriptor a tensor, a row a chunk of
 ``CHUNK`` elements), made outside any CUDA graph capture so that a
-captured step is one launch; ``TableCache`` keeps the tables of the
-pointers an eager caller steps.  The kernel is built by ``ops/nvcc.py`` at
-first use, or from ``start_build`` on, and loaded with ctypes.
+captured step is one launch; a caller that steps the same pointers again
+keeps their table (``Trainer.optimizer_table``).  The kernel is built by
+``ops/nvcc.py`` at first use, or from ``start_build`` on, and loaded with
+ctypes.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import List, NamedTuple, Optional, Sequence
@@ -171,7 +171,7 @@ class Table(NamedTuple):
     chunk: int
 
 
-def _key(grads, masters, mu, nu, weights) -> tuple:
+def table_key(grads, masters, mu, nu, weights) -> tuple:
     return tuple((_pointer(g), None if g is None else g.dtype,
                   m.data_ptr(), a.data_ptr(), v.data_ptr(), _pointer(w),
                   m.numel())
@@ -190,39 +190,10 @@ def make_table(grads, masters, mu, nu, weights, chunk: int = CHUNK
     host = torch.from_numpy(np.concatenate([desc.ravel(),
                                             chunks.view(np.int64).ravel()]))
     dev = masters[0].device
-    return Table(_key(grads, masters, mu, nu, weights),
+    return Table(table_key(grads, masters, mu, nu, weights),
                  host.to(dev, non_blocking=True),
                  torch.zeros(NORM_BLOCKS, dtype=torch.float32, device=dev),
                  len(desc), len(chunks), chunk)
-
-
-class TableCache:
-    """The tables of the last ``size`` sets of pointers an eager caller
-    stepped, least recently used out first.  A table serves only the
-    stream it was made on, so that its memory goes back to the allocator
-    on the stream that used it."""
-
-    def __init__(self, size: int = 4):
-        self.size = size
-        self._tables: "collections.OrderedDict[tuple, Table]" = \
-            collections.OrderedDict()
-
-    def clear(self) -> None:
-        self._tables.clear()
-
-    def get(self, grads, masters, mu, nu, weights) -> Optional[Table]:
-        """The table of these CUDA tensors; None for CPU tensors."""
-        if masters[0].device.type != "cuda":
-            return None
-        key = (torch.cuda.current_stream(masters[0].device).cuda_stream,
-               _key(grads, masters, mu, nu, weights))
-        table = self._tables.pop(key, None)
-        if table is None:
-            table = make_table(grads, masters, mu, nu, weights)
-        self._tables[key] = table
-        while len(self._tables) > self.size:
-            self._tables.popitem(last=False)
-        return table
 
 
 # -------------------------------------------------------------- the kernel
@@ -316,7 +287,7 @@ def adamw_step(grads: Sequence[Optional[torch.Tensor]],
     _check(grads, masters, mu, nu, weights, scalars, norm)
     if table is None:
         table = make_table(grads, masters, mu, nu, weights)
-    elif table.key != _key(grads, masters, mu, nu, weights):
+    elif table.key != table_key(grads, masters, mu, nu, weights):
         raise ValueError("the table was made for other tensors")
     _launch(table, scalars, weight_decay, grad_clip, norm)
 

@@ -4,10 +4,9 @@ five-stream conditional decoder layer of the denoiser.
 Port of ``convofusion_tpu/ops/transformer.py``: ``_FFN``,
 ``TransformerEncoderLayer``, ``TransformerDecoderLayer``,
 ``SkipTransformerEncoder``, ``SkipTransformerDecoder``, ``TimeBlock``
-(:38-252), ``TransformerDecoderLayer2Att.__call__`` / ``.cross_kv`` /
-``.forward_kv`` / ``.forward_mem`` / ``.guided`` (:255-510),
-``DenoiserDecoder.__call__`` / ``.precompute_kv`` / ``.forward_mem`` /
-``.forward_kv`` / ``.guided`` (:513-627), the fused-stream layer and stack
+(:38-252), ``TransformerDecoderLayer2Att.__call__`` / ``.forward_mem`` /
+``.guided`` (:255-510), ``DenoiserDecoder.__call__`` / ``.forward_mem`` /
+``.guided`` (:513-627), the fused-stream layer and stack
 ``FusedTransformerDecoderLayer2Att`` / ``FusedDenoiserDecoder``
 (:630-729, the cross-attentions in ``ops/fused_streams.py``) and the
 guidance tables (:26,732-750).  The VAE's encoder and decoder layers are
@@ -19,7 +18,7 @@ training forward (the module in train mode with grad enabled; JAX
 pass included, runs the same kernels with and without it.  ``forward``
 here is both ``__call__`` and ``forward_mem``: its cross-attention
 broadcasts single-row memories, so one body serves full and mixed-batch
-streams; it and ``forward_kv`` share one body over per-stream K/V.  Dropout sits where JAX has it: the attention
+streams.  Dropout sits where JAX has it: the attention
 weights, the FFN after its activation, each residual branch, and the
 TimeBlock after its SiLU; each is the identity unless the module trains.
 The encoder and decoder layers take JAX's ``pos`` / ``query_pos``, added
@@ -289,14 +288,6 @@ class TransformerDecoderLayer2Att(_FFN):
         mod, norm = self._cross(s)
         return mod.project_kv(norm(mem))
 
-    def cross_kv(self, mem_real, mem_unc):
-        """The latent-independent part of the cross-attentions: per
-        stream, the memory LayerNorm + K/V of both guidance variants,
-        {stream: ((k_r, v_r), (k_u, v_u))}, for :meth:`guided` and
-        :meth:`forward_kv`."""
-        return {s: (self._kv(s, mem_real[s]), self._kv(s, mem_unc[s]))
-                for s in COND_STREAMS}
-
     def forward(self, tgt, memory: Dict[str, torch.Tensor], time_embed,
                 mem_masks: Optional[Dict[str, torch.Tensor]] = None):
         """tgt (B, Tq, D); memory[stream] (B, Tk_s, D), or single shared
@@ -305,19 +296,7 @@ class TransformerDecoderLayer2Att(_FFN):
         four of five streams are the uncond variant); mem_masks[stream]
         (B or 1, Tk_s) bool, True = pad.  Returns (tgt, att[stream] (B,
         Tq, Tk_s))."""
-        return self._forward(tgt, {s: self._kv(s, memory[s])
-                                   for s in COND_STREAMS},
-                             time_embed, mem_masks)
-
-    def forward_kv(self, tgt, kv, select: Dict[str, str], time_embed,
-                   mem_masks: Optional[Dict[str, torch.Tensor]] = None):
-        """:meth:`forward` over precomputed :meth:`cross_kv`;
-        ``select[stream]`` picks the variant, 'real' or 'unc'."""
-        return self._forward(
-            tgt, {s: kv[s][0 if select[s] == "real" else 1]
-                  for s in COND_STREAMS}, time_embed, mem_masks)
-
-    def _forward(self, tgt, kv, time_embed, mem_masks):
+        kv = {s: self._kv(s, memory[s]) for s in COND_STREAMS}
         mem_masks = mem_masks or {}
         tgt2 = self.norm1(tgt)
         tgt2, _ = self.self_attn(tgt2, tgt2, tgt2, need_weights=False)
@@ -339,16 +318,15 @@ class TransformerDecoderLayer2Att(_FFN):
         return tgt, att
 
     def guided(self, tgt7, mem_real, mem_unc, time_embed,
-               masks_real=None, masks_unc=None, kv=None):
+               masks_real=None, masks_unc=None):
         """tgt7 (G, B, Tq, D) branch-major latents; mem_real[s] (B, Tk, D);
-        mem_unc[s] (B or 1, Tk, D); time_embed (B, 1, D); ``kv`` (optional)
-        the :meth:`cross_kv` of those memories, which are then not read.
-        Returns (tgt7, att[s] (B, Tq, Tk)) with att from the
-        full-condition branch."""
+        mem_unc[s] (B or 1, Tk, D); time_embed (B, 1, D).  Returns (tgt7,
+        att[s] (B, Tq, Tk)) with att from the full-condition branch."""
         masks_real = masks_real or {}
         masks_unc = masks_unc or {}
-        if kv is None:
-            kv = self.cross_kv(mem_real, mem_unc)
+        # per stream, the memory LayerNorm + K/V of both guidance variants
+        kv = {s: (self._kv(s, mem_real[s]), self._kv(s, mem_unc[s]))
+              for s in COND_STREAMS}
         g, b, tq, d = tgt7.shape
 
         flat = self.norm1(tgt7).reshape(g * b, tq, d)
@@ -424,25 +402,12 @@ class DenoiserDecoder(_Stack):
             per_layer.append(att)
         return self.norm(out), self._stack(per_layer)
 
-    def precompute_kv(self, mem_real, mem_unc):
-        """Every layer's :meth:`TransformerDecoderLayer2Att.cross_kv`."""
-        return [layer.cross_kv(mem_real, mem_unc) for layer in self.layers]
-
-    def forward_kv(self, tgt, kvs, select, time_embed, mem_masks=None):
-        out, per_layer = tgt, []
-        for layer, kv in zip(self.layers, kvs):
-            out, att = layer.forward_kv(out, kv, select, time_embed,
-                                        mem_masks)
-            per_layer.append(att)
-        return self.norm(out), self._stack(per_layer)
-
     def guided(self, tgt7, mem_real, mem_unc, time_embed, masks_real=None,
-               masks_unc=None, kvs=None):
+               masks_unc=None):
         out, per_layer = tgt7, []
-        for i, layer in enumerate(self.layers):
+        for layer in self.layers:
             out, att = layer.guided(out, mem_real, mem_unc, time_embed,
-                                    masks_real, masks_unc,
-                                    None if kvs is None else kvs[i])
+                                    masks_real, masks_unc)
             per_layer.append(att)
         return self.norm(out), self._stack(per_layer)
 

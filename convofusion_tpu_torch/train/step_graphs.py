@@ -22,56 +22,12 @@ masters and the moments in place, so ``Trainer.init_state`` drops them.
 """
 from __future__ import annotations
 
-import collections
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
 from convofusion_tpu_torch.parallel import mesh
 from convofusion_tpu_torch.utils import cuda_graphs, profiling
-
-# input geometries a trainer keeps captured (a loader's last, short batch
-# is a second one)
-STEP_GRAPH_CACHE_SIZE = 4
-
-
-class _Eager(Exception):
-    """A batch or draws that a capture cannot take."""
-
-
-def _geometry(tree: Optional[Dict], device) -> Optional[tuple]:
-    """The key of a batch or draws: each tensor's path, shape and dtype.
-    Raises :class:`_Eager` for a tensor off ``device`` or any other leaf
-    (a host array would be moved to the card inside the loss, which a
-    capture cannot)."""
-    if tree is None:
-        return None
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out.append((k, _geometry(v, device)))
-        elif torch.is_tensor(v) and v.device == device:
-            out.append((k, tuple(v.shape), v.dtype))
-        else:
-            raise _Eager
-    return tuple(out)
-
-
-def _buffers(tree: Optional[Dict]) -> Optional[Dict]:
-    """``tree`` with each tensor replaced by an empty one like it."""
-    if tree is None:
-        return None
-    return {k: _buffers(v) if isinstance(v, dict) else torch.empty_like(v)
-            for k, v in tree.items()}
-
-
-def _copy_in(dst: Optional[Dict], src: Optional[Dict]) -> None:
-    for k, v in (src or {}).items():
-        if isinstance(v, dict):
-            _copy_in(dst[k], v)
-        else:
-            dst[k].copy_(v)
 
 
 class StepGraph:
@@ -81,7 +37,8 @@ class StepGraph:
     def __init__(self, pool: cuda_graphs.GraphPool, generator, batch,
                  draws):
         self._pool, self.generator = pool, generator
-        self.batch, self.draws = _buffers(batch), _buffers(draws)
+        self.batch = cuda_graphs.static_like(batch)
+        self.draws = cuda_graphs.static_like(draws)
         self.warm = False
         self._grads = self._optimizer = self._table = None
         # the grads graph's (loss, terms, gradients)
@@ -95,8 +52,8 @@ class StepGraph:
             self.warm = True
             return self._pool.run(lambda: trainer.loss_and_backward(
                 batch, self.generator, draws), device)
-        _copy_in(self.batch, batch)
-        _copy_in(self.draws, draws)
+        cuda_graphs.copy_into(self.batch, batch)
+        cuda_graphs.copy_into(self.draws, draws)
         if self._grads is None:
             def body():
                 for p in trainer.params:
@@ -139,13 +96,12 @@ class StepGraph:
 
 class StepGraphs:
     """A trainer's :class:`StepGraph` per input geometry (the batch's and
-    the draws' shapes and dtypes, the mask generator, the loss weights), at
-    most ``STEP_GRAPH_CACHE_SIZE``, least recently used out first, and the
-    one memory pool their captures share."""
+    the draws' shapes and dtypes, the mask generator, the loss weights) in
+    a ``utils/cuda_graphs.LRU``, and the one memory pool their captures
+    share."""
 
     def __init__(self):
-        self._graphs: "collections.OrderedDict[tuple, StepGraph]" = \
-            collections.OrderedDict()
+        self._graphs = cuda_graphs.LRU()
         self._pool = cuda_graphs.GraphPool()
 
     def __len__(self) -> int:
@@ -176,13 +132,9 @@ class StepGraphs:
             return None
         try:
             key = (id(generator), tuple(sorted(model.loss_weights.items())),
-                   _geometry(batch, device), _geometry(draws, device))
-        except _Eager:
+                   cuda_graphs.geometry(batch, device),
+                   cuda_graphs.geometry(draws, device))
+        except cuda_graphs.Eager:
             return None
-        graph = self._graphs.pop(key, None)
-        if graph is None:
-            graph = StepGraph(self._pool, generator, batch, draws)
-        self._graphs[key] = graph
-        while len(self._graphs) > STEP_GRAPH_CACHE_SIZE:
-            self._graphs.popitem(last=False)
-        return graph
+        return self._graphs.get(key, lambda: StepGraph(
+            self._pool, generator, batch, draws))

@@ -56,7 +56,7 @@ from convofusion_tpu_torch.models.convofusion import Convofusion
 from convofusion_tpu_torch.ops import adamw
 from convofusion_tpu_torch.parallel import mesh, tp
 from convofusion_tpu_torch.train.step_graphs import StepGraphs
-from convofusion_tpu_torch.utils import profiling
+from convofusion_tpu_torch.utils import cuda_graphs, profiling
 
 
 def frozen_names(stage: str) -> Tuple[str, ...]:
@@ -114,9 +114,9 @@ class AdamWState:
 
 
 class AdamW:
-    """``optax.chain(clip_by_global_norm(c), adamw(schedule, wd))`` over a
-    list of fp32 tensors, with ``torch._foreach`` ops (``ops/adamw.py``'s
-    plain version)."""
+    """``optax.chain(clip_by_global_norm(c), adamw(schedule, wd))``'s
+    settings, state and per-step scalars; ``ops/adamw.py`` steps with
+    them."""
 
     b1, b2, eps = adamw.B1, adamw.B2, adamw.EPS
 
@@ -132,12 +132,6 @@ class AdamW:
         return AdamWState(mu=[torch.zeros_like(p) for p in params],
                           nu=[torch.zeros_like(p) for p in params])
 
-    def clip(self, grads: Sequence[torch.Tensor],
-             norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-        """``optax.clip_by_global_norm`` at ``grad_clip``
-        (``adamw.clip_by_global_norm``)."""
-        return adamw.clip_by_global_norm(grads, self.grad_clip, norm)
-
     def scalars(self, count: int) -> Tuple[float, float, float]:
         """(-learning rate, 1 - b1**t, 1 - b2**t) of the update after
         ``count`` updates (t = count + 1), host numbers; the bias
@@ -147,26 +141,6 @@ class AdamW:
         return (-self.schedule(count),
                 float(f32(1.0) - np.power(f32(self.b1), t)),
                 float(f32(1.0) - np.power(f32(self.b2), t)))
-
-    def update(self, grads: Sequence[torch.Tensor], state: AdamWState,
-               params: Sequence[torch.Tensor],
-               norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-        """The updates to add to ``params``; advances ``state``.  ``norm``:
-        the gradients' global norm where ``grads`` are shards of it."""
-        scalars = self.scalars(state.count)
-        state.count += 1
-        return self.step(grads, state, params, scalars, norm)
-
-    def step(self, grads: Sequence[torch.Tensor], state: AdamWState,
-             params: Sequence[torch.Tensor], scalars,
-             norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-        """:meth:`update`'s work on the device, leaving ``state.count`` as
-        it is: ``scalars`` is :meth:`scalars` of the count, as host
-        numbers or as 0-dim fp32 tensors on the device, which give the
-        same bits."""
-        return adamw.adamw_updates(self.clip(grads, norm), state.mu,
-                                   state.nu, params, scalars,
-                                   self.weight_decay)
 
 
 def make_optimizer(cfg: Dict) -> AdamW:
@@ -211,9 +185,11 @@ class Trainer:
         # the step's graph pairs, and the pair the last compute_grads used
         self.graphs = StepGraphs()
         self._graph = None
-        # the AdamW kernel's work lists of the eager steps' gradients; its
-        # compile overlaps the set-up before the first step
-        self._tables = adamw.TableCache()
+        # the AdamW kernel's work lists by stream and pointers (a table
+        # serves only the stream it was made on, so that its memory goes
+        # back to the allocator on the stream that used it); its compile
+        # overlaps the set-up before the first step
+        self._tables = cuda_graphs.LRU()
         if model.device.type == "cuda":
             adamw.start_build()
         # AdamW.scalars of each step: -lr, the two bias corrections
@@ -430,8 +406,14 @@ class Trainer:
                         ) -> Optional[adamw.Table]:
         """The AdamW kernel's work list over ``grads`` and this trainer's
         masters, moments and weights; None off a card."""
-        return self._tables.get(grads, self.masters, self.state.mu,
-                                self.state.nu, self._weights)
+        tensors = (grads, self.masters, self.state.mu, self.state.nu,
+                   self._weights)
+        device = self.masters[0].device
+        if device.type != "cuda":
+            return None
+        key = (torch.cuda.current_stream(device).cuda_stream,
+               adamw.table_key(*tensors))
+        return self._tables.get(key, lambda: adamw.make_table(*tensors))
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The L2 norm of the whole gradient of a placed model: the split

@@ -7,15 +7,91 @@ with one host call, so a call of thousands of small kernels no longer
 waits on the host's dispatch of each.  Captures run on a side stream of
 their pool and allocate from the pool's private memory; graphs that
 share a pool must replay one after another, never concurrently.
+
+An owner keeps a graph per input geometry (:func:`geometry`) in an
+:class:`LRU`; a graph reads its inputs from static tensors
+(:func:`static_like`) into which each call copies its own
+(:func:`copy_into`).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+import collections
+from typing import Callable, Dict, Hashable, Sequence
 
 import torch
 
 # device types a call is captured on; elsewhere it runs eagerly
 CAPTURE_DEVICES = ("cuda",)
+# input geometries an owner keeps captured (the service pads to one; a
+# loader's last, short batch is a second one)
+CACHE_SIZE = 4
+
+
+class Eager(Exception):
+    """Inputs that a capture cannot take: the call runs eagerly."""
+
+
+def geometry(tree, device):
+    """The key of a nested dict of tensors: each leaf's path, shape and
+    dtype, None for None.  Raises :class:`Eager` for a tensor off
+    ``device`` or a leaf that is not a tensor (a host array would be moved
+    to the card inside the call, which a capture cannot)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return tuple((k, geometry(tree[k], device)) for k in sorted(tree))
+    if torch.is_tensor(tree) and tree.device == device:
+        return tuple(tree.shape), tree.dtype
+    raise Eager
+
+
+def static_like(tree):
+    """``tree`` with each tensor replaced by an empty one like it: a
+    graph's static inputs.  Normal tensors even when made under
+    ``inference_mode``, so that a later call without it can still copy
+    into them."""
+    def like(t):
+        if isinstance(t, dict):
+            return {k: like(v) for k, v in t.items()}
+        return None if t is None else torch.empty_like(t)
+
+    with torch.inference_mode(False):
+        return like(tree)
+
+
+def copy_into(dst, src) -> None:
+    """``src``'s tensors into ``dst``, a :func:`static_like` of a tree of
+    its geometry."""
+    if isinstance(src, dict):
+        for k, v in src.items():
+            copy_into(dst[k], v)
+    elif src is not None:
+        dst.copy_(src)
+
+
+class LRU:
+    """At most ``CACHE_SIZE`` values by key, least recently used out
+    first."""
+
+    def __init__(self):
+        self._values: "collections.OrderedDict[Hashable, object]" = \
+            collections.OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._values)
+
+    def clear(self) -> None:
+        self._values.clear()
+
+    def get(self, key: Hashable, make: Callable[[], object]):
+        """The value of ``key``, made by ``make()`` where there is none."""
+        value = self._values.pop(key, None)
+        if value is None:
+            value = make()
+        self._values[key] = value
+        while len(self._values) > CACHE_SIZE:
+            self._values.popitem(last=False)
+        return value
 
 
 class GraphPool:

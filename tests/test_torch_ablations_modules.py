@@ -200,9 +200,7 @@ def test_trans_enc(condition):
     _close(got, want)
     x = torch.from_numpy(sample)
     for call in (lambda: pm.guided(x, 100, None, None),
-                 lambda: pm.text_only(x, 100, None),
-                 lambda: pm.forward_kv(x, 100, None),
-                 lambda: pm.precompute_step_kv(100, None, None)):
+                 lambda: pm.text_only(x, 100, None)):
         with pytest.raises(ValueError, match="trans_enc"):
             call()
 

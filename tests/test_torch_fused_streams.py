@@ -244,14 +244,12 @@ def test_fused_weg_matches_unfused(models):
 
 
 def test_fused_layout_refuses_the_per_stream_paths(models, tmp_path):
-    """``guided`` and the K/V paths need per-stream layers (JAX asserts);
+    """``guided`` needs per-stream layers (JAX asserts);
     an unfused checkpoint does not load into a fused model (JAX makes no
     conversion either), and a fused one round-trips."""
     unfused, fused, _ = models
     with pytest.raises(NotImplementedError, match="fuse_streams"):
         fused.denoiser.guided(torch.zeros(1, 16, LAT), 5, {}, {})
-    with pytest.raises(NotImplementedError, match="fuse_streams"):
-        fused.denoiser.precompute_step_kv(5, {}, {})
     path = ck.save_checkpoint(str(tmp_path / "u"), 0, unfused)
     with pytest.raises(KeyError, match="does not fit"):
         ck.load_torch_full_model(path, fused)

@@ -3,11 +3,10 @@
 
 On the CPU every guided call falls back to ``Denoiser.guided`` itself.  The
 cache's keys, the static buffers' data flow and the reverse loop's use of
-the graphs' outputs are held here with the capture replaced by a stand-in
-that records each capture and, at each replay, reruns the captured call
-and writes its results into the first call's outputs, as a graph's replay
-rewrites its own tensors.  The tests marked ``cuda`` compare graphed with
-eager sampling on a card and skip without one; run them there with
+the graphs' outputs are held here with the graph pool replaced by the
+stand-in of ``tests/cuda_graph_stand_in.py``.  The tests marked ``cuda``
+compare graphed with eager sampling on a card and skip without one; run
+them there with
 ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_guided_graph.py -q`` (the suite's conftest imports JAX,
 which a CUDA installation of the port need not have).
@@ -16,7 +15,6 @@ import contextlib
 import copy
 import sys
 import threading
-import types
 
 import numpy as np
 import pytest
@@ -30,6 +28,8 @@ from convofusion_tpu_torch.data.synthetic import (
 from convofusion_tpu_torch.models import denoiser as denoiser_mod
 from convofusion_tpu_torch.models.convofusion import Convofusion
 from convofusion_tpu_torch.utils import cuda_graphs, profiling
+
+import cuda_graph_stand_in
 
 STEPS = 4
 KEYS = ("spk_ids", "spk_tmask", "lsn_ids", "lsn_tmask", "melspec_lsn",
@@ -69,35 +69,11 @@ class Counts:
                 for k in COUNTERS}
 
 
-def stand_in(captures):
-    """A ``GuidedGraphs._capture`` for the CPU: records the capture, runs
-    the call once for its outputs and reruns it at each replay, writing the
-    results into those outputs."""
-
-    def capture(self, fn, device):
-        captures.append(device)
-        out = fn()
-
-        def replay():
-            noise7, att = fn()
-            out[0].copy_(noise7)
-            for s, a in att.items():
-                out[1][s].copy_(a)
-
-        return types.SimpleNamespace(replay=replay), out
-
-    return capture
-
-
 @pytest.fixture
 def graphs_on_cpu(monkeypatch):
     """Capture allowed on the CPU through the stand-in; yields the list of
     captures."""
-    captures = []
-    monkeypatch.setattr(cuda_graphs, "CAPTURE_DEVICES", ("cpu", "cuda"))
-    monkeypatch.setattr(denoiser_mod.GuidedGraphs, "_capture",
-                        stand_in(captures))
-    return captures
+    return cuda_graph_stand_in.install(monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -160,8 +136,6 @@ def _variant(m, batch, change):
     elif change == "dtype":
         cond = {s: v.bfloat16() for s, v in cond.items()}
         unc = {s: v.bfloat16() for s, v in unc.items()}
-    elif change == "kvs":
-        kw["kvs"] = m.denoiser.precompute_step_kv(700, cond, unc)
     elif change == "placed":
         kw["placed"] = True
     return lat, (cond, unc, masks, umasks), kw
@@ -175,13 +149,12 @@ def _variant(m, batch, change):
     ("weights_version", 2, 0),
     ("training", 1, 1),
     ("grad", 1, 1),
-    ("kvs", 1, 1),
     ("placed", 1, 1),
 ])
 def test_cache_key(cpu_model, graphs_on_cpu, change, captures, eager):
     """A second guided call at the same geometry replays the first's
     graph; another batch, text length, dtype or weights version captures
-    anew; training mode, grad, ``kvs`` and a tensor-parallel placement run
+    anew; training mode, grad and a tensor-parallel placement run
     eagerly.  Each call's outputs are ``Denoiser.guided``'s."""
     m, batch = cpu_model
     m.guided_graphs = denoiser_mod.GuidedGraphs()
@@ -199,7 +172,7 @@ def test_cache_key(cpu_model, graphs_on_cpu, change, captures, eager):
             with m.guided_graphs.bound(m.denoiser, version, lat, *conds,
                                        **kw) as run:
                 got = run(lat, 700)
-            want = m.denoiser.guided(lat, 700, *conds, kvs=kw.get("kvs"))
+            want = m.denoiser.guided(lat, 700, *conds)
     finally:
         m.denoiser.eval()
     assert _equal(got, want)
@@ -212,7 +185,7 @@ def test_cache_key(cpu_model, graphs_on_cpu, change, captures, eager):
 def test_least_recently_used_geometry_goes_first(cpu_model, graphs_on_cpu,
                                                  monkeypatch):
     m, batch = cpu_model
-    monkeypatch.setattr(denoiser_mod, "GRAPH_CACHE_SIZE", 2)
+    monkeypatch.setattr(cuda_graphs, "CACHE_SIZE", 2)
     m.guided_graphs = denoiser_mod.GuidedGraphs()
     order = ("same", "batch", "same", "text_length", "same", "batch")
     for change in order:
@@ -264,10 +237,7 @@ def test_diffusion_reverse_bit_equal_on_cpu(cpu_model, monkeypatch,
     counts = Counts()
     eager = _reverse(m, batch, capture_attention)
     assert counts()["graph_eager"] == STEPS
-    captures = []
-    monkeypatch.setattr(cuda_graphs, "CAPTURE_DEVICES", ("cpu",))
-    monkeypatch.setattr(denoiser_mod.GuidedGraphs, "_capture",
-                        stand_in(captures))
+    cuda_graph_stand_in.install(monkeypatch)
     counts = Counts()
     graphed = _reverse(m, batch, capture_attention)
     assert counts() == {"graph_captures": 1, "graph_replays": STEPS,

@@ -1,19 +1,19 @@
 """The training step replayed from two CUDA graphs
-(``train/step_graphs.py``) and AdamW's device-scalar form
-(``train/trainer.py``).
+(``train/step_graphs.py``), AdamW's device-scalar form
+(``train/trainer.py``) and what the graph owners share
+(``utils/cuda_graphs.py``).
 
-- ``AdamW.step`` with the learning rate and the bias corrections in 0-dim
-  tensors filled each step gives the bits of ``AdamW.update``'s host
-  numbers, over 5 steps, with and without the clip, in the cosine
-  schedule's warm-up and decay.
+- ``adamw_updates`` with the learning rate and the bias corrections in
+  0-dim tensors filled each step gives the bits of the host numbers of
+  ``AdamW.scalars``, over 5 steps, with and without the clip, in the
+  cosine schedule's warm-up and decay.
+- ``geometry``, ``static_like``, ``copy_into`` and the ``LRU``.
 - On the CPU a ``Trainer`` step is eager, counts ``train.graph_eager``
   twice (``compute_grads`` and ``apply_grads``) and gives the bits of the
   step as written before the graphs.
 - The cache, the static buffers' data flow and the fallbacks are held on
-  the CPU with the capture replaced by a stand-in: a capture runs the body
-  once, which stands for the capture and its first replay; each later
-  replay reruns it and writes its results into the first run's outputs,
-  as a graph's replay rewrites its own tensors.
+  the CPU with the graph pool replaced by the stand-in of
+  ``tests/cuda_graph_stand_in.py``.
 - The tests marked ``cuda`` compare graphed with eager steps on a card
   (and count the AdamW kernel's launches: one an eager step, none a
   replay; the optimizer graph's replay is that one kernel) and skip
@@ -22,8 +22,8 @@
 """
 import contextlib
 import copy
-import types
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -34,8 +34,11 @@ from convofusion_tpu_torch.data.synthetic import (
     synthetic_raw_batch,
 )
 from convofusion_tpu_torch.models.convofusion import Convofusion, to_tensors
+from convofusion_tpu_torch.ops import adamw
 from convofusion_tpu_torch.train.trainer import AdamW, Trainer
 from convofusion_tpu_torch.utils import cuda_graphs, profiling
+
+import cuda_graph_stand_in
 
 STEPS = 4
 B = 3
@@ -75,6 +78,17 @@ class Counts:
 
 # ------------------------------------------------------------- the optimizer
 
+def _update(opt, grads, state, params, scalars=None):
+    """optax's updates of ``params`` (``scalars``: the host numbers of
+    ``opt.scalars`` where None); advances ``state``."""
+    if scalars is None:
+        scalars = opt.scalars(state.count)
+    state.count += 1
+    return adamw.adamw_updates(
+        adamw.clip_by_global_norm(grads, opt.grad_clip), state.mu, state.nu,
+        params, scalars, opt.weight_decay)
+
+
 @pytest.mark.parametrize("clip", [0.0, 0.05])
 @pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 def test_device_scalars_give_the_host_scalars_bits(schedule, clip):
@@ -91,11 +105,11 @@ def test_device_scalars_give_the_host_scalars_bits(schedule, clip):
         grads = [torch.randn(s, generator=gen) * 10.0 ** (i - 2)
                  for s in SHAPES]
         lrs.append(opt.schedule(host_state.count))
-        torch._foreach_add_(host, opt.update(grads, host_state, host))
+        torch._foreach_add_(host, _update(opt, grads, host_state, host))
         for t, v in zip(scalars, opt.scalars(dev_state.count)):
             t.fill_(v)
-        dev_state.count += 1
-        torch._foreach_add_(dev, opt.step(grads, dev_state, dev, scalars))
+        torch._foreach_add_(dev, _update(opt, grads, dev_state, dev,
+                                         scalars))
     assert host_state.count == dev_state.count == 5
     for a, b in zip(host + host_state.mu + host_state.nu,
                     dev + dev_state.mu + dev_state.nu):
@@ -181,14 +195,14 @@ def _equal(a, b):
 
 def _before_graphs_step(trainer, batch, gen, draws):
     """One step as the trainer took it before the graphs: the loss and its
-    backward, then ``AdamW.update`` with host numbers."""
+    backward, then the plain AdamW with host numbers."""
     loss, terms = trainer.loss_fn()(batch, gen, draws)
     loss.backward()
     grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
              for p, m in zip(trainer.params, trainer.masters)]
     with torch.no_grad():
-        torch._foreach_add_(trainer.masters, trainer.optimizer.update(
-            grads, trainer.state, trainer.masters))
+        torch._foreach_add_(trainer.masters, _update(
+            trainer.optimizer, grads, trainer.state, trainer.masters))
         lowp = [(p, m) for p, m in zip(trainer.params, trainer.masters)
                 if p.dtype != torch.float32]
         torch._foreach_copy_([p for p, _ in lowp], [m for _, m in lowp])
@@ -227,48 +241,11 @@ def test_cpu_step_is_eager_and_as_before(stage):
 
 # ------------------------------------------- the graphs with a CPU stand-in
 
-def _copy_out(dst, src):
-    if isinstance(dst, dict):
-        for k in dst:
-            _copy_out(dst[k], src[k])
-    elif isinstance(dst, (tuple, list)):
-        for d, s in zip(dst, src):
-            _copy_out(d, s)
-    elif dst is not None:
-        dst.copy_(src)
-
-
-def stand_in(captures):
-    """``GraphPool.run`` and ``GraphPool.capture`` for the CPU (module
-    docstring); ``captures`` gets each capture's generators."""
-
-    def run(self, fn, device):
-        return fn()
-
-    def capture(self, fn, device, warmup=True, generators=()):
-        captures.append(tuple(generators))
-        out = fn()
-        ran = {"first": True}
-
-        def replay():
-            if not ran.pop("first", False):
-                _copy_out(out, fn())
-
-        return types.SimpleNamespace(replay=replay), out
-
-    return run, capture
-
-
 @pytest.fixture
 def graphs_on_cpu(monkeypatch):
     """Capture allowed on the CPU through the stand-in; yields the list of
     captures."""
-    captures = []
-    run, capture = stand_in(captures)
-    monkeypatch.setattr(cuda_graphs, "CAPTURE_DEVICES", ("cpu", "cuda"))
-    monkeypatch.setattr(cuda_graphs.GraphPool, "run", run)
-    monkeypatch.setattr(cuda_graphs.GraphPool, "capture", capture)
-    return captures
+    return cuda_graph_stand_in.install(monkeypatch)
 
 
 @pytest.mark.parametrize("stage", ["vae", "diffusion"])
@@ -364,6 +341,82 @@ def test_fallbacks_run_eagerly(graphs_on_cpu, tmp_path):
         assert len(trainer.graphs) == 0
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------ what the owners share
+
+CPU = torch.device("cpu")
+
+
+def _nested_tree(monkeypatch):
+    """A nested tree's key, its static copy (normal tensors though made
+    under inference_mode) and the copy back in."""
+    tree = {"b": torch.arange(6.0).reshape(2, 3),
+            "a": {"y": torch.ones(4, dtype=torch.bfloat16), "x": None}}
+    want = (("a", (("x", None), ("y", ((4,), torch.bfloat16)))),
+            ("b", ((2, 3), torch.float32)))
+    assert cuda_graphs.geometry(tree, CPU) == want
+    assert cuda_graphs.geometry(None, CPU) is None
+    with torch.inference_mode():
+        static = cuda_graphs.static_like(tree)
+    assert not static["b"].is_inference() and static["a"]["x"] is None
+    assert cuda_graphs.geometry(static, CPU) == want
+    cuda_graphs.copy_into(static, tree)
+    assert _equal(static, tree)
+    assert static["b"] is not tree["b"]
+
+
+def _off_device_leaf(monkeypatch):
+    with pytest.raises(cuda_graphs.Eager):
+        cuda_graphs.geometry({"a": {"b": torch.zeros(2, device="meta")}},
+                             CPU)
+
+
+def _non_tensor_leaf(monkeypatch):
+    with pytest.raises(cuda_graphs.Eager):
+        cuda_graphs.geometry({"a": torch.zeros(2), "b": np.zeros(2)}, CPU)
+
+
+def _lru_order(monkeypatch):
+    """A hit makes a key the most recent; the least recent goes first."""
+    lru, made = cuda_graphs.LRU(), []
+
+    def get(key):
+        return lru.get(key, lambda: made.append(key) or key)
+
+    for key in "abcdaeb":
+        get(key)
+    # e evicted b, the least recent after a's hit; b evicted c
+    assert made == list("abcdeb") and len(lru) == cuda_graphs.CACHE_SIZE
+    get("a")
+    get("c")
+    assert made == list("abcdebc")
+
+
+def _lru_of_one(monkeypatch):
+    monkeypatch.setattr(cuda_graphs, "CACHE_SIZE", 1)
+    lru = cuda_graphs.LRU()
+    t0 = lru.get(0, object)
+    assert lru.get(0, object) is t0
+    assert lru.get(1, object) is not t0
+    assert lru.get(0, object) is not t0
+
+
+def _clear(monkeypatch):
+    lru = cuda_graphs.LRU()
+    t0 = lru.get(0, object)
+    lru.clear()
+    assert len(lru) == 0 and lru.get(0, object) is not t0
+
+
+SHARED = {f.__name__[1:]: f for f in (_nested_tree, _off_device_leaf,
+                                       _non_tensor_leaf, _lru_order,
+                                       _lru_of_one, _clear)}
+
+
+@pytest.mark.parametrize("case", sorted(SHARED))
+def test_shared_graph_helpers(case, monkeypatch):
+    SHARED[case](monkeypatch)
 
 
 # ---------------------------------------------------------------- the card

@@ -2,8 +2,10 @@
 ``fit_steps`` against JAX's ``Trainer``, the model after training, and
 dropout.
 
-- ``AdamW.update`` against ``convofusion_tpu.train.trainer.make_optimizer``
-  (optax) on the same gradients, fed identically to both: constant,
+- ``AdamW``'s scalars through ``ops/adamw.py``'s ``clip_by_global_norm``
+  and ``adamw_updates`` against
+  ``convofusion_tpu.train.trainer.make_optimizer`` (optax) on the same
+  gradients, fed identically to both: constant,
   cosine with warmup (first update 0), cosine, and ``GRAD_CLIP`` 0.05,
   updates within 1e-7 (mirrors ``tests/test_optimizer.py``).
 - One step leaves the T5 trunk and (stage 2) the VAE bit-identical and
@@ -29,6 +31,7 @@ from convofusion_tpu.train.trainer import make_optimizer
 from convofusion_tpu_torch.config import TINY
 from convofusion_tpu_torch.data import synthetic as torch_synthetic
 from convofusion_tpu_torch.models.convofusion import Convofusion
+from convofusion_tpu_torch.ops import adamw
 from convofusion_tpu_torch.ops.layers import Dropout
 from convofusion_tpu_torch.train.trainer import (
     AdamW,
@@ -64,6 +67,16 @@ def _port_optim(over):
     return optim
 
 
+def _update(opt, grads, state, params):
+    """optax's updates of ``params`` from the host numbers of
+    ``opt.scalars``; advances ``state``."""
+    scalars = opt.scalars(state.count)
+    state.count += 1
+    return adamw.adamw_updates(
+        adamw.clip_by_global_norm(grads, opt.grad_clip), state.mu, state.nu,
+        params, scalars, opt.weight_decay)
+
+
 @pytest.mark.parametrize("case", sorted(OPTIM_CASES))
 def test_adamw_matches_optax(case):
     """Six steps with gradients of varying scale (so clipped and unclipped
@@ -88,8 +101,8 @@ def test_adamw_matches_optax(case):
             np.float32) for k, s in SHAPES.items()}
         u_ref, s_ref = ref.update(grads, s_ref, params)
         params = optax.apply_updates(params, u_ref)
-        u = opt.update([torch.from_numpy(grads[k]) for k in names], state,
-                       mine)
+        u = _update(opt, [torch.from_numpy(grads[k]) for k in names], state,
+                    mine)
         torch._foreach_add_(mine, u)
         for k, got in zip(names, u):
             want = np.asarray(u_ref[k])
@@ -120,7 +133,8 @@ def test_global_norm_clip_is_optax(scale):
          for s in SHAPES.values()]
     ref = optax.clip_by_global_norm(0.05)
     want, _ = ref.update(g, ref.init(None))
-    got = opt.clip([torch.from_numpy(x) for x in g])
+    got = adamw.clip_by_global_norm([torch.from_numpy(x) for x in g],
+                                    opt.grad_clip)
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=5e-7,
                                    atol=0)
@@ -185,7 +199,7 @@ def test_vae_stage_trains_the_vae_and_zero_grads_decay():
                for n, v in before.items())
     opt = trainer.optimizer
     p = [torch.ones(3)]
-    u = opt.update([torch.zeros(3)], opt.init(p), p)
+    u = _update(opt, [torch.zeros(3)], opt.init(p), p)
     assert torch.allclose(u[0], torch.full((3,), -1e-4 * 1e-2))
 
 
