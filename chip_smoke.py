@@ -8,7 +8,7 @@ picks some (default all; 1-3 always run, and one phase that launches the
 step kernel must be among them):
   1. device  - require CUDA; print the card's name and power limit; TF32 off
   2. build   - nvcc the hand-written kernels from convofusion_tpu_torch/csrc
-               (the guided step, AdamW)
+               (the guided step, AdamW, the guided cross-attention)
   3. kernel  - at the main path's B=96 shapes (latents (96, 16, 128) and,
                for raw motion, (96, 128, 189)) and at the batches the other
                path phases give it (PATH_BATCHES, RAW_MOTION_BATCHES), every
@@ -17,7 +17,18 @@ step kernel must be among them):
                max |diff| <= 1e-5;
                at B=96 CUDA-event times of kernel (L2 flushed, and back to back)
                and plain version; then the step kernel's tile and block
-               size sweep at the main path's case (bf16 planes, DDIM)
+               size sweep at the main path's case (bf16 planes, DDIM);
+               the guided cross-attention kernel, through
+               grouped_cross_attend, against its plain version for every
+               stream at (7, B, Tq, 512) with B 32, 1 and 96, Tq 16 and
+               128 and batch-1 and batch-B uncond K/V (relative RMS <= 1e-2
+               on the output and the weights), both against an fp64
+               witness with the plain version's bf16 rounding points
+               (relative RMS, share of elements that differ, bf16 ulps
+               away from zero), a CUDA graph's replay bit-equal to the
+               eager call, and at (7, 32, 16, 512) CUDA-event times of
+               kernel and plain version, each replayed from a CUDA graph,
+               against the byte bound, per stream and a layer's five
   4. parity  - production geometry, fp32, batch 2, DDIM-20, seeded weights,
                numpy-made inputs and noise: sample() on the card (through
                the kernel) against sample() on the CPU (plain version)
@@ -25,8 +36,10 @@ step kernel must be among them):
                guidance through Convofusion.sample: one warm-up and two
                timed calls; (96, 128, 189) finite motion, exactly 50
                kernel launches and 50 replays of the guided denoiser's
-               CUDA graph per call (one capture); clips/s, ms/call, peak
-               memory; at batch 32 and 96 the graphed sample() against
+               CUDA graph per call (one capture); 45 cross-attention
+               launches in the capture's warm-up and 45 in the capture,
+               none in a replay, none of the plain version; clips/s,
+               ms/call, peak memory; at batch 32 and 96 the graphed sample() against
                the eager guided loop from one noise, bit-equal;
                one call split into encode / reverse / decode, and a
                profile of a few reverse steps, which gives the step
@@ -225,11 +238,13 @@ step kernel must be among them):
                byte-equal; sets and ms); the asset manifest: freeze, then
                verify with one file changed and one added, and the CLI's
                exit code 1
-Then the kernel against its plain version at any other shape the path
-phases launched it with, the whole run's wall time, a JSON line of per-kernel numbers
-(launches summed over phases 5-19 that ran, and each phase's count under
-launches_by_phase, every timed shape under shapes; the dpmpp and training
-phases launch no step kernel)
+Every phase after 3 counts the cross-attention kernel's launches and the
+on-card calls that took its plain version, and fails on a bf16 one. Then
+each kernel against its plain version at any other shape the path phases
+launched it with, the whole run's wall time, a JSON line of per-kernel
+numbers (launches summed over phases 5-19 that ran, and each phase's count
+under launches_by_phase, every timed shape under shapes; the dpmpp and
+training phases launch no step kernel)
 and, last, the result line {"ok": true, "device": {...}}.
 """
 import argparse
@@ -297,10 +312,13 @@ from convofusion_tpu_torch.models.tokenizer import (
     focus_word_indices,
 )
 from convofusion_tpu_torch.ops import adamw
+from convofusion_tpu_torch.ops import cross_attend as ca_mod
 from convofusion_tpu_torch.ops import guided_step as gs_mod
 from convofusion_tpu_torch.ops import layers
+from convofusion_tpu_torch.ops.attention import MultiheadAttention
 from convofusion_tpu_torch.ops.fused_streams import fuse_denoiser_params
 from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
+from convofusion_tpu_torch.ops.transformer import COND_STREAMS, REAL_BRANCHES
 from convofusion_tpu_torch.parallel import mesh as dist_mesh
 from convofusion_tpu_torch.parallel import tp as tp_lib
 from convofusion_tpu_torch.scripts import beat_getjoints, synthetic
@@ -347,6 +365,15 @@ PATH_BATCHES = (2, 4, 8, 16, 20, 32)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # fp32 (non-tensor-core) flop/s
 PEAK_BYTES_PER_S = 3.35e12
+# the guided cross-attention kernel (phase 3): each stream's Tk at the
+# published geometry (text 64, mel frames 161, apb 8, listener id 1); the
+# two text streams carry padding masks; cases (B, Tq, uncond K/V batch)
+CROSS_TK = {"spkemb": 64, "alsn": 161, "tlsn": 64, "apb": 8, "lsnemb": 1}
+CROSS_MASKED = ("spkemb", "tlsn")
+CROSS_CASES = {"published": (32, 16, 1), "b1": (1, 16, 1),
+               "b96": (BATCH, 16, 1), "raw_motion_tq128": (32, 128, 1),
+               "uncond_batch_b": (32, 16, 32)}
+CROSS_RTOL = 1e-2     # relative RMS, on the output and on the weights
 PEAK_FP32_FLOPS = 67e12
 # guided_step per element: 8 for the guidance combine, 5 for x0 and its
 # clip, 6-7 for the DDPM or DDIM update
@@ -536,7 +563,8 @@ def phase_device() -> str:
 
 def phase_build():
     for name, build in (("guided_step.cu", gs_mod.build),
-                        ("adamw.cu", adamw.build)):
+                        ("adamw.cu", adamw.build),
+                        ("cross_attend.cu", ca_mod.build)):
         t0 = time.perf_counter()
         report = build()
         log(f"# build: {name} in {time.perf_counter() - t0:.2f} s")
@@ -703,6 +731,253 @@ def phase_kernel():
             f"{err:.3g}  kernel {ms * 1e3:.2f} us  back to back "
             f"{warm_ms * 1e3:.2f} us")
     return rows, max_err, checked
+
+
+def cross_geometry(case, stream):
+    """A CROSS_CASES case's ``ca_mod.geometry`` for one stream: the
+    stream's published Tk for both variants; the text streams masked."""
+    b, tq, unc_batch = CROSS_CASES[case]
+    tk, masked = CROSS_TK[stream], stream in CROSS_MASKED
+    return (b, tq, tk, tk, unc_batch, b if masked else 0,
+            unc_batch if masked else 0, REAL_BRANCHES[stream])
+
+
+def cross_inputs(geom, seed):
+    """Seeded bf16 q_all (7, B, Tq, 512), each variant's K/V as the halves
+    of one (B or uncond batch, Tk, 1024) projection, and each variant's
+    padding mask (its batch from ``geom``; 0: None) with every key of row
+    0 padded, for a ``ca_mod.geometry`` ``geom``."""
+    b, tq, tk_r, tk_u, unc_batch, m_r, m_u, _ = geom
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = PRODUCTION["denoiser"]["text_encoded_dim"]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    def mask(rows, tk):
+        if not rows:
+            return None
+        m = torch.rand(rows, tk, generator=gen, device="cuda") < 0.3
+        m[0] = True
+        return m
+
+    q = randn(7, b, tq, d)
+    kv_r = randn(b, tk_r, 2 * d).chunk(2, dim=-1)
+    kv_u = randn(unc_batch, tk_u, 2 * d).chunk(2, dim=-1)
+    return q, kv_r, kv_u, (mask(m_r, tk_r), mask(m_u, tk_u))
+
+
+def cross_bytes(q, kv_r, kv_u, masks):
+    """Bytes the core must move: q_all read and out written, both
+    variants' K/V and masks read, the weights (B, Tq, Tk) written."""
+    _, b, tq, _ = q.shape
+    n = 2 * q.numel() * q.element_size()
+    n += sum(t.numel() * t.element_size() for t in kv_r + kv_u)
+    n += sum(m.numel() for m in masks if m is not None)
+    return n + b * tq * kv_r[0].shape[1] * q.element_size()
+
+
+def _ordered(t):
+    """bf16 bit patterns as integers in the order of the values."""
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i < 0, -(i + 32768), i)
+
+
+def cross_exact(q, kv_r, kv_u, masks, real):
+    """The core in fp64 with the plain version's bf16 rounding points (q
+    k^T, its scaling, P and P v each computed exactly and rounded once to
+    bf16; the softmax exact): out (G, B, Tq, D) and the last real
+    branch's weights, bf16.  A witness for the kernel and the plain
+    version alike: each departs from it by its own accumulation order."""
+    def bf(t):
+        return t.to(torch.bfloat16).double()
+
+    inv = ca_mod._inv_scale(q.shape[-1])
+    neg = float(torch.tensor(-1e9, dtype=torch.bfloat16))
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for rows, (k, v), m in ((real, kv_r, masks[0]),
+                            (ca_mod.unc_branches(real, q.shape[0]), kv_u,
+                             masks[1])):
+        idx = torch.tensor(rows, device=q.device)
+        s = bf(q.index_select(0, idx).double()
+               @ k.double().transpose(-1, -2))
+        s = bf(s * inv)
+        if m is not None:
+            s = s.masked_fill(m[None, :, None, :], neg)
+        p = bf(torch.softmax(s, dim=-1))
+        out[idx] = bf(p @ v.double())
+        if rows == tuple(real):
+            att = p[-1]
+    return out.to(torch.bfloat16), att.to(torch.bfloat16)
+
+
+def cross_gap(got, want):
+    """How far ``got`` is from ``want`` (bf16): relative RMS, the share of
+    elements that differ, and the largest gap in bf16 ulps over the
+    elements at least a tenth of ``want``'s RMS from zero (near zero a
+    one-ulp step of the products crosses many ulps of the result)."""
+    g, w = got.float(), want.float()
+    rms = w.norm() / w.numel() ** 0.5
+    away = w.abs() >= 0.1 * rms
+    ulps = (_ordered(got) - _ordered(want)).abs()
+    return dict(rel=float((g - w).norm() / w.norm()),
+                differ=float((got != want).float().mean()),
+                ulps=int(ulps[away].max()) if bool(away.any()) else 0)
+
+
+def cross_check(mod, geom, seed):
+    """The kernel (through ``grouped_cross_attend``, as ``guided`` calls
+    it) against the plain version at ``geom``, both against
+    :func:`cross_exact`: the gaps of the output and of the weights.
+    Raises where the kernel's relative RMS from the plain version passes
+    CROSS_RTOL."""
+    q, kv_r, kv_u, masks = cross_inputs(geom, seed)
+    real = geom[-1]
+    idx = [torch.tensor(t, device="cuda") for t in
+           (real, ca_mod.unc_branches(real, 7))]
+    with torch.no_grad():
+        got = ca_mod.grouped_cross_attend(mod, q, kv_r, kv_u, *masks, real,
+                                          *idx)
+        want = ca_mod.cross_attend_reference(mod, q, kv_r, kv_u, *masks,
+                                             *idx)
+        exact = cross_exact(q, kv_r, kv_u, masks, real)
+    torch.cuda.synchronize()
+    gaps = {}
+    for i, what in enumerate(("out", "weights")):
+        gaps[what] = dict(plain=cross_gap(got[i], want[i]),
+                          exact=cross_gap(got[i], exact[i]),
+                          plain_exact=cross_gap(want[i], exact[i]))
+        rel = gaps[what]["plain"]["rel"]
+        if not rel <= CROSS_RTOL:
+            raise RuntimeError(f"cross_attend {geom} {what}: relative RMS "
+                               f"{rel} > {CROSS_RTOL}")
+    return gaps
+
+
+def _worst(worst, gaps):
+    for what, by in gaps.items():
+        for against, gap in by.items():
+            row = worst.setdefault(f"{what}/{against}",
+                                   dict(rel=0.0, differ=0.0, ulps=0))
+            for k, v in gap.items():
+                row[k] = max(row[k], v)
+
+
+def cross_line(gaps):
+    return "; ".join(
+        f"{what} against {against.replace('_', ' ')}: rel RMS "
+        f"{g['rel']:.3g}, {g['differ']:.2%} differ, {g['ulps']} ulps away "
+        f"from 0" for what, by in gaps.items() for against, g in by.items())
+
+
+def phase_cross_attend(flush):
+    """The guided cross-attention kernel, through ``grouped_cross_attend``,
+    against its plain version on the card in every case of CROSS_CASES
+    and every stream (relative RMS of the output and of the weights at
+    most CROSS_RTOL), both against the fp64 witness ``cross_exact``; a
+    CUDA graph's replay bit-equal to the eager call; at the published
+    geometry CUDA-event times of the kernel's graph replay (L2 flushed, and
+    back to back) and of the plain version's against the byte bound, per
+    stream and summed over a layer's five.  Returns the results and the geometries held."""
+    mod = MultiheadAttention(PRODUCTION["denoiser"]["text_encoded_dim"], 1,
+                             torch.bfloat16).cuda()
+    worst, timed, checked = {}, {}, set()
+    for case in CROSS_CASES:
+        for s in COND_STREAMS:
+            geom = cross_geometry(case, s)
+            checked.add(geom)
+            gaps = cross_check(mod, geom, 31 + CROSS_TK[s])
+            _worst(worst, gaps)
+            log(f"# kernel cross_attend {case} {s}: {cross_line(gaps)}")
+            if case != "published":
+                continue
+            q, kv_r, kv_u, masks = cross_inputs(geom, 31 + CROSS_TK[s])
+            real = geom[-1]
+            idx = [torch.tensor(t, device="cuda") for t in
+                   (real, ca_mod.unc_branches(real, 7))]
+            # each replayed from a CUDA graph, as the guided graph runs
+            # them: the wrapper's host work (tens of us) would otherwise
+            # outlast the flush and enter the bracket
+            pool = cuda_graphs.GraphPool()
+            with torch.no_grad():
+                kernel, _ = pool.capture(
+                    lambda: ca_mod.cross_attend(q, kv_r, kv_u, *masks, real),
+                    q.device)
+                plain, _ = pool.capture(
+                    lambda: ca_mod.cross_attend_reference(
+                        mod, q, kv_r, kv_u, *masks, *idx), q.device)
+            ms = _event_median_ms(kernel.replay, flush)
+            warm_ms = _back_to_back_ms(kernel.replay)
+            plain_ms = _event_median_ms(plain.replay, flush)
+            bound = cross_bytes(q, kv_r, kv_u, masks) / PEAK_BYTES_PER_S * 1e3
+            timed[s] = dict(tk=CROSS_TK[s], ms=ms, warm_ms=warm_ms,
+                            plain_ms=plain_ms, bound_ms=bound)
+            log(f"# kernel cross_attend {s} (7, 32, 16, 512) Tk "
+                f"{CROSS_TK[s]}: kernel {ms * 1e3:.2f} us (back to back "
+                f"{warm_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
+                f"bound {bound * 1e3:.2f} us (bytes)")
+    layer = {k: sum(r[k] for r in timed.values())
+             for k in ("ms", "warm_ms", "plain_ms", "bound_ms")}
+    log(f"# kernel cross_attend: a layer's five streams at (7, 32, 16, 512):"
+        f" kernel {layer['ms'] * 1e3:.2f} us (back to back "
+        f"{layer['warm_ms'] * 1e3:.2f} us; "
+        f"{layer['bound_ms'] / layer['ms']:.1%} of the byte bound "
+        f"{layer['bound_ms'] * 1e3:.2f} us), plain "
+        f"{layer['plain_ms'] * 1e3:.2f} us; over {sorted(CROSS_CASES)} x 5 "
+        f"streams, the worst (tol {CROSS_RTOL} on the relative RMS against "
+        f"the plain version): "
+        + "; ".join(f"{k}: rel RMS {v['rel']:.3g}, {v['differ']:.2%} differ,"
+                    f" {v['ulps']} ulps away from 0"
+                    for k, v in sorted(worst.items())))
+    # a graph's replay against the eager call, on new inputs
+    geom = cross_geometry("published", "alsn")
+    q, kv_r, kv_u, masks = cross_inputs(geom, 41)
+    static = (q.clone(), tuple(t.clone() for t in kv_r))
+    real = geom[-1]
+    with torch.no_grad():
+        graph, outs = cuda_graphs.GraphPool().capture(
+            lambda: ca_mod.cross_attend(static[0], static[1], kv_u, *masks,
+                                        real), torch.device("cuda"))
+        q2, kv2, _, _ = cross_inputs(geom, 42)
+        static[0].copy_(q2)
+        for dst, src in zip(static[1], kv2):
+            dst.copy_(src)
+        graph.replay()
+        eager = ca_mod.cross_attend(q2, kv2, kv_u, *masks, real)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(outs, eager)):
+        raise RuntimeError("cross_attend: a graph replay differs from the "
+                           "eager call")
+    log("# kernel cross_attend: a CUDA graph's replay on new inputs "
+        "bit-equal to the eager call")
+    return dict(layer=layer, streams=timed, worst=worst), checked
+
+
+def record_plain_calls():
+    """From now on, (q_all dtype, reason) of each on-card call that
+    ``ops/cross_attend.plain_reason`` sends to the plain version."""
+    calls, rule = [], ca_mod.plain_reason
+
+    def recorded(mod, q_all, kv_real, kv_unc):
+        reason = rule(mod, q_all, kv_real, kv_unc)
+        if reason is not None and q_all.device.type == "cuda":
+            calls.append((q_all.dtype, reason))
+        return reason
+
+    ca_mod.plain_reason = recorded
+    return calls
+
+
+def cross_at_geometries(geoms):
+    """The kernel against its plain version and the witness at each
+    ``ca_mod.geometry`` of ``geoms``; the worst gaps."""
+    mod = MultiheadAttention(PRODUCTION["denoiser"]["text_encoded_dim"], 1,
+                             torch.bfloat16).cuda()
+    worst = {}
+    for i, geom in enumerate(sorted(geoms)):
+        _worst(worst, cross_check(mod, geom, 51 + i))
+    return worst
 
 
 def _noise(rng, n_steps, shape):
@@ -4219,10 +4494,16 @@ def phase_main(smi):
 
     COUNTS["guided_step.launches"] = 0
     captures = COUNTS["denoiser.graph_captures"]
+    plain = COUNTS["cross_attend.plain"]
+    # the guided cross-attention kernel: once a (layer, stream) in the
+    # capture's eager warm-up and once in the capture, never in a replay
+    cores = len(model.denoiser.decoder.layers) * len(COND_STREAMS)
+    cross = []
     times = []
     for call in range(1 + TIMED_CALLS):
         before = COUNTS["guided_step.launches"]
         replays = COUNTS["denoiser.graph_replays"]
+        cross_before = COUNTS["cross_attend.launches"]
         t0 = time.perf_counter()
         motion, latents = model.sample(batch, gen)
         torch.cuda.synchronize()
@@ -4235,6 +4516,11 @@ def phase_main(smi):
             raise RuntimeError(
                 f"call {call}: {COUNTS['denoiser.graph_replays'] - replays}"
                 f" guided graph replays, want {STEPS}")
+        cross.append(COUNTS["cross_attend.launches"] - cross_before)
+        if cross[-1] != (0 if call else 2 * cores):
+            raise RuntimeError(
+                f"call {call}: {cross[-1]} cross_attend launches, want "
+                f"{0 if call else 2 * cores}")
         if tuple(motion.shape) != (BATCH, 128, 189) or \
                 not torch.isfinite(motion).all() or \
                 not torch.isfinite(latents).all():
@@ -4245,6 +4531,12 @@ def phase_main(smi):
         log(f"# main: call {call} {'(warm-up) ' if not call else ''}"
             f"{dt * 1e3:.1f} ms")
     launches = COUNTS["guided_step.launches"]
+    if COUNTS["cross_attend.plain"] != plain:
+        raise RuntimeError(f"{COUNTS['cross_attend.plain'] - plain} guided "
+                           f"cross-attentions took the plain version")
+    PHASE_RESULTS["cross_attend_main"] = {"by_call": cross, "plain": 0}
+    log(f"# main: cross_attend launches by call {cross} ({cores} a capture's"
+        f" warm-up and {cores} in the capture, none a replay), 0 plain")
     if COUNTS["denoiser.graph_captures"] - captures != 1:
         raise RuntimeError(
             f"{COUNTS['denoiser.graph_captures'] - captures} guided graph "
@@ -4422,6 +4714,11 @@ def main(argv=None):
     smi = phase_device()
     phase_build()
     rows, max_err, checked = phase_kernel()
+    t0 = time.perf_counter()
+    cross, cross_checked = phase_cross_attend(
+        torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
+    log(f"# phase 3 cross_attend: {time.perf_counter() - t0:.1f} s")
+    plain_calls = record_plain_calls()
     in_path_us = None
 
     def run_main():
@@ -4450,16 +4747,29 @@ def main(argv=None):
             17: lambda: phase_ablations(smi),
             18: lambda: phase_distributed(smi),
             19: lambda: phase_tools(smi)}
-    by_phase = {}
+    by_phase, cross_by_phase = {}, {}
     for number in sorted(chosen - {1, 2, 3}):
         COUNTS["guided_step.launches"] = 0
+        name = PHASES[number]
+        cross_before = (COUNTS["cross_attend.launches"],
+                        COUNTS["cross_attend.plain"], len(plain_calls))
         t0 = time.perf_counter()
         launches = runs[number]()
-        log(f"# phase {number} {PHASES[number]}: "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"# phase {number} {name}: {time.perf_counter() - t0:.1f} s")
+        # the guided cross-attention kernel: its launches and the on-card
+        # calls that took the plain version; a bf16 one never may
+        plain = plain_calls[cross_before[2]:]
+        cross_by_phase[name] = dict(
+            launches=COUNTS["cross_attend.launches"] - cross_before[0],
+            plain=COUNTS["cross_attend.plain"] - cross_before[1],
+            plain_bf16=sum(d == torch.bfloat16 for d, _ in plain))
+        if cross_by_phase[name]["plain_bf16"]:
+            raise RuntimeError(
+                f"{name}: {cross_by_phase[name]['plain_bf16']} bf16 guided "
+                f"cross-attentions on the card took the plain version "
+                f"({sorted({r for d, r in plain if d == torch.bfloat16})})")
         if number == 4:
             continue       # a parity check, not the main path
-        name = PHASES[number]
         by_phase[name] = (launches if isinstance(launches, int)
                           else COUNTS["guided_step.launches"])
         if number not in PATH_PHASES and by_phase[name]:
@@ -4475,6 +4785,18 @@ def main(argv=None):
         max_err = max(max_err, err)
         log(f"# kernel guided_step at the path's other shapes "
             f"{sorted(unchecked, key=str)}: max|diff| {err:.3g}")
+    log(f"# cross_attend by phase (launches, on-card plain calls, bf16 "
+        f"among them): {cross_by_phase}")
+    # the cross-attention kernel likewise, at every geometry the path gave
+    # it that phase 3 did not hold it at
+    cross_unchecked = ca_mod.cross_attend.shapes - cross_checked
+    cross_path = cross_at_geometries(cross_unchecked)
+    log(f"# kernel cross_attend at the path's other geometries "
+        f"{sorted(cross_unchecked)} (B, Tq, Tk real, Tk uncond, uncond "
+        f"batch, mask batches, real branches): "
+        + "; ".join(f"{k}: rel RMS {v['rel']:.3g}, {v['differ']:.2%} differ,"
+                    f" {v['ulps']} ulps away from 0"
+                    for k, v in sorted(cross_path.items())))
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{
@@ -4501,6 +4823,30 @@ def main(argv=None):
         "sample_ms_by_step_path": {
             k: v for k, v in PHASE_RESULTS.get("ablations", {}).get(
                 "step_paths", {}).items() if k != "fp32_gaps"} or None,
+    }, {
+        "name": "cross_attend",
+        "route": "cuda",
+        "source": "convofusion_tpu_torch/csrc/cross_attend.cu",
+        "replaces": None,
+        # over the main path (phase 5): a capture's warm-up and capture,
+        # then none a replay; no plain call
+        "launches": PHASE_RESULTS.get("cross_attend_main"),
+        # every phase: launches, on-card plain calls, bf16 among them (0)
+        "launches_by_phase": cross_by_phase,
+        # the worst gaps over phase 3's cases: the kernel against the plain
+        # version and against the fp64 witness, the plain version against
+        # the witness (relative RMS, share of elements that differ, bf16
+        # ulps away from zero)
+        "gaps": cross["worst"],
+        "path_geometries": [list(g[:7]) + [list(g[7])]
+                            for g in sorted(cross_unchecked)],
+        "path_gaps": cross_path,
+        "layer_ms": cross["layer"]["ms"],
+        "layer_warm_ms": cross["layer"]["warm_ms"],
+        "layer_plain_ms": cross["layer"]["plain_ms"],
+        "layer_bound_ms": cross["layer"]["bound_ms"],
+        "bound_by": "bytes",
+        "streams": cross["streams"],
     }]
     log(f"# whole run: {time.perf_counter() - t_run:.1f} s, phases "
         f"{sorted(chosen)}")

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from convofusion_tpu_torch.ops.attention import MultiheadAttention
+from convofusion_tpu_torch.ops.cross_attend import grouped_cross_attend
 from convofusion_tpu_torch.ops.layers import (
     Dropout,
     LayerNorm,
@@ -247,7 +248,9 @@ class TransformerDecoderLayer2Att(_FFN):
 
     ``guided`` runs the seven classifier-free-guidance branches at once:
     the memory-side LayerNorm + K/V run once per variant (real / uncond)
-    instead of once per branch."""
+    instead of once per branch, and each stream's attention core is
+    ``ops/cross_attend.grouped_cross_attend`` (one CUDA kernel a stream on
+    a card)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", normalize_before: bool = True,
@@ -338,19 +341,14 @@ class TransformerDecoderLayer2Att(_FFN):
         branch_outs, att = [], {}
         for s in COND_STREAMS:
             mod, _ = self._cross(s)
-            r_idx = getattr(self, f"_real_idx_{s}")
-            u_idx = getattr(self, f"_unc_idx_{s}")
-            (k_r, v_r), (k_u, v_u) = kv[s]
-            q_all = mod.q_proj(tgt2)
-            o_r, w_r = mod.grouped_attend(q_all.index_select(0, r_idx),
-                                          k_r, v_r, masks_real.get(s))
-            o_u, _ = mod.grouped_attend(q_all.index_select(0, u_idx),
-                                        k_u, v_u, masks_unc.get(s))
-            out = torch.empty_like(q_all)
-            out.index_copy_(0, r_idx, o_r)
-            out.index_copy_(0, u_idx, o_u)
+            # each branch's rows over the real or the uncond K/V: one CUDA
+            # kernel on a card, else the plain gather, attend and scatter
+            out, att[s] = grouped_cross_attend(
+                mod, mod.q_proj(tgt2), *kv[s], masks_real.get(s),
+                masks_unc.get(s), REAL_BRANCHES[s],
+                getattr(self, f"_real_idx_{s}"),
+                getattr(self, f"_unc_idx_{s}"))
             branch_outs.append(mod.out_proj(out))
-            att[s] = w_r[-1]   # last real branch = full condition
         tgt7 = tgt7 + self.drop(self.att_fuser(torch.cat(branch_outs,
                                                          dim=-1)))
         tgt7 = tgt7 + self.time_block2(tgt7, time_embed[None])
