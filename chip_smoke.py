@@ -8,7 +8,8 @@ picks some (default all; 1-3 always run, and one phase that launches the
 step kernel must be among them):
   1. device  - require CUDA; print the card's name and power limit; TF32 off
   2. build   - nvcc the hand-written kernels from convofusion_tpu_torch/csrc
-               (the guided step, AdamW, the guided cross-attention)
+               (the guided step, AdamW, the guided cross-attention, the
+               guided LayerNorm), side by side
   3. kernel  - at the main path's B=96 shapes (latents (96, 16, 128) and,
                for raw motion, (96, 128, 189)) and at the batches the other
                path phases give it (PATH_BATCHES, RAW_MOTION_BATCHES), every
@@ -28,7 +29,15 @@ step kernel must be among them):
                away from zero), a CUDA graph's replay bit-equal to the
                eager call, and at (7, 32, 16, 512) CUDA-event times of
                kernel and plain version, each replayed from a CUDA graph,
-               against the byte bound, per stream and a layer's five
+               against the byte bound, per stream and a layer's five;
+               the guided LayerNorm kernel, through normalize, against
+               its plain version at every geometry of the guided calls at
+               (B, Tq) of LN_BATCHES (at most 1 bf16 ulp on at most 0.1%
+               of the elements), a CUDA graph's replay bit-equal to the
+               eager call, and at batch 32 CUDA-event times of kernel,
+               plain version and F.layer_norm + cast, each replayed from
+               a CUDA graph, against the byte bound, per norm and a
+               layer's 15
   4. parity  - production geometry, fp32, batch 2, DDIM-20, seeded weights,
                numpy-made inputs and noise: sample() on the card (through
                the kernel) against sample() on the CPU (plain version)
@@ -38,7 +47,9 @@ step kernel must be among them):
                kernel launches and 50 replays of the guided denoiser's
                CUDA graph per call (one capture); 45 cross-attention
                launches in the capture's warm-up and 45 in the capture,
-               none in a replay, none of the plain version; clips/s,
+               none in a replay, none of the plain version; 136 LayerNorm
+               launches in each of the two and none in a replay, none of
+               the plain version; clips/s,
                ms/call, peak memory; at batch 32 and 96 the graphed sample() against
                the eager guided loop from one noise, bit-equal;
                one call split into encode / reverse / decode, and a
@@ -239,7 +250,8 @@ step kernel must be among them):
                verify with one file changed and one added, and the CLI's
                exit code 1
 Every phase after 3 counts the cross-attention kernel's launches and the
-on-card calls that took its plain version, and fails on a bf16 one. Then
+on-card calls that took its plain version, and fails on a bf16 one; and
+the LayerNorm kernel's likewise, failing on a bf16 one without grad. Then
 each kernel against its plain version at any other shape the path phases
 launched it with, the whole run's wall time, a JSON line of per-kernel
 numbers (launches summed over phases 5-19 that ran, and each phase's count
@@ -314,7 +326,8 @@ from convofusion_tpu_torch.models.tokenizer import (
 from convofusion_tpu_torch.ops import adamw
 from convofusion_tpu_torch.ops import cross_attend as ca_mod
 from convofusion_tpu_torch.ops import guided_step as gs_mod
-from convofusion_tpu_torch.ops import layers
+from convofusion_tpu_torch.ops import layer_norm as ln_mod
+from convofusion_tpu_torch.ops import layers, nvcc
 from convofusion_tpu_torch.ops.attention import MultiheadAttention
 from convofusion_tpu_torch.ops.fused_streams import fuse_denoiser_params
 from convofusion_tpu_torch.ops.smoothing import gaussian_kernel_2d
@@ -374,6 +387,18 @@ CROSS_CASES = {"published": (32, 16, 1), "b1": (1, 16, 1),
                "b96": (BATCH, 16, 1), "raw_motion_tq128": (32, 128, 1),
                "uncond_batch_b": (32, 16, 32)}
 CROSS_RTOL = 1e-2     # relative RMS, on the output and on the weights
+# the guided LayerNorm kernel (phase 3): the batches whose guided calls it
+# is held at (the sampling cell's 32, the main path's 96, the service's
+# 20, a batch of 1), Tq 16 and, for raw motion, 128; each stream's memory
+# rows (Tk, stored dtype); PyTorch's LayerNorm sums in an order the kernel
+# repeats, but its build may contract another multiply-add than the
+# kernel's __fmaf_rn: at most LN_MAX_ULPS bf16 ulp on at most
+# LN_MAX_DIFFER of the elements
+LN_BATCHES = ((32, 16), (BATCH, 16), (20, 16), (1, 16), (32, 128))
+LN_STREAMS = {"spkemb": (64, "bfloat16"), "alsn": (161, "bfloat16"),
+              "tlsn": (64, "bfloat16"), "apb": (8, "float32"),
+              "lsnemb": (1, "float32")}
+LN_MAX_ULPS, LN_MAX_DIFFER = 1, 1e-3
 PEAK_FP32_FLOPS = 67e12
 # guided_step per element: 8 for the guidance combine, 5 for x0 and its
 # clip, 6-7 for the DDPM or DDIM update
@@ -562,15 +587,20 @@ def phase_device() -> str:
 
 
 def phase_build():
-    for name, build in (("guided_step.cu", gs_mod.build),
-                        ("adamw.cu", adamw.build),
-                        ("cross_attend.cu", ca_mod.build)):
+    kernels = (("guided_step.cu", gs_mod), ("adamw.cu", adamw),
+               ("cross_attend.cu", ca_mod), ("layer_norm.cu", ln_mod))
+    t_all = time.perf_counter()
+    # the compiles run side by side, one process each
+    for _, mod in kernels:
+        nvcc.start(mod.SOURCE, mod.LIBRARY)
+    for name, mod in kernels:
         t0 = time.perf_counter()
-        report = build()
-        log(f"# build: {name} in {time.perf_counter() - t0:.2f} s")
+        report = mod.build()
+        log(f"# build: {name} done {time.perf_counter() - t0:.2f} s later")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"#   {line.strip()}")
+    log(f"# build: all in {time.perf_counter() - t_all:.2f} s")
 
 
 def _event_median_ms(fn, flush):
@@ -952,6 +982,198 @@ def phase_cross_attend(flush):
     log("# kernel cross_attend: a CUDA graph's replay on new inputs "
         "bit-equal to the eager call")
     return dict(layer=layer, streams=timed, worst=worst), checked
+
+
+def ln_geometries(b, tq):
+    """The ``ln_mod.geometry`` of each LayerNorm of a guided call at batch
+    ``b`` and Tq ``tq`` with batch-1 uncond rows: norm1-3 and the final
+    norm, the TimeBlocks' (with the epilogue), each stream's memory norm
+    of both variants."""
+    rows, d = 7 * b * tq, PRODUCTION["denoiser"]["text_encoded_dim"]
+    geoms = {(rows, d, "float32", None), (rows, d, "float32", (tq, b))}
+    for tk, dtype in LN_STREAMS.values():
+        geoms |= {(b * tk, d, dtype, None), (tk, d, dtype, None)}
+    return geoms
+
+
+def ln_inputs(geom, seed, unit=False):
+    """Seeded inputs of a geometry: x (rows, D) in its dtype, or (G, B,
+    T, D) with the epilogue's bf16 scale and shift (1, B, 1, D) as the
+    halves of one projection; a LayerNorm whose weight and bias are one and
+    zero (``unit``, as the model's init) or drawn."""
+    rows, d, dtype, mod = geom
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    norm = layers.LayerNorm(d).cuda()
+    if not unit:
+        with torch.no_grad():
+            norm.weight.copy_(1 + 0.1 * randn(d))
+            norm.bias.copy_(0.1 * randn(d))
+    scale = shift = None
+    shape = (rows, d)
+    if mod is not None:
+        tq, b = mod
+        shape = (rows // (tq * b), b, tq, d)
+        scale, shift = (0.5 * randn(1, b, 1, 2 * d)).to(
+            torch.bfloat16).chunk(2, dim=-1)
+    x = (2 * randn(*shape) + 0.3).to(getattr(torch, dtype))
+    return x, norm, scale, shift
+
+
+def ln_gap(got, want):
+    """bf16 ulps between got and want: the largest, and the share of
+    elements that differ."""
+    ulps = (_ordered(got) - _ordered(want)).abs()
+    return dict(ulps=int(ulps.max()),
+                differ=float((got != want).float().mean()))
+
+
+def ln_check(geom, seed):
+    """The kernel, through ``normalize`` as ``guided`` calls it, against the
+    plain version at ``geom``, with drawn and with unit weights; raises
+    past LN_MAX_ULPS or LN_MAX_DIFFER.  The worst gap."""
+    consumer = layers.Linear(8, 8, dtype=torch.bfloat16).cuda()
+    worst = dict(ulps=0, differ=0.0)
+    for unit in (False, True):
+        x, norm, scale, shift = ln_inputs(geom, seed, unit)
+        launches = COUNTS["layer_norm.launches"]
+        with torch.no_grad():
+            got = ln_mod.normalize(norm, x, consumer, scale, shift)
+            want = ln_mod.layer_norm_reference(x, norm, torch.bfloat16,
+                                               scale, shift)
+        torch.cuda.synchronize()
+        if COUNTS["layer_norm.launches"] != launches + 1:
+            raise RuntimeError(f"layer_norm {geom}: the kernel was not "
+                               f"launched")
+        gap = ln_gap(got, want)
+        if gap["ulps"] > LN_MAX_ULPS or gap["differ"] > LN_MAX_DIFFER:
+            raise RuntimeError(f"layer_norm {geom} unit={unit}: {gap} past "
+                               f"{LN_MAX_ULPS} ulps on {LN_MAX_DIFFER:.1%}")
+        worst = {k: max(worst[k], gap[k]) for k in worst}
+    return worst
+
+
+def ln_bytes(x, scale):
+    """Bytes a norm must move: x read in its dtype and the bf16 output
+    written, the weight and bias, the scale and shift rows."""
+    n = x.numel() * (x.element_size() + 2) + 2 * 4 * x.shape[-1]
+    if scale is not None:
+        n += 2 * scale.numel() * 2
+    return n
+
+
+def phase_layer_norm(flush):
+    """The guided LayerNorm kernel, through ``normalize``, against its plain
+    version at every geometry of LN_BATCHES' guided calls (ln_check); at
+    the sampling cell's batch 32 CUDA-event times, each replayed from a
+    CUDA graph, of the kernel (L2 flushed, and back to back), the plain
+    version and ``F.layer_norm`` + the bf16 cast (in the input's dtype:
+    the library's yardstick, without the epilogue) against the byte
+    bound, per norm and over a layer's 15; the first layer's expanded
+    branches; a graph's replay bit-equal to the eager call.  Returns the
+    results and the geometries held."""
+    checked, worst = set(), dict(ulps=0, differ=0.0)
+    for i, (b, tq) in enumerate(LN_BATCHES):
+        for j, geom in enumerate(sorted(ln_geometries(b, tq), key=str)):
+            gap = ln_check(geom, 61 + 20 * i + j)
+            checked.add(geom)
+            worst = {k: max(worst[k], gap[k]) for k in worst}
+    # the first layer's norm1 reads the branches as one expanded tensor
+    d = PRODUCTION["denoiser"]["text_encoded_dim"]
+    x, norm, _, _ = ln_inputs((32 * 16, d, "float32", None), 60)
+    x = x.reshape(1, 32, 16, -1).expand(7, 32, 16, -1)
+    with torch.no_grad():
+        gap = ln_gap(ln_mod.layer_norm(x, norm),
+                     ln_mod.layer_norm_reference(x, norm, torch.bfloat16))
+    if gap["ulps"] > LN_MAX_ULPS or gap["differ"] > LN_MAX_DIFFER:
+        raise RuntimeError(f"layer_norm over expanded branches: {gap}")
+    worst = {k: max(worst[k], gap[k]) for k in worst}
+    log(f"# kernel layer_norm: {len(checked)} geometries of the guided calls"
+        f" at (B, Tq) {list(LN_BATCHES)}, drawn and unit weights: at most "
+        f"{worst['ulps']} bf16 ulps, {worst['differ']:.4%} of elements differ"
+        f" (limits {LN_MAX_ULPS} ulp, {LN_MAX_DIFFER:.1%})")
+    # a layer's 15 norms at the sampling cell's batch: norm1-3, the two
+    # TimeBlocks, the memory norms of both variants
+    rows = 7 * 32 * 16
+    layer = [(rows, d, "float32", None)] * 3 + \
+        [(rows, d, "float32", (16, 32))] * 2
+    for tk, dtype in LN_STREAMS.values():
+        layer += [(32 * tk, d, dtype, None), (tk, d, dtype, None)]
+    pool = cuda_graphs.GraphPool()
+    timed, sums = [], dict(ms=0.0, warm_ms=0.0, plain_ms=0.0,
+                           library_ms=0.0, bound_ms=0.0)
+    with torch.no_grad():
+        for geom in sorted(set(layer), key=str):
+            x, norm, scale, shift = ln_inputs(geom, 7)
+            w, bias = norm.weight.to(x.dtype), norm.bias.to(x.dtype)
+            kernel, _ = pool.capture(
+                lambda: ln_mod.layer_norm(x, norm, scale, shift), x.device)
+            plain, _ = pool.capture(
+                lambda: ln_mod.layer_norm_reference(
+                    x, norm, torch.bfloat16, scale, shift), x.device)
+            library, _ = pool.capture(
+                lambda: F.layer_norm(x, (x.shape[-1],), w, bias,
+                                     norm.eps).to(torch.bfloat16), x.device)
+            row = dict(geometry=list(geom[:3]) + [geom[3] and list(geom[3])],
+                       ms=_event_median_ms(kernel.replay, flush),
+                       warm_ms=_back_to_back_ms(kernel.replay),
+                       plain_ms=_event_median_ms(plain.replay, flush),
+                       library_ms=_event_median_ms(library.replay, flush),
+                       bound_ms=ln_bytes(x, scale) / PEAK_BYTES_PER_S * 1e3)
+            n = layer.count(geom)
+            for k in sums:
+                sums[k] += n * row[k]
+            timed.append(row)
+            log(f"# kernel layer_norm {geom} (x{n} a layer): kernel "
+                f"{row['ms'] * 1e3:.2f} us (back to back "
+                f"{row['warm_ms'] * 1e3:.2f} us), plain "
+                f"{row['plain_ms'] * 1e3:.2f} us, F.layer_norm + cast "
+                f"{row['library_ms'] * 1e3:.2f} us, bound "
+                f"{row['bound_ms'] * 1e3:.2f} us (bytes)")
+    share = {k: sums["bound_ms"] / sums[k] for k in ("ms", "warm_ms")}
+    log(f"# kernel layer_norm: a layer's 15 norms at batch 32: kernel "
+        f"{sums['ms'] * 1e3:.2f} us L2 flushed ({share['ms']:.1%} of the "
+        f"byte bound {sums['bound_ms'] * 1e3:.2f} us), back to back "
+        f"{sums['warm_ms'] * 1e3:.2f} us ({share['warm_ms']:.1%}), plain "
+        f"{sums['plain_ms'] * 1e3:.2f} us, F.layer_norm + cast "
+        f"{sums['library_ms'] * 1e3:.2f} us")
+    # a graph's replay on new inputs against the eager call
+    geom = (rows, d, "float32", (16, 32))
+    x, norm, scale, shift = ln_inputs(geom, 8)
+    static = x.clone()
+    with torch.no_grad():
+        graph, out = pool.capture(
+            lambda: ln_mod.layer_norm(static, norm, scale, shift), x.device)
+        static.copy_(ln_inputs(geom, 9)[0])
+        graph.replay()
+        eager = ln_mod.layer_norm(static, norm, scale, shift)
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        raise RuntimeError("layer_norm: a graph replay differs from the "
+                           "eager call")
+    log("# kernel layer_norm: a CUDA graph's replay on new inputs bit-equal "
+        "to the eager call")
+    return dict(layer=sums, norms=timed, worst=worst), checked
+
+
+def record_ln_plain_calls():
+    """From now on, (consumer dtype, grad enabled, reason) of each on-card
+    call that ``ops/layer_norm.plain_reason`` sends to the plain
+    version."""
+    calls, rule = [], ln_mod.plain_reason
+
+    def recorded(x, consumer):
+        reason = rule(x, consumer)
+        if reason is not None and x.device.type == "cuda":
+            calls.append((ln_mod._dtype(consumer), torch.is_grad_enabled(),
+                          reason))
+        return reason
+
+    ln_mod.plain_reason = recorded
+    return calls
 
 
 def record_plain_calls():
@@ -4499,11 +4721,17 @@ def phase_main(smi):
     # capture's eager warm-up and once in the capture, never in a replay
     cores = len(model.denoiser.decoder.layers) * len(COND_STREAMS)
     cross = []
+    # the guided LayerNorm kernel: 15 norms a layer and the final one, each
+    # once in the capture's warm-up and once in the capture
+    ln_plain = COUNTS["layer_norm.plain"]
+    norms = 15 * len(model.denoiser.decoder.layers) + 1
+    ln = []
     times = []
     for call in range(1 + TIMED_CALLS):
         before = COUNTS["guided_step.launches"]
         replays = COUNTS["denoiser.graph_replays"]
         cross_before = COUNTS["cross_attend.launches"]
+        ln_before = COUNTS["layer_norm.launches"]
         t0 = time.perf_counter()
         motion, latents = model.sample(batch, gen)
         torch.cuda.synchronize()
@@ -4521,6 +4749,11 @@ def phase_main(smi):
             raise RuntimeError(
                 f"call {call}: {cross[-1]} cross_attend launches, want "
                 f"{0 if call else 2 * cores}")
+        ln.append(COUNTS["layer_norm.launches"] - ln_before)
+        if ln[-1] != (0 if call else 2 * norms):
+            raise RuntimeError(
+                f"call {call}: {ln[-1]} layer_norm launches, want "
+                f"{0 if call else 2 * norms}")
         if tuple(motion.shape) != (BATCH, 128, 189) or \
                 not torch.isfinite(motion).all() or \
                 not torch.isfinite(latents).all():
@@ -4537,6 +4770,12 @@ def phase_main(smi):
     PHASE_RESULTS["cross_attend_main"] = {"by_call": cross, "plain": 0}
     log(f"# main: cross_attend launches by call {cross} ({cores} a capture's"
         f" warm-up and {cores} in the capture, none a replay), 0 plain")
+    if COUNTS["layer_norm.plain"] != ln_plain:
+        raise RuntimeError(f"{COUNTS['layer_norm.plain'] - ln_plain} guided "
+                           f"LayerNorms took the plain version")
+    PHASE_RESULTS["layer_norm_main"] = {"by_call": ln, "plain": 0}
+    log(f"# main: layer_norm launches by call {ln} ({norms} a capture's "
+        f"warm-up and {norms} in the capture, none a replay), 0 plain")
     if COUNTS["denoiser.graph_captures"] - captures != 1:
         raise RuntimeError(
             f"{COUNTS['denoiser.graph_captures'] - captures} guided graph "
@@ -4718,7 +4957,12 @@ def main(argv=None):
     cross, cross_checked = phase_cross_attend(
         torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
     log(f"# phase 3 cross_attend: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    norms, ln_checked = phase_layer_norm(
+        torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
+    log(f"# phase 3 layer_norm: {time.perf_counter() - t0:.1f} s")
     plain_calls = record_plain_calls()
+    ln_plain_calls = record_ln_plain_calls()
     in_path_us = None
 
     def run_main():
@@ -4747,12 +4991,14 @@ def main(argv=None):
             17: lambda: phase_ablations(smi),
             18: lambda: phase_distributed(smi),
             19: lambda: phase_tools(smi)}
-    by_phase, cross_by_phase = {}, {}
+    by_phase, cross_by_phase, ln_by_phase = {}, {}, {}
     for number in sorted(chosen - {1, 2, 3}):
         COUNTS["guided_step.launches"] = 0
         name = PHASES[number]
         cross_before = (COUNTS["cross_attend.launches"],
                         COUNTS["cross_attend.plain"], len(plain_calls))
+        ln_before = (COUNTS["layer_norm.launches"],
+                     COUNTS["layer_norm.plain"], len(ln_plain_calls))
         t0 = time.perf_counter()
         launches = runs[number]()
         log(f"# phase {number} {name}: {time.perf_counter() - t0:.1f} s")
@@ -4768,6 +5014,19 @@ def main(argv=None):
                 f"{name}: {cross_by_phase[name]['plain_bf16']} bf16 guided "
                 f"cross-attentions on the card took the plain version "
                 f"({sorted({r for d, r in plain if d == torch.bfloat16})})")
+        # the guided LayerNorm kernel likewise: a bf16 norm without grad
+        # never takes the plain version
+        plain = ln_plain_calls[ln_before[2]:]
+        ln_by_phase[name] = dict(
+            launches=COUNTS["layer_norm.launches"] - ln_before[0],
+            plain=COUNTS["layer_norm.plain"] - ln_before[1],
+            plain_bf16_no_grad=sum(d == torch.bfloat16 and not g
+                                   for d, g, _ in plain))
+        if ln_by_phase[name]["plain_bf16_no_grad"]:
+            raise RuntimeError(
+                f"{name}: {ln_by_phase[name]['plain_bf16_no_grad']} bf16 "
+                f"guided LayerNorms on the card without grad took the plain "
+                f"version ({sorted({r for d, g, r in plain if not g})})")
         if number == 4:
             continue       # a parity check, not the main path
         by_phase[name] = (launches if isinstance(launches, int)
@@ -4797,6 +5056,21 @@ def main(argv=None):
         + "; ".join(f"{k}: rel RMS {v['rel']:.3g}, {v['differ']:.2%} differ,"
                     f" {v['ulps']} ulps away from 0"
                     for k, v in sorted(cross_path.items())))
+
+    log(f"# layer_norm by phase (launches, on-card plain calls, bf16 "
+        f"without grad among them): {ln_by_phase}")
+    # and the LayerNorm kernel at every geometry the path gave it that
+    # phase 3 did not hold it at
+    ln_unchecked = ln_mod.layer_norm.shapes - ln_checked
+    ln_path = dict(ulps=0, differ=0.0)
+    for i, geom in enumerate(sorted(ln_unchecked, key=str)):
+        gap = ln_check(geom, 71 + i)
+        ln_path = {k: max(ln_path[k], gap[k]) for k in ln_path}
+    log(f"# kernel layer_norm at the path's other geometries "
+        f"{sorted(ln_unchecked, key=str)} (rows, width, input dtype, "
+        f"epilogue (rows a batch row, batch rows)): at most "
+        f"{ln_path['ulps']} bf16 "
+        f"ulps, {ln_path['differ']:.4%} of elements differ")
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{
@@ -4847,6 +5121,30 @@ def main(argv=None):
         "layer_bound_ms": cross["layer"]["bound_ms"],
         "bound_by": "bytes",
         "streams": cross["streams"],
+    }, {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "convofusion_tpu_torch/csrc/layer_norm.cu",
+        "replaces": None,
+        # over the main path (phase 5): a capture's warm-up and capture,
+        # then none a replay; no plain call
+        "launches": PHASE_RESULTS.get("layer_norm_main"),
+        # every phase: launches, on-card plain calls, bf16 ones without
+        # grad among them (0)
+        "launches_by_phase": ln_by_phase,
+        # the largest gap from the plain version over phase 3's geometries
+        # and over the path's others (bf16 ulps, share of elements)
+        "gaps": norms["worst"],
+        "path_geometries": [[g[0], g[1], g[2] and list(g[2])]
+                            for g in sorted(ln_unchecked, key=str)],
+        "path_gaps": ln_path,
+        "layer_ms": norms["layer"]["ms"],
+        "layer_warm_ms": norms["layer"]["warm_ms"],
+        "layer_plain_ms": norms["layer"]["plain_ms"],
+        "layer_library_ms": norms["layer"]["library_ms"],
+        "layer_bound_ms": norms["layer"]["bound_ms"],
+        "bound_by": "bytes",
+        "norms": norms["norms"],
     }]
     log(f"# whole run: {time.perf_counter() - t_run:.1f} s, phases "
         f"{sorted(chosen)}")

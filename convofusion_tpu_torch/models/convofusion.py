@@ -90,7 +90,7 @@ from convofusion_tpu_torch.models.vae import (
     HANDS_NFEATS,
     ConvoFusionVae,
 )
-from convofusion_tpu_torch.ops import cross_attend
+from convofusion_tpu_torch.ops import cross_attend, layer_norm
 from convofusion_tpu_torch.ops.guided_step import guided_step
 from convofusion_tpu_torch.ops.layers import (
     default_init,
@@ -301,9 +301,10 @@ class Convofusion(nn.Module):
         self.eval()
         if device.type == "cuda" and stage != "vae" and \
                 self.do_classifier_free_guidance:
-            # the guided cross-attention kernel's compile overlaps the
-            # weights' load and the rest of the set-up
+            # the guided cross-attention and LayerNorm kernels' compiles
+            # overlap the weights' load and the rest of the set-up
             cross_attend.start_build()
+            layer_norm.start_build()
         # generation only: WEG differentiates w.r.t. the latents alone
         self.requires_grad_(False)
 

@@ -43,6 +43,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from convofusion_tpu_torch.ops import layer_norm
 from convofusion_tpu_torch.ops.embeddings import TimestepEmbedding, Timesteps
 from convofusion_tpu_torch.ops.layers import Embedding, Linear, dropout_mask
 from convofusion_tpu_torch.ops.positional import (
@@ -207,6 +208,8 @@ class Denoiser(nn.Module):
         mem_unc = self._build_memory(cond_unc, time_emb, shared)
         out7, att = self.decoder.guided(x7, mem_real, mem_unc, time_emb,
                                         masks_real, masks_unc)
+        # the stack's final norm, in latent_proj's dtype
+        out7 = layer_norm.normalize(self.decoder.norm, out7, self.latent_proj)
         return self.latent_proj(out7), att
 
 

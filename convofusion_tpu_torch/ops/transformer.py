@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from convofusion_tpu_torch.ops.attention import MultiheadAttention
+from convofusion_tpu_torch.ops import layer_norm
 from convofusion_tpu_torch.ops.cross_attend import grouped_cross_attend
 from convofusion_tpu_torch.ops.layers import (
     Dropout,
@@ -240,6 +241,14 @@ class TimeBlock(nn.Module):
         h = self.norm(h) * (1 + scale) + shift
         return self.out_layers(h)
 
+    def guided(self, h, emb):
+        """``forward`` with the norm, the modulation and the SiLU as one
+        ``ops/layer_norm.normalize`` (one CUDA kernel on a card)."""
+        scale, shift = self.emb_layers(emb).chunk(2, dim=-1)
+        _, drop, linear = self.out_layers
+        return linear(drop(layer_norm.normalize(self.norm, h, linear, scale,
+                                                shift, drop)))
+
 
 class TransformerDecoderLayer2Att(_FFN):
     """Denoiser layer (pre-norm): self-attn, TimeBlock, five parallel
@@ -248,9 +257,11 @@ class TransformerDecoderLayer2Att(_FFN):
 
     ``guided`` runs the seven classifier-free-guidance branches at once:
     the memory-side LayerNorm + K/V run once per variant (real / uncond)
-    instead of once per branch, and each stream's attention core is
+    instead of once per branch, each stream's attention core is
     ``ops/cross_attend.grouped_cross_attend`` (one CUDA kernel a stream on
-    a card)."""
+    a card), and each LayerNorm comes out of ``ops/layer_norm.normalize``
+    in the dtype of the Linear that reads it (one CUDA kernel a norm on a
+    card); the residual stream stays fp32."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", normalize_before: bool = True,
@@ -328,16 +339,22 @@ class TransformerDecoderLayer2Att(_FFN):
         masks_real = masks_real or {}
         masks_unc = masks_unc or {}
         # per stream, the memory LayerNorm + K/V of both guidance variants
-        kv = {s: (self._kv(s, mem_real[s]), self._kv(s, mem_unc[s]))
-              for s in COND_STREAMS}
+        kv = {}
+        for s in COND_STREAMS:
+            mod, norm = self._cross(s)
+            kv[s] = tuple(mod.project_kv(layer_norm.normalize(norm, mem, mod))
+                          for mem in (mem_real[s], mem_unc[s]))
         g, b, tq, d = tgt7.shape
 
-        flat = self.norm1(tgt7).reshape(g * b, tq, d)
+        flat = layer_norm.normalize(self.norm1, tgt7, self.self_attn).reshape(
+            g * b, tq, d)
         sa, _ = self.self_attn(flat, flat, flat, need_weights=False)
         tgt7 = tgt7 + self.drop(sa.reshape(g, b, tq, d))
-        tgt7 = tgt7 + self.time_block1(tgt7, time_embed[None])
+        tgt7 = tgt7 + self.time_block1.guided(tgt7, time_embed[None])
 
-        tgt2 = self.norm2(tgt7)
+        # one norm for the five streams' query projections
+        tgt2 = layer_norm.normalize(self.norm2, tgt7,
+                                    self._cross(COND_STREAMS[0])[0])
         branch_outs, att = [], {}
         for s in COND_STREAMS:
             mod, _ = self._cross(s)
@@ -351,8 +368,9 @@ class TransformerDecoderLayer2Att(_FFN):
             branch_outs.append(mod.out_proj(out))
         tgt7 = tgt7 + self.drop(self.att_fuser(torch.cat(branch_outs,
                                                          dim=-1)))
-        tgt7 = tgt7 + self.time_block2(tgt7, time_embed[None])
-        tgt7 = tgt7 + self.drop(self.ffn(self.norm3(tgt7)))
+        tgt7 = tgt7 + self.time_block2.guided(tgt7, time_embed[None])
+        tgt7 = tgt7 + self.drop(self.ffn(layer_norm.normalize(
+            self.norm3, tgt7, self.linear1)))
         return tgt7, att
 
 
@@ -402,12 +420,14 @@ class DenoiserDecoder(_Stack):
 
     def guided(self, tgt7, mem_real, mem_unc, time_embed, masks_real=None,
                masks_unc=None):
+        """The layers' ``guided``, without the final norm: ``Denoiser.guided``
+        applies it in the dtype of the Linear that reads it."""
         out, per_layer = tgt7, []
         for layer in self.layers:
             out, att = layer.guided(out, mem_real, mem_unc, time_embed,
                                     masks_real, masks_unc)
             per_layer.append(att)
-        return self.norm(out), self._stack(per_layer)
+        return out, self._stack(per_layer)
 
 
 class FusedTransformerDecoderLayer2Att(_FFN):
