@@ -31,13 +31,16 @@ step kernel must be among them):
                kernel and plain version, each replayed from a CUDA graph,
                against the byte bound, per stream and a layer's five;
                the guided LayerNorm kernel, through normalize, against
-               its plain version at every geometry of the guided calls at
-               (B, Tq) of LN_BATCHES (at most 1 bf16 ulp on at most 0.1%
-               of the elements), a CUDA graph's replay bit-equal to the
-               eager call, and at batch 32 CUDA-event times of kernel,
-               plain version and F.layer_norm + cast, each replayed from
-               a CUDA graph, against the byte bound, per norm and a
-               layer's 15
+               its plain version at every residual-stream geometry of the
+               guided calls at (B, Tq) of LN_BATCHES (at most 1 bf16 ulp
+               on at most 0.1% of the elements), its memory entry, through
+               normalize_memory, bit-equal to the per-norm kernel and as
+               close to the plain version at each batch's memory, a CUDA
+               graph's replay bit-equal to the eager call for each entry,
+               and at batch 32 CUDA-event times of kernel, plain version
+               and F.layer_norm + cast, each replayed from a CUDA graph,
+               against the byte bound, per norm, of the memory entry
+               against the 90 per-layer norms it replaces, and a layer's
   4. parity  - production geometry, fp32, batch 2, DDIM-20, seeded weights,
                numpy-made inputs and noise: sample() on the card (through
                the kernel) against sample() on the CPU (plain version)
@@ -47,9 +50,9 @@ step kernel must be among them):
                kernel launches and 50 replays of the guided denoiser's
                CUDA graph per call (one capture); 45 cross-attention
                launches in the capture's warm-up and 45 in the capture,
-               none in a replay, none of the plain version; 136 LayerNorm
-               launches in each of the two and none in a replay, none of
-               the plain version; clips/s,
+               none in a replay, none of the plain version; 46 LayerNorm
+               launches and 1 memory_norms launch in each of the two and
+               none in a replay, none of the plain version; clips/s,
                ms/call, peak memory; at batch 32 and 96 the graphed sample() against
                the eager guided loop from one noise, bit-equal;
                one call split into encode / reverse / decode, and a
@@ -389,15 +392,18 @@ CROSS_CASES = {"published": (32, 16, 1), "b1": (1, 16, 1),
 CROSS_RTOL = 1e-2     # relative RMS, on the output and on the weights
 # the guided LayerNorm kernel (phase 3): the batches whose guided calls it
 # is held at (the sampling cell's 32, the main path's 96, the service's
-# 20, a batch of 1), Tq 16 and, for raw motion, 128; each stream's memory
-# rows (Tk, stored dtype); PyTorch's LayerNorm sums in an order the kernel
-# repeats, but its build may contract another multiply-add than the
-# kernel's __fmaf_rn: at most LN_MAX_ULPS bf16 ulp on at most
-# LN_MAX_DIFFER of the elements
+# 20, a batch of 1), Tq 16 and, for raw motion, 128; the residual stream's
+# rows are bf16 on the path (and timed in fp32 too, for comparison); each
+# stream's memory rows (Tk), fp32 in a bf16 model (the bf16 conditions
+# plus fp32 position encodings) or, "mixed", three streams in bf16, all
+# through the second entry, memory_norms; PyTorch's LayerNorm sums in an
+# order the kernel repeats, but its build may contract another
+# multiply-add than the kernel's __fmaf_rn: at most LN_MAX_ULPS bf16 ulp on
+# at most LN_MAX_DIFFER of the elements
 LN_BATCHES = ((32, 16), (BATCH, 16), (20, 16), (1, 16), (32, 128))
-LN_STREAMS = {"spkemb": (64, "bfloat16"), "alsn": (161, "bfloat16"),
-              "tlsn": (64, "bfloat16"), "apb": (8, "float32"),
-              "lsnemb": (1, "float32")}
+LN_TK = {"spkemb": 64, "alsn": 161, "tlsn": 64, "apb": 8, "lsnemb": 1}
+LN_MEMORY = {"float32": ("float32",) * 5,
+             "mixed": ("bfloat16",) * 3 + ("float32",) * 2}
 LN_MAX_ULPS, LN_MAX_DIFFER = 1, 1e-3
 PEAK_FP32_FLOPS = 67e12
 # guided_step per element: 8 for the guidance combine, 5 for x0 and its
@@ -985,15 +991,101 @@ def phase_cross_attend(flush):
 
 
 def ln_geometries(b, tq):
-    """The ``ln_mod.geometry`` of each LayerNorm of a guided call at batch
-    ``b`` and Tq ``tq`` with batch-1 uncond rows: norm1-3 and the final
-    norm, the TimeBlocks' (with the epilogue), each stream's memory norm
-    of both variants."""
+    """The ``ln_mod.geometry`` of each residual-stream LayerNorm of a
+    guided call at batch ``b`` and Tq ``tq``: norm1-3 and the final norm,
+    the TimeBlocks' (with the epilogue), in bf16 (the path's) and fp32."""
     rows, d = 7 * b * tq, PRODUCTION["denoiser"]["text_encoded_dim"]
-    geoms = {(rows, d, "float32", None), (rows, d, "float32", (tq, b))}
-    for tk, dtype in LN_STREAMS.values():
-        geoms |= {(b * tk, d, dtype, None), (tk, d, dtype, None)}
-    return geoms
+    return {(rows, d, dtype, mod) for dtype in ("bfloat16", "float32")
+            for mod in (None, (tq, b))}
+
+
+def mem_geometry(b, dtypes, n_layers=None):
+    """The ``ln_mod.memory_geometry`` of a guided call's memory norms at
+    batch ``b`` with batch-1 uncond rows, the streams in ``dtypes``."""
+    n_layers = n_layers or PRODUCTION["denoiser"]["num_layers"]
+    return (n_layers, PRODUCTION["denoiser"]["text_encoded_dim"], tuple(
+        (b * tk, tk, dt, dt) for tk, dt in zip(LN_TK.values(), dtypes)))
+
+
+def mem_inputs(geom, seed):
+    """Seeded memories of a memory geometry ((rows, D) a variant in its
+    dtype) and drawn norms with a bf16 consumer, (norm, consumer) a stream
+    a layer."""
+    n_layers, d, streams = geom
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    mems = [tuple((2 * randn(n, d) + 0.3).to(getattr(torch, dtype))
+                  for n, dtype in ((r, dr), (u, du)))
+            for r, u, dr, du in streams]
+    consumer = layers.Linear(8, 8, dtype=torch.bfloat16).cuda()
+    norms = []
+    for _ in range(n_layers):
+        row = []
+        for _ in streams:
+            norm = layers.LayerNorm(d).cuda()
+            with torch.no_grad():
+                norm.weight.copy_(1 + 0.1 * randn(d))
+                norm.bias.copy_(0.1 * randn(d))
+            row.append((norm, consumer))
+        norms.append(row)
+    return mems, norms
+
+
+def mem_norm_launches(mems, norms):
+    """The memory norms through the kernel's first entry, one launch a
+    (layer, stream, variant), as the layers ran them before memory_norms
+    (the geometries this adds to ``layer_norm.shapes`` are not the path's:
+    taken out again)."""
+    shapes = set(ln_mod.layer_norm.shapes)
+    out = [ln_mod.layer_norm(x, norm) for layer in norms
+           for (norm, _), pair in zip(layer, mems) for x in pair]
+    ln_mod.layer_norm.shapes.intersection_update(shapes)
+    return out
+
+
+def mem_per_norm(mems, norms):
+    """``mem_norm_launches`` in memory_norms' layout."""
+    d = mems[0][0].shape[-1]
+    per = iter(mem_norm_launches(mems, norms))
+    return torch.stack([torch.cat([next(per).reshape(-1, d)
+                                   for _ in range(2 * len(layer))])
+                        for layer in norms])
+
+
+def mem_check(geom, seed):
+    """``memory_norms``, through ``normalize_memory`` as
+    ``DenoiserDecoder.guided`` calls it, at ``geom``: one launch,
+    bit-equal to the per-norm kernel, within LN_MAX_ULPS / LN_MAX_DIFFER of
+    the plain version; raises otherwise.  The gap to the plain version."""
+    mems, norms = mem_inputs(geom, seed)
+    launches = COUNTS["layer_norm.memory_launches"]
+    with torch.no_grad():
+        got = ln_mod.normalize_memory(mems, norms)
+        per_norm = mem_per_norm(mems, norms)
+        want = ln_mod.memory_norms_reference(mems, norms)
+    torch.cuda.synchronize()
+    if COUNTS["layer_norm.memory_launches"] != launches + 1:
+        raise RuntimeError(f"memory_norms {geom}: not one launch")
+    if not torch.equal(got, per_norm):
+        raise RuntimeError(f"memory_norms {geom}: not bit-equal to the "
+                           f"per-norm kernel")
+    gap = ln_gap(got, want)
+    if gap["ulps"] > LN_MAX_ULPS or gap["differ"] > LN_MAX_DIFFER:
+        raise RuntimeError(f"memory_norms {geom}: {gap} past {LN_MAX_ULPS} "
+                           f"ulps on {LN_MAX_DIFFER:.1%}")
+    return gap
+
+
+def mem_bytes(mems, n_layers):
+    """Bytes the memory norms must move: each row read once in its dtype,
+    each layer's bf16 rows written, each layer's weight and bias."""
+    d = mems[0][0].shape[-1]
+    rows = sum(x.numel() // d for pair in mems for x in pair)
+    return (sum(x.numel() * x.element_size() for pair in mems for x in pair)
+            + n_layers * rows * d * 2 + n_layers * len(mems) * 2 * d * 4)
 
 
 def ln_inputs(geom, seed, unit=False):
@@ -1067,23 +1159,34 @@ def ln_bytes(x, scale):
 
 def phase_layer_norm(flush):
     """The guided LayerNorm kernel, through ``normalize``, against its plain
-    version at every geometry of LN_BATCHES' guided calls (ln_check); at
-    the sampling cell's batch 32 CUDA-event times, each replayed from a
-    CUDA graph, of the kernel (L2 flushed, and back to back), the plain
-    version and ``F.layer_norm`` + the bf16 cast (in the input's dtype:
-    the library's yardstick, without the epilogue) against the byte
-    bound, per norm and over a layer's 15; the first layer's expanded
-    branches; a graph's replay bit-equal to the eager call.  Returns the
-    results and the geometries held."""
+    version at every residual-stream geometry of LN_BATCHES' guided calls
+    (ln_check), and its second entry, through ``normalize_memory``, against
+    the per-norm kernel and the plain version at each batch's memory
+    (mem_check); at the sampling cell's batch 32 CUDA-event times, each
+    replayed from a CUDA graph, of the kernel (L2 flushed, and back to
+    back), the plain version and ``F.layer_norm`` + the bf16 cast (in the
+    input's dtype: the library's yardstick, without the epilogue) against
+    the byte bound, per norm, and of the memory entry against the 90
+    per-layer norms it replaces, the plain version and its byte bound; a
+    layer's norms (5, and a ninth of the memory entry); the first layer's
+    expanded branches; a graph's replay bit-equal to the eager call, for
+    each entry.  Returns the results and the geometries held, per entry."""
     checked, worst = set(), dict(ulps=0, differ=0.0)
     for i, (b, tq) in enumerate(LN_BATCHES):
         for j, geom in enumerate(sorted(ln_geometries(b, tq), key=str)):
             gap = ln_check(geom, 61 + 20 * i + j)
             checked.add(geom)
             worst = {k: max(worst[k], gap[k]) for k in worst}
+    mem_checked, mem_worst = set(), dict(ulps=0, differ=0.0)
+    for i, b in enumerate(sorted({b for b, _ in LN_BATCHES})):
+        for j, dtypes in enumerate(LN_MEMORY.values()):
+            geom = mem_geometry(b, dtypes)
+            gap = mem_check(geom, 161 + 10 * i + j)
+            mem_checked.add(geom)
+            mem_worst = {k: max(mem_worst[k], gap[k]) for k in mem_worst}
     # the first layer's norm1 reads the branches as one expanded tensor
     d = PRODUCTION["denoiser"]["text_encoded_dim"]
-    x, norm, _, _ = ln_inputs((32 * 16, d, "float32", None), 60)
+    x, norm, _, _ = ln_inputs((32 * 16, d, "bfloat16", None), 60)
     x = x.reshape(1, 32, 16, -1).expand(7, 32, 16, -1)
     with torch.no_grad():
         gap = ln_gap(ln_mod.layer_norm(x, norm),
@@ -1091,22 +1194,26 @@ def phase_layer_norm(flush):
     if gap["ulps"] > LN_MAX_ULPS or gap["differ"] > LN_MAX_DIFFER:
         raise RuntimeError(f"layer_norm over expanded branches: {gap}")
     worst = {k: max(worst[k], gap[k]) for k in worst}
-    log(f"# kernel layer_norm: {len(checked)} geometries of the guided calls"
-        f" at (B, Tq) {list(LN_BATCHES)}, drawn and unit weights: at most "
-        f"{worst['ulps']} bf16 ulps, {worst['differ']:.4%} of elements differ"
-        f" (limits {LN_MAX_ULPS} ulp, {LN_MAX_DIFFER:.1%})")
-    # a layer's 15 norms at the sampling cell's batch: norm1-3, the two
-    # TimeBlocks, the memory norms of both variants
+    log(f"# kernel layer_norm: {len(checked)} residual-stream geometries of"
+        f" the guided calls at (B, Tq) {list(LN_BATCHES)}, drawn and unit "
+        f"weights: at most {worst['ulps']} bf16 ulps, {worst['differ']:.4%}"
+        f" of elements differ (limits {LN_MAX_ULPS} ulp, "
+        f"{LN_MAX_DIFFER:.1%})")
+    log(f"# kernel memory_norms: {len(mem_checked)} memory geometries "
+        f"(batches {sorted({b for b, _ in LN_BATCHES})}, {list(LN_MEMORY)})"
+        f": bit-equal to the per-norm kernel, at most {mem_worst['ulps']} "
+        f"bf16 ulps and {mem_worst['differ']:.4%} of elements from the plain"
+        f" version")
+    # a layer's 5 residual-stream norms at the sampling cell's batch (the
+    # path's bf16 rows; the same rows in fp32 are timed for comparison)
     rows = 7 * 32 * 16
-    layer = [(rows, d, "float32", None)] * 3 + \
-        [(rows, d, "float32", (16, 32))] * 2
-    for tk, dtype in LN_STREAMS.values():
-        layer += [(32 * tk, d, dtype, None), (tk, d, dtype, None)]
+    layer = [(rows, d, "bfloat16", None)] * 3 + \
+        [(rows, d, "bfloat16", (16, 32))] * 2
     pool = cuda_graphs.GraphPool()
     timed, sums = [], dict(ms=0.0, warm_ms=0.0, plain_ms=0.0,
                            library_ms=0.0, bound_ms=0.0)
     with torch.no_grad():
-        for geom in sorted(set(layer), key=str):
+        for geom in sorted(ln_geometries(32, 16), key=str):
             x, norm, scale, shift = ln_inputs(geom, 7)
             w, bias = norm.weight.to(x.dtype), norm.bias.to(x.dtype)
             kernel, _ = pool.capture(
@@ -1133,15 +1240,43 @@ def phase_layer_norm(flush):
                 f"{row['plain_ms'] * 1e3:.2f} us, F.layer_norm + cast "
                 f"{row['library_ms'] * 1e3:.2f} us, bound "
                 f"{row['bound_ms'] * 1e3:.2f} us (bytes)")
+        # the memory entry at the path's geometry against the 90 per-layer
+        # norms it replaces
+        geom = mem_geometry(32, LN_MEMORY["float32"])
+        mems, norms = mem_inputs(geom, 7)
+        entry, _ = pool.capture(lambda: ln_mod.memory_norms(mems, norms),
+                                "cuda")
+        per_norm, _ = pool.capture(lambda: mem_norm_launches(mems, norms),
+                                   "cuda")
+        plain, _ = pool.capture(
+            lambda: ln_mod.memory_norms_reference(mems, norms), "cuda")
+        memory = dict(
+            geometry=[geom[0], geom[1], [list(g) for g in geom[2]]],
+            ms=_event_median_ms(entry.replay, flush),
+            warm_ms=_back_to_back_ms(entry.replay),
+            per_norm_ms=_event_median_ms(per_norm.replay, flush),
+            per_norm_warm_ms=_back_to_back_ms(per_norm.replay),
+            plain_ms=_event_median_ms(plain.replay, flush),
+            bound_ms=mem_bytes(mems, geom[0]) / PEAK_BYTES_PER_S * 1e3)
+    log(f"# kernel memory_norms at batch 32, {geom[0]} layers, fp32 rows: "
+        f"{memory['ms'] * 1e3:.2f} us L2 flushed "
+        f"({memory['bound_ms'] / memory['ms']:.1%} of the byte bound "
+        f"{memory['bound_ms'] * 1e3:.2f} us), back to back "
+        f"{memory['warm_ms'] * 1e3:.2f} us "
+        f"({memory['bound_ms'] / memory['warm_ms']:.1%}); the 90 per-layer "
+        f"norms it replaces {memory['per_norm_ms'] * 1e3:.2f} us flushed, "
+        f"{memory['per_norm_warm_ms'] * 1e3:.2f} us back to back; plain "
+        f"{memory['plain_ms'] * 1e3:.2f} us")
+    for k in ("ms", "warm_ms", "plain_ms", "bound_ms"):
+        sums[k] += memory[k] / geom[0]
     share = {k: sums["bound_ms"] / sums[k] for k in ("ms", "warm_ms")}
-    log(f"# kernel layer_norm: a layer's 15 norms at batch 32: kernel "
-        f"{sums['ms'] * 1e3:.2f} us L2 flushed ({share['ms']:.1%} of the "
-        f"byte bound {sums['bound_ms'] * 1e3:.2f} us), back to back "
-        f"{sums['warm_ms'] * 1e3:.2f} us ({share['warm_ms']:.1%}), plain "
-        f"{sums['plain_ms'] * 1e3:.2f} us, F.layer_norm + cast "
-        f"{sums['library_ms'] * 1e3:.2f} us")
+    log(f"# kernel layer_norm: a layer's norms at batch 32 (5 and a "
+        f"{geom[0]}th of the memory entry): {sums['ms'] * 1e3:.2f} us L2 "
+        f"flushed ({share['ms']:.1%} of the byte bound "
+        f"{sums['bound_ms'] * 1e3:.2f} us), back to back "
+        f"{sums['warm_ms'] * 1e3:.2f} us ({share['warm_ms']:.1%})")
     # a graph's replay on new inputs against the eager call
-    geom = (rows, d, "float32", (16, 32))
+    geom = (rows, d, "bfloat16", (16, 32))
     x, norm, scale, shift = ln_inputs(geom, 8)
     static = x.clone()
     with torch.no_grad():
@@ -1154,9 +1289,26 @@ def phase_layer_norm(flush):
     if not torch.equal(out, eager):
         raise RuntimeError("layer_norm: a graph replay differs from the "
                            "eager call")
-    log("# kernel layer_norm: a CUDA graph's replay on new inputs bit-equal "
-        "to the eager call")
-    return dict(layer=sums, norms=timed, worst=worst), checked
+    # and the memory entry's, on new memories and a weight updated in place
+    geom = mem_geometry(32, LN_MEMORY["mixed"])
+    mems, norms = mem_inputs(geom, 10)
+    with torch.no_grad():
+        graph, out = pool.capture(lambda: ln_mod.memory_norms(mems, norms),
+                                  "cuda")
+        for pair, new in zip(mems, mem_inputs(geom, 11)[0]):
+            for a, b in zip(pair, new):
+                a.copy_(b)
+        norms[4][2][0].weight.mul_(1.5)
+        graph.replay()
+        eager = ln_mod.memory_norms(mems, norms)
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        raise RuntimeError("memory_norms: a graph replay differs from the "
+                           "eager call")
+    log("# kernel layer_norm, memory_norms: a CUDA graph's replay on new "
+        "inputs (and an updated weight) bit-equal to the eager call")
+    return (dict(layer=sums, norms=timed, worst=worst, memory=memory,
+                 memory_worst=mem_worst), checked, mem_checked)
 
 
 def record_ln_plain_calls():
@@ -4721,17 +4873,19 @@ def phase_main(smi):
     # capture's eager warm-up and once in the capture, never in a replay
     cores = len(model.denoiser.decoder.layers) * len(COND_STREAMS)
     cross = []
-    # the guided LayerNorm kernel: 15 norms a layer and the final one, each
-    # once in the capture's warm-up and once in the capture
+    # the guided LayerNorm kernel: 5 norms a layer and the final one, and
+    # one memory launch for every layer's memory norms, each once in the
+    # capture's warm-up and once in the capture
     ln_plain = COUNTS["layer_norm.plain"]
-    norms = 15 * len(model.denoiser.decoder.layers) + 1
-    ln = []
+    norms = 5 * len(model.denoiser.decoder.layers) + 1
+    ln, mem = [], []
     times = []
     for call in range(1 + TIMED_CALLS):
         before = COUNTS["guided_step.launches"]
         replays = COUNTS["denoiser.graph_replays"]
         cross_before = COUNTS["cross_attend.launches"]
         ln_before = COUNTS["layer_norm.launches"]
+        mem_before = COUNTS["layer_norm.memory_launches"]
         t0 = time.perf_counter()
         motion, latents = model.sample(batch, gen)
         torch.cuda.synchronize()
@@ -4754,6 +4908,11 @@ def phase_main(smi):
             raise RuntimeError(
                 f"call {call}: {ln[-1]} layer_norm launches, want "
                 f"{0 if call else 2 * norms}")
+        mem.append(COUNTS["layer_norm.memory_launches"] - mem_before)
+        if mem[-1] != (0 if call else 2):
+            raise RuntimeError(
+                f"call {call}: {mem[-1]} memory_norms launches, want "
+                f"{0 if call else 2}")
         if tuple(motion.shape) != (BATCH, 128, 189) or \
                 not torch.isfinite(motion).all() or \
                 not torch.isfinite(latents).all():
@@ -4773,9 +4932,11 @@ def phase_main(smi):
     if COUNTS["layer_norm.plain"] != ln_plain:
         raise RuntimeError(f"{COUNTS['layer_norm.plain'] - ln_plain} guided "
                            f"LayerNorms took the plain version")
-    PHASE_RESULTS["layer_norm_main"] = {"by_call": ln, "plain": 0}
+    PHASE_RESULTS["layer_norm_main"] = {"by_call": ln,
+                                        "memory_by_call": mem, "plain": 0}
     log(f"# main: layer_norm launches by call {ln} ({norms} a capture's "
-        f"warm-up and {norms} in the capture, none a replay), 0 plain")
+        f"warm-up and {norms} in the capture, none a replay), memory_norms "
+        f"launches by call {mem}, 0 plain")
     if COUNTS["denoiser.graph_captures"] - captures != 1:
         raise RuntimeError(
             f"{COUNTS['denoiser.graph_captures'] - captures} guided graph "
@@ -4958,7 +5119,7 @@ def main(argv=None):
         torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
     log(f"# phase 3 cross_attend: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    norms, ln_checked = phase_layer_norm(
+    norms, ln_checked, mem_checked = phase_layer_norm(
         torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
     log(f"# phase 3 layer_norm: {time.perf_counter() - t0:.1f} s")
     plain_calls = record_plain_calls()
@@ -4998,7 +5159,8 @@ def main(argv=None):
         cross_before = (COUNTS["cross_attend.launches"],
                         COUNTS["cross_attend.plain"], len(plain_calls))
         ln_before = (COUNTS["layer_norm.launches"],
-                     COUNTS["layer_norm.plain"], len(ln_plain_calls))
+                     COUNTS["layer_norm.plain"], len(ln_plain_calls),
+                     COUNTS["layer_norm.memory_launches"])
         t0 = time.perf_counter()
         launches = runs[number]()
         log(f"# phase {number} {name}: {time.perf_counter() - t0:.1f} s")
@@ -5019,6 +5181,8 @@ def main(argv=None):
         plain = ln_plain_calls[ln_before[2]:]
         ln_by_phase[name] = dict(
             launches=COUNTS["layer_norm.launches"] - ln_before[0],
+            memory_launches=(COUNTS["layer_norm.memory_launches"]
+                             - ln_before[3]),
             plain=COUNTS["layer_norm.plain"] - ln_before[1],
             plain_bf16_no_grad=sum(d == torch.bfloat16 and not g
                                    for d, g, _ in plain))
@@ -5071,6 +5235,17 @@ def main(argv=None):
         f"epilogue (rows a batch row, batch rows)): at most "
         f"{ln_path['ulps']} bf16 "
         f"ulps, {ln_path['differ']:.4%} of elements differ")
+    # and its memory entry likewise
+    mem_unchecked = ln_mod.memory_norms.shapes - mem_checked
+    mem_path = dict(ulps=0, differ=0.0)
+    for i, geom in enumerate(sorted(mem_unchecked, key=str)):
+        gap = mem_check(geom, 191 + i)
+        mem_path = {k: max(mem_path[k], gap[k]) for k in mem_path}
+    log(f"# kernel memory_norms at the path's other geometries "
+        f"{sorted(mem_unchecked, key=str)} (layers, width, per stream real "
+        f"and uncond rows and dtypes): bit-equal to the per-norm kernel, "
+        f"at most {mem_path['ulps']} bf16 ulps, {mem_path['differ']:.4%} of "
+        f"elements differ from the plain version")
 
     main_row = rows["ddim/bfloat16"]   # the main path's variant and dtype
     kernels = [{
@@ -5138,11 +5313,20 @@ def main(argv=None):
         "path_geometries": [[g[0], g[1], g[2] and list(g[2])]
                             for g in sorted(ln_unchecked, key=str)],
         "path_gaps": ln_path,
+        # a layer's norms: the 5 residual-stream norms and a ninth of the
+        # memory entry (the library's yardstick over the 5 alone)
         "layer_ms": norms["layer"]["ms"],
         "layer_warm_ms": norms["layer"]["warm_ms"],
         "layer_plain_ms": norms["layer"]["plain_ms"],
         "layer_library_ms": norms["layer"]["library_ms"],
         "layer_bound_ms": norms["layer"]["bound_ms"],
+        # the memory entry: its phase 3 times against the 90 per-layer
+        # norms it replaces, its gaps, the path's other geometries
+        "memory": norms["memory"],
+        "memory_gaps": norms["memory_worst"],
+        "memory_path_geometries": [[g[0], g[1], [list(r) for r in g[2]]]
+                                   for g in sorted(mem_unchecked, key=str)],
+        "memory_path_gaps": mem_path,
         "bound_by": "bytes",
         "norms": norms["norms"],
     }]

@@ -24,14 +24,26 @@ take raises rather than running the plain version; so does an active
 dropout between the epilogue and the Linear on that route.  It counts
 ``layer_norm.launches`` (host launches of the kernel; a graph replay
 launches none) and ``layer_norm.plain`` (on-card calls that took the plain
-version).  The kernel is built by ``ops/nvcc.py`` at first use, or from
-``start_build`` on, and loaded with ctypes.
+version).
+
+``normalize_memory`` does the same for every memory norm of a guided call
+at once (each layer's norm of each condition stream, over the stream's
+real and uncond memory): the rows are the same for every layer, so the
+kernel's second entry, ``memory_norms``, reads each row and computes its
+statistics once and writes one bf16 buffer (layers, rows, D), per layer
+the streams' real rows, then their uncond rows, so that one GEMM a
+(layer, stream) projects both variants.  ``memory_norms_reference`` is its
+plain version, the same layout from ``layer_norm_reference``.  It counts
+``layer_norm.memory_launches``, and ``layer_norm.plain`` once for an
+on-card call that took the plain version.  The kernel is built by
+``ops/nvcc.py`` at first use, or from ``start_build`` on, and loaded with
+ctypes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +53,8 @@ from convofusion_tpu_torch.ops import nvcc
 from convofusion_tpu_torch.utils import profiling
 
 MAX_D = 1024          # the widest row the kernel takes (csrc kMaxD)
+MAX_STREAMS = 8       # memory_norms: streams a call (csrc kMaxStreams)
+MAX_NORMS = 128       # (layer, stream) affines a launch (csrc kMaxNorms)
 
 SOURCE = nvcc.CSRC / "layer_norm.cu"
 LIBRARY = nvcc.BUILD / "liblayer_norm.so"
@@ -60,6 +74,23 @@ def layer_norm_reference(x: torch.Tensor, norm, dtype: torch.dtype,
     if scale is not None:
         y = F.silu(y * (1 + scale) + shift)
     return y.to(dtype)
+
+
+# a stream's memory: (real (B, Tk, D), uncond (B or 1, Tk', D)); a layer's
+# memory norms: (norm, consumer) a stream, in the order of the memories
+Memory = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+Norms = Sequence[Sequence[Tuple[torch.nn.Module, torch.nn.Module]]]
+
+
+def memory_norms_reference(mems: Memory, norms: Norms) -> torch.Tensor:
+    """(layers, rows, D): per layer of ``norms``, each stream's real then
+    uncond rows of ``mems`` through that layer's norm of the stream,
+    rounded to its consumer's dtype (``layer_norm_reference``)."""
+    return torch.stack([torch.cat([
+        layer_norm_reference(x, norm, _dtype(consumer)).reshape(
+            -1, x.shape[-1])
+        for (norm, consumer), pair in zip(layer, mems) for x in pair])
+        for layer in norms])
 
 
 # ------------------------------------------------------------- the rule
@@ -112,6 +143,20 @@ def normalize(norm, x: torch.Tensor, consumer,
                                 _dtype(consumer), scale, shift)
 
 
+def normalize_memory(mems: Memory, norms: Norms) -> torch.Tensor:
+    """Every memory norm of a guided call, as ``memory_norms_reference``
+    lays them out: :func:`memory_norms` where :func:`plain_reason` finds
+    nothing for any consumer, else the plain version."""
+    x = mems[0][0]
+    reason = next((r for layer in norms for _, consumer in layer
+                   if (r := plain_reason(x, consumer)) is not None), None)
+    if reason is None:
+        return memory_norms(mems, norms)
+    if x.device.type == "cuda":
+        profiling.count("layer_norm.plain")
+    return memory_norms_reference(mems, norms)
+
+
 # -------------------------------------------------------------- the kernel
 
 def start_build() -> None:
@@ -137,15 +182,37 @@ class _CParams(ctypes.Structure):
         + [("eps", ctypes.c_float)])
 
 
+class _CSegment(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p)] + [
+        (n, ctypes.c_longlong) for n in ("rows", "x_inner", "x_outer")] + [
+        ("x_bf16", ctypes.c_int)]
+
+
+class _CMemParams(ctypes.Structure):
+    _fields_ = [("seg", (_CSegment * 2) * MAX_STREAMS),
+                ("out_row", ctypes.c_longlong * MAX_STREAMS),
+                ("task_start", ctypes.c_longlong * (MAX_STREAMS + 1)),
+                ("weight", ctypes.c_void_p * MAX_NORMS),
+                ("bias", ctypes.c_void_p * MAX_NORMS),
+                ("y", ctypes.c_void_p), ("layer_rows", ctypes.c_longlong)] \
+        + [(n, ctypes.c_int) for n in ("streams", "layers", "d")] \
+        + [("eps", ctypes.c_float)]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(LIBRARY))
-    lib.layer_norm_params_bytes.restype = ctypes.c_int
-    lib.layer_norm.argtypes = [_CParams, ctypes.c_void_p]
-    lib.layer_norm.restype = ctypes.c_int
-    if lib.layer_norm_params_bytes() != ctypes.sizeof(_CParams):
-        raise RuntimeError("csrc Params and _CParams differ in size")
+    for entry, params in (("layer_norm", _CParams),
+                          ("memory_norms", _CMemParams)):
+        size = getattr(lib, f"{entry}_params_bytes")
+        size.restype = ctypes.c_int
+        launch = getattr(lib, entry)
+        launch.argtypes = [params, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        if size() != ctypes.sizeof(params):
+            raise RuntimeError(f"csrc {entry}'s parameters and "
+                               f"{params.__name__} differ in size")
     return lib
 
 
@@ -168,10 +235,7 @@ def _modulation_reason(x, scale, shift) -> Optional[str]:
     return None
 
 
-def unsupported(x: torch.Tensor, norm, scale=None, shift=None
-                ) -> Optional[str]:
-    """Why the kernel does not take these tensors, or None: dtypes, shapes,
-    strides and the norm first, the device last."""
+def _rows_reason(x: torch.Tensor) -> Optional[str]:
     if x.dtype not in (torch.float32, torch.bfloat16):
         return f"x is {x.dtype}, not fp32 or bf16"
     d = x.shape[-1] if x.dim() else 0
@@ -184,15 +248,29 @@ def unsupported(x: torch.Tensor, norm, scale=None, shift=None
             x.stride(0) * x.element_size() % align or x.data_ptr() % align:
         return (f"x not (N, ...) of contiguous {align}-byte aligned blocks "
                 f"(strides {x.stride()})")
+    return None
+
+
+def _norm_reason(norm, d: int, device: torch.device) -> Optional[str]:
     if tuple(norm.normalized_shape) != (d,) or \
             norm.weight is None or norm.bias is None:
         return f"a norm over {tuple(norm.normalized_shape)}, or without " \
                f"weight and bias"
     for name, t in (("weight", norm.weight), ("bias", norm.bias)):
         if t.dtype != torch.float32 or not t.is_contiguous() or \
-                t.device != x.device or t.data_ptr() % 16:
+                t.device != device or t.data_ptr() % 16:
             return f"the norm's {name} {t.dtype} on {t.device}: not " \
-                   f"contiguous aligned fp32 on {x.device}"
+                   f"contiguous aligned fp32 on {device}"
+    return None
+
+
+def unsupported(x: torch.Tensor, norm, scale=None, shift=None
+                ) -> Optional[str]:
+    """Why the kernel does not take these tensors, or None: dtypes, shapes,
+    strides and the norm first, the device last."""
+    reason = _rows_reason(x) or _norm_reason(norm, x.shape[-1], x.device)
+    if reason:
+        return reason
     if (scale is None) != (shift is None):
         return "scale without shift, or shift without scale"
     if scale is not None:
@@ -259,3 +337,89 @@ def geometry(x: torch.Tensor, scale: Optional[torch.Tensor] = None):
 # the geometries launched with: a coverage check, not a count (the
 # launches count in profiling.COUNTS)
 layer_norm.shapes = set()
+
+
+def memory_unsupported(mems: Memory, norms: Norms) -> Optional[str]:
+    """Why ``memory_norms`` does not take these memories and norms, or
+    None: the streams and layers, each memory as ``unsupported`` reads x,
+    one width, each norm, one eps, the device last."""
+    if not 0 < len(mems) <= MAX_STREAMS or not norms or \
+            any(len(layer) != len(mems) for layer in norms):
+        return (f"{len(mems)} streams (1 to {MAX_STREAMS}) and "
+                f"{[len(layer) for layer in norms]} norms a layer")
+    x0 = mems[0][0]
+    d = x0.shape[-1] if x0.dim() else 0
+    for pair in mems:
+        for x in pair:
+            reason = _rows_reason(x)
+            if reason:
+                return reason
+            if x.shape[-1] != d or x.device != x0.device:
+                return (f"memories of widths {x.shape[-1]} and {d} on "
+                        f"{x.device} and {x0.device}")
+    for layer in norms:
+        for norm, _ in layer:
+            reason = _norm_reason(norm, d, x0.device)
+            if reason:
+                return reason
+    eps = {_eps(norm.eps) for layer in norms for norm, _ in layer}
+    if len(eps) != 1:
+        return f"norms of eps {sorted(eps)}"
+    if x0.device.type != "cuda":
+        return f"on {x0.device}, not on a card"
+    return None
+
+
+def memory_norms(mems: Memory, norms: Norms) -> torch.Tensor:
+    """The kernel's ``memory_norms_reference`` in bf16: ``mems`` a (real,
+    uncond) pair of (N, ..., D) rows a stream, fp32 or bf16, each as
+    :func:`layer_norm` takes x; ``norms[layer][stream]`` (norm,
+    consumer).  One launch for every ``MAX_NORMS // streams`` layers.
+    Raises on what the kernel does not take (:func:`memory_unsupported`);
+    launches on the current stream and counts each launch."""
+    reason = memory_unsupported(mems, norms)
+    if reason:
+        raise ValueError(f"memory_norms: {reason}")
+    x0 = mems[0][0]
+    d, dev = x0.shape[-1], x0.device
+    p = _CMemParams()
+    rows = 0
+    for s, pair in enumerate(mems):
+        p.out_row[s] = rows
+        for seg, x in zip(p.seg[s], pair):
+            seg.x, seg.rows = x.data_ptr(), x.numel() // d
+            seg.x_inner, seg.x_outer = seg.rows // x.shape[0], x.stride(0)
+            seg.x_bf16 = int(x.dtype == torch.bfloat16)
+            rows += seg.rows
+    y = torch.empty((len(norms), rows, d), dtype=torch.bfloat16, device=dev)
+    p.layer_rows, p.streams, p.d = rows, len(mems), d
+    p.eps = _eps(norms[0][0][0].eps)
+    lib = _library()
+    per = MAX_NORMS // len(mems)
+    for first in range(0, len(norms), per):
+        chunk = norms[first:first + per]
+        p.y, p.layers = y[first].data_ptr(), len(chunk)
+        for i, (norm, _) in enumerate(n for layer in chunk for n in layer):
+            p.weight[i], p.bias[i] = (norm.weight.data_ptr(),
+                                      norm.bias.data_ptr())
+        with torch.cuda.device(dev):
+            err = lib.memory_norms(
+                p, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"memory_norms kernel launch failed: CUDA "
+                               f"error {err}")
+        profiling.count("layer_norm.memory_launches")
+    memory_norms.shapes.add(memory_geometry(mems, len(norms)))
+    return y
+
+
+def memory_geometry(mems: Memory, layers: int):
+    """What sets a ``memory_norms`` call's work: (layers, width, per stream
+    (real rows, uncond rows, real dtype, uncond dtype))."""
+    return (layers, mems[0][0].shape[-1], tuple(
+        (r.numel() // r.shape[-1], u.numel() // u.shape[-1],
+         str(r.dtype).split(".")[-1], str(u.dtype).split(".")[-1])
+        for r, u in mems))
+
+
+memory_norms.shapes = set()

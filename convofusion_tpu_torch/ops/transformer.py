@@ -256,12 +256,13 @@ class TransformerDecoderLayer2Att(_FFN):
     second TimeBlock, FFN.
 
     ``guided`` runs the seven classifier-free-guidance branches at once:
-    the memory-side LayerNorm + K/V run once per variant (real / uncond)
+    each stream's K/V is one GEMM over the real and the uncond memory rows
+    that ``DenoiserDecoder.guided`` normalized for every layer at once,
     instead of once per branch, each stream's attention core is
     ``ops/cross_attend.grouped_cross_attend`` (one CUDA kernel a stream on
-    a card), and each LayerNorm comes out of ``ops/layer_norm.normalize``
-    in the dtype of the Linear that reads it (one CUDA kernel a norm on a
-    card); the residual stream stays fp32."""
+    a card), and each other LayerNorm comes out of
+    ``ops/layer_norm.normalize`` in the dtype of the Linear that reads it
+    (one CUDA kernel a norm on a card); the residual stream stays fp32."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  activation: str = "gelu", normalize_before: bool = True,
@@ -331,19 +332,25 @@ class TransformerDecoderLayer2Att(_FFN):
         tgt = tgt + self.drop(self.ffn(self.norm3(tgt)))
         return tgt, att
 
-    def guided(self, tgt7, mem_real, mem_unc, time_embed,
-               masks_real=None, masks_unc=None):
-        """tgt7 (G, B, Tq, D) branch-major latents; mem_real[s] (B, Tk, D);
-        mem_unc[s] (B or 1, Tk, D); time_embed (B, 1, D).  Returns (tgt7,
-        att[s] (B, Tq, Tk)) with att from the full-condition branch."""
+    def guided(self, tgt7, memory, time_embed, masks_real=None,
+               masks_unc=None):
+        """tgt7 (G, B, Tq, D) branch-major latents; memory[s] = (rows,
+        real, unc): stream ``s``'s memory rows through this layer's
+        ``{s}_norm`` (``DenoiserDecoder.guided``), the real rows then the
+        uncond ones, and the real (B, Tk) and uncond (B or 1, Tk) shapes;
+        time_embed (B, 1, D).  Returns (tgt7, att[s] (B, Tq, Tk)) with att
+        from the full-condition branch."""
         masks_real = masks_real or {}
         masks_unc = masks_unc or {}
-        # per stream, the memory LayerNorm + K/V of both guidance variants
+        # per stream one K/V GEMM for both guidance variants; their keys
+        # and values are row views of its output
         kv = {}
         for s in COND_STREAMS:
-            mod, norm = self._cross(s)
-            kv[s] = tuple(mod.project_kv(layer_norm.normalize(norm, mem, mod))
-                          for mem in (mem_real[s], mem_unc[s]))
+            rows, real, unc = memory[s]
+            k, v = self._cross(s)[0].project_kv(rows)
+            n = real[0] * real[1]
+            kv[s] = ((k[:n].view(*real, -1), v[:n].view(*real, -1)),
+                     (k[n:].view(*unc, -1), v[n:].view(*unc, -1)))
         g, b, tq, d = tgt7.shape
 
         flat = layer_norm.normalize(self.norm1, tgt7, self.self_attn).reshape(
@@ -421,11 +428,22 @@ class DenoiserDecoder(_Stack):
     def guided(self, tgt7, mem_real, mem_unc, time_embed, masks_real=None,
                masks_unc=None):
         """The layers' ``guided``, without the final norm: ``Denoiser.guided``
-        applies it in the dtype of the Linear that reads it."""
+        applies it in the dtype of the Linear that reads it.  The memory
+        is the same for every layer: each layer's memory norms come out of
+        one ``ops/layer_norm.normalize_memory`` (one CUDA launch on a
+        card), each stream's real rows, then its uncond rows."""
+        mems = [(mem_real[s], mem_unc[s]) for s in COND_STREAMS]
+        normed = layer_norm.normalize_memory(mems, [
+            [(norm, mod) for mod, norm in map(layer._cross, COND_STREAMS)]
+            for layer in self.layers])
+        shapes = [(r.shape[:-1], u.shape[:-1]) for r, u in mems]
+        sizes = [r[0] * r[1] + u[0] * u[1] for r, u in shapes]
         out, per_layer = tgt7, []
-        for layer in self.layers:
-            out, att = layer.guided(out, mem_real, mem_unc, time_embed,
-                                    masks_real, masks_unc)
+        for layer, rows in zip(self.layers, normed):
+            memory = {s: (block, *shape) for s, block, shape in
+                      zip(COND_STREAMS, rows.split(sizes), shapes)}
+            out, att = layer.guided(out, memory, time_embed, masks_real,
+                                    masks_unc)
             per_layer.append(att)
         return out, self._stack(per_layer)
 
